@@ -4,7 +4,8 @@ Each shared library is compiled from one source file into `_build/` (listed
 in .gitignore), under a name keyed on a hash of the source and the compiler
 command, so an edited source is rebuilt and an unchanged one is reused.
 Concurrent builders (test workers) each compile to a private temporary
-name and atomically rename it into place.
+name and atomically rename it into place. `CudaKernel` is one CUDA source of
+csrc/ built with nvcc for sm_90a and its plain C launch function.
 """
 from __future__ import annotations
 
@@ -12,8 +13,12 @@ import ctypes
 import hashlib
 import os
 import subprocess
+import threading
 
 BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_build")
+CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC"]
 
 
 def build_shared(src: str, name: str, cmd_prefix: list[str]) -> str:
@@ -34,3 +39,37 @@ def build_shared(src: str, name: str, cmd_prefix: list[str]) -> str:
 
 def load(so: str) -> ctypes.CDLL:
     return ctypes.CDLL(so)
+
+
+def nvcc_path() -> str:
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    return os.path.join(home, "bin", "nvcc")
+
+
+class CudaKernel:
+    """csrc/<name>.cu, built with nvcc at first use, and its C function
+    `<name>_launch(...)`, which enqueues the kernel on the given stream and
+    returns cudaGetLastError(). Pointers and the stream go as c_void_p."""
+
+    def __init__(self, name: str, argtypes: list):
+        self.name = name
+        self.argtypes = argtypes
+        self._fn = None
+        self._lock = threading.Lock()
+
+    def get(self):
+        """Build (once per source hash) and load the launch function."""
+        with self._lock:
+            if self._fn is None:
+                src = os.path.join(CSRC, f"{self.name}.cu")
+                lib = load(build_shared(src, self.name, [nvcc_path()] + NVCC_FLAGS))
+                fn = getattr(lib, f"{self.name}_launch")
+                fn.restype = ctypes.c_int
+                fn.argtypes = self.argtypes
+                self._fn = fn
+            return self._fn
+
+    def launch(self, *args) -> None:
+        err = self.get()(*args)
+        if err != 0:
+            raise RuntimeError(f"{self.name} kernel launch failed: cudaError {err}")

@@ -57,9 +57,11 @@ def woop_transform(v0: np.ndarray, v1: np.ndarray, v2: np.ndarray) -> np.ndarray
     return out.astype(np.float32)
 
 
-def build_bvh(vertices: np.ndarray, with_host: bool = False):
+def build_bvh(vertices: np.ndarray, with_host: bool = False, device="cuda"):
     """Binned-SAH BVH over triangles given as (T, 3, 3) vertices, built by
-    the native SBVH builder. `with_host` also returns the host arrays."""
+    the native SBVH builder on the host, its tensors on `device` (the card
+    unless the caller asks for the CPU). `with_host` also returns the host
+    arrays."""
     tris = np.asarray(vertices, dtype=np.float32)
     T = tris.shape[0]
     if T == 0:
@@ -68,9 +70,9 @@ def build_bvh(vertices: np.ndarray, with_host: bool = False):
     order = np.clip(order, 0, T - 1).astype(np.int32)
     woop = woop_transform(tris[order, 0], tris[order, 1], tris[order, 2])
     bvh = BVH(
-        nodes=torch.from_numpy(node_arr),
-        woop=torch.from_numpy(woop),
-        tri_index=torch.from_numpy(order),
+        nodes=torch.from_numpy(node_arr).to(device),
+        woop=torch.from_numpy(woop).to(device),
+        tri_index=torch.from_numpy(order).to(device),
         root_code=np.int32(root),
         world_min=tris.min(axis=1).min(axis=0),
         world_max=tris.max(axis=1).max(axis=0),

@@ -1,12 +1,14 @@
 """Ray-triangle intersection and the intersector dispatch
 (port of cudatracerlib_tpu/accel/traversal.py: Hit, intersect_woop,
-intersect_brute_force, refine_hit, intersect_auto, occluded).
+intersect, intersect_brute_force, refine_hit, intersect_auto, occluded).
 
 Scenes up to DENSE_MAX_TRIS padded triangles go through the dense
-intersector (ops/intersect_dense.py: the CUDA kernel on the card, its plain
-version on the CPU). The BVH stack walk for larger scenes is not ported yet.
-The intersector's outputs are detached, as in the JAX package; `refine_hit`
-passes them through (the forward half of the JAX custom_jvp).
+intersector (ops/intersect_dense.py), larger ones through the BVH stack walk
+(ops/intersect_bvh.py); each runs its CUDA kernel on the card and its plain
+version on the CPU. `intersect` is the lockstep stack walk of the JAX
+package and the plain version of the BVH kernel. The intersector's outputs
+are detached, as in the JAX package; `refine_hit` passes them through (the
+forward half of the JAX custom_jvp).
 """
 from __future__ import annotations
 
@@ -15,6 +17,9 @@ from typing import NamedTuple
 import torch
 
 DENSE_MAX_TRIS = 4096
+STACK_DEPTH = 48
+DONE = -(2 ** 30)   # lane finished
+LEAF_SIZE = 4
 _CHUNK_ELEMS = {"cpu": 1 << 21}  # (rays x triangles) per brute-force chunk
 _CHUNK_ELEMS_DEFAULT = 1 << 25
 
@@ -78,6 +83,119 @@ def intersect_brute_force(woop, o, d, t_min=1e-4, t_max=torch.inf) -> Hit:
     return Hit(t=torch.cat(out_t), prim=prim, bary=torch.cat(out_b), valid=prim >= 0)
 
 
+def _slab_test(lo, hi, o, inv_d, t_min, t_max):
+    """AABB slab test. lo/hi: (n, 3). Returns (hit, t_near)."""
+    t0 = (lo - o) * inv_d
+    t1 = (hi - o) * inv_d
+    near = torch.minimum(t0, t1).amax(-1)
+    far = torch.maximum(t0, t1).amin(-1)
+    return torch.maximum(near, t_min) <= torch.minimum(far, t_max), near
+
+
+def intersect(bvh, o, d, t_min=1e-4, t_max=torch.inf, any_hit: bool = False,
+              max_steps: int = 100_000, with_counts: bool = False):
+    """The JAX package's lockstep BVH stack walk: every lane keeps a
+    STACK_DEPTH stack, descends to the nearer child it hits (the ordering
+    rule below), pushes the farther one when both are hit, and tests the
+    LEAF_SIZE Woop rows of a leaf against its current t (strict `t < t_hit`;
+    within a leaf the lowest row wins a tie). A push on a full stack writes
+    the top entry, as the JAX clamped scatter does. Any-hit lanes stop after
+    their first leaf with a hit; no lane takes more than `max_steps` steps.
+
+    Lanes are independent, so each step computes only the lanes still
+    walking; the result is the JAX oracle's lane for lane. With
+    `with_counts` it also returns per-ray counts (int64) of the work the
+    walk did: inner-node visits, leaf visits, and leaf rows whose t passed
+    the t test (the rows whose u, v the CUDA kernel goes on to compute)."""
+    B, dev = o.shape[0], o.device
+    t_min = torch.as_tensor(t_min, dtype=torch.float32, device=dev).expand(B)
+    t_max = torch.as_tensor(t_max, dtype=torch.float32, device=dev).expand(B)
+    inv_d = 1.0 / torch.where(d.abs() < 1e-20, torch.where(d < 0, -1e-20, 1e-20), d)
+    nodes, woop = bvh.nodes, bvh.woop
+    codes = nodes[:, 12:14].contiguous().view(torch.int32)
+    n_rows = woop.shape[0]
+    leaf_offsets = torch.arange(LEAF_SIZE, device=dev)
+
+    out_t, out_prim = t_max.clone(), torch.full((B,), -1, dtype=torch.int32, device=dev)
+    out_bary = torch.zeros(B, 2, device=dev)
+    out_inner = torch.zeros(B, dtype=torch.int64, device=dev)
+    out_leaf = torch.zeros(B, dtype=torch.int64, device=dev)
+    out_tpass = torch.zeros(B, dtype=torch.int64, device=dev)
+
+    lane = torch.arange(B, device=dev)
+    node = torch.full((B,), int(bvh.root_code), dtype=torch.int32, device=dev)
+    stack = torch.zeros(B, STACK_DEPTH, dtype=torch.int32, device=dev)
+    sp = torch.zeros(B, dtype=torch.int64, device=dev)
+    t_hit, prim, bary = t_max.clone(), out_prim.clone(), out_bary.clone()
+    n_inner, n_leaf, n_tpass = out_inner.clone(), out_leaf.clone(), out_tpass.clone()
+    lo, ld, linv, ltmin = o, d, inv_d, t_min
+
+    def store(sel):
+        idx = lane[sel]
+        out_t[idx], out_prim[idx], out_bary[idx] = t_hit[sel], prim[sel], bary[sel]
+        out_inner[idx], out_leaf[idx], out_tpass[idx] = n_inner[sel], n_leaf[sel], n_tpass[sel]
+
+    steps = 0
+    while lane.numel() > 0 and steps < max_steps:
+        steps += 1
+        n = lane.numel()
+        is_inner = node >= 0
+        is_leaf = ~is_inner
+        n_inner += is_inner
+        n_leaf += is_leaf
+
+        # inner-node phase (masked for leaf lanes)
+        n_idx = torch.where(is_inner, node, 0).long()
+        rows = nodes[n_idx]
+        c0_hit, c0_near = _slab_test(rows[:, 0:3], rows[:, 3:6], lo, linv, ltmin, t_hit)
+        c1_hit, c1_near = _slab_test(rows[:, 6:9], rows[:, 9:12], lo, linv, ltmin, t_hit)
+        c = codes[n_idx]
+        swap = c1_hit & (~c0_hit | (c1_near < c0_near))
+        near_code = torch.where(swap, c[:, 1], c[:, 0])
+        far_code = torch.where(swap, c[:, 0], c[:, 1])
+        push = is_inner & c0_hit & c1_hit
+        r = push.nonzero()[:, 0]
+        stack[r, torch.clamp(sp[r], max=STACK_DEPTH - 1)] = far_code[r]
+        sp = torch.where(push, torch.clamp(sp + 1, max=STACK_DEPTH), sp)
+
+        # leaf phase (masked for inner lanes)
+        first = torch.where(is_leaf, -(node.long() + 1), 0)
+        tri_ids = torch.clamp(first[:, None] + leaf_offsets, 0, n_rows - 1)
+        t, u, v, h = intersect_woop(woop[tri_ids], lo[:, None], ld[:, None],
+                                    ltmin[:, None], t_hit[:, None])
+        if with_counts:
+            t_ok = (t > ltmin[:, None]) & (t < t_hit[:, None]) & torch.isfinite(t)
+            n_tpass += (t_ok & is_leaf[:, None]).sum(-1)
+        h = h & is_leaf[:, None]
+        best = torch.where(h, t, torch.inf).argmin(-1, keepdim=True)
+        leaf_hit = h.any(-1)
+        t_hit = torch.where(leaf_hit, t.gather(-1, best)[:, 0], t_hit)
+        prim = torch.where(leaf_hit, tri_ids.gather(-1, best)[:, 0].to(torch.int32), prim)
+        bary = torch.where(leaf_hit[:, None],
+                           torch.cat([u.gather(-1, best), v.gather(-1, best)], -1), bary)
+
+        # next node: the near child if any child is hit, else pop or finish
+        descend = is_inner & (c0_hit | c1_hit)
+        pop = ~descend & (sp > 0)
+        popped = stack[torch.arange(n, device=dev), torch.clamp(sp - 1, min=0)]
+        node = torch.where(descend, near_code, torch.where(pop, popped, DONE))
+        sp = torch.where(pop, sp - 1, sp)
+        if any_hit:
+            node = torch.where(leaf_hit, DONE, node)
+
+        done = node == DONE
+        if bool(done.any()):
+            store(done)
+            keep = ~done
+            lane, node, stack, sp = lane[keep], node[keep], stack[keep], sp[keep]
+            t_hit, prim, bary = t_hit[keep], prim[keep], bary[keep]
+            n_inner, n_leaf, n_tpass = n_inner[keep], n_leaf[keep], n_tpass[keep]
+            lo, ld, linv, ltmin = lo[keep], ld[keep], linv[keep], ltmin[keep]
+    store(torch.ones_like(lane, dtype=torch.bool))  # lanes cut by max_steps
+    hit = Hit(t=out_t, prim=out_prim, bary=out_bary, valid=out_prim >= 0)
+    return (hit, out_inner, out_leaf, out_tpass) if with_counts else hit
+
+
 def refine_hit(bvh, o, d, hit: Hit) -> Hit:
     """Forward half of the JAX package's differentiable hit refinement: the
     intersector's own t/u/v pass through, detached."""
@@ -86,15 +204,19 @@ def refine_hit(bvh, o, d, hit: Hit) -> Hit:
 
 
 def intersect_auto(bvh, o, d, t_min=1e-4, t_max=torch.inf, any_hit: bool = False) -> Hit:
-    """Closest-hit (or any-hit) query against the scene BVH's triangles."""
-    if bvh.woop.shape[0] > DENSE_MAX_TRIS:
-        raise NotImplementedError(
-            f"{bvh.woop.shape[0]} padded triangles: scenes above DENSE_MAX_TRIS="
-            f"{DENSE_MAX_TRIS} need the BVH traversal, which is not ported yet")
-    from ..ops.intersect_dense import intersect_dense
-
+    """Closest-hit (or any-hit) query against the scene BVH's triangles:
+    the dense intersector up to DENSE_MAX_TRIS Woop rows, the BVH walk
+    above (each a CUDA kernel for CUDA tensors, its plain version for CPU
+    tensors)."""
     sg = lambda x: x.detach() if isinstance(x, torch.Tensor) else x  # noqa: E731
-    raw = intersect_dense(bvh.woop, sg(o), sg(d), sg(t_min), sg(t_max), any_hit=any_hit)
+    if bvh.woop.shape[0] <= DENSE_MAX_TRIS:
+        from ..ops.intersect_dense import intersect_dense
+
+        raw = intersect_dense(bvh.woop, sg(o), sg(d), sg(t_min), sg(t_max), any_hit=any_hit)
+    else:
+        from ..ops.intersect_bvh import intersect_bvh
+
+        raw = intersect_bvh(bvh, sg(o), sg(d), sg(t_min), sg(t_max), any_hit=any_hit)
     if any_hit:  # occlusion queries only consume .valid
         return raw
     return refine_hit(bvh, o, d, raw)

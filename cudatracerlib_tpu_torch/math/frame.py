@@ -29,3 +29,16 @@ class Frame(NamedTuple):
 
 def cos_theta(v):
     return v[..., 2]
+
+
+def abs_cos_theta(v):
+    return v[..., 2].abs()
+
+
+def sin_theta2(v):
+    return torch.clamp(1.0 - v[..., 2] * v[..., 2], min=0.0)
+
+
+def tan_theta2(v):
+    c2 = v[..., 2] * v[..., 2]
+    return torch.clamp(1.0 - c2, min=0.0) / torch.clamp(c2, min=1e-12)

@@ -36,7 +36,10 @@ def sample_discrete(cdf, u):
 
 
 def russian_roulette_prob(throughput_max, depth, start_depth: int, cap: float = 0.95):
-    """Continuation probability at bounce `depth` (an int): min(max
-    throughput, cap) from start_depth on, else 1."""
+    """Continuation probability at bounce `depth` (an int, or a per-lane
+    tensor in the wavefront pool): min(max throughput, cap) from start_depth
+    on, else 1."""
     p = torch.clamp(throughput_max, max=cap)
+    if isinstance(depth, torch.Tensor):
+        return torch.where(depth >= start_depth, p, 1.0)
     return p if depth >= start_depth else torch.ones_like(p)

@@ -1,1 +1,1 @@
-from . import intersect_dense  # noqa: F401
+from . import intersect_bvh, intersect_dense, shade_gather  # noqa: F401

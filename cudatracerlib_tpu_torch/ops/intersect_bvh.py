@@ -1,0 +1,95 @@
+"""BVH stack-walk ray / Woop-triangle intersection: the CUDA kernel and its
+plain version.
+
+Port of the Pallas TPU kernel cudatracerlib_tpu/ops/cluster_trace.py:411
+(`intersect_clusters`), which serves scenes above the dense band. The kernel
+lives in csrc/intersect_bvh.cu (its header note says what bounds it on the
+H100 and what the design does about it). It walks the port's own BVH
+(accel/bvh.py) rather than the TPU kernel's cluster decomposition, which was
+laid out for the MXU and for DMA streams.
+
+`intersect_bvh` is the wrapper: CUDA tensors launch the kernel, CPU tensors
+run the plain version, accel/traversal.py `intersect` (the JAX package's
+lockstep oracle); it never falls back from one to the other. Misses return
+t = t_max (unclamped) and prim = -1, as the oracle does.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from .._build_util import CudaKernel
+from ..accel.traversal import Hit, intersect
+from .intersect_dense import _per_ray
+
+MAX_STEPS = 100_000
+
+# Kernel launches by mode; each launch of the CUDA kernel adds one here
+# (plain-version calls do not).
+launches = {"closest": 0, "any_hit": 0}
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_KERNEL = CudaKernel("intersect_bvh",
+                     [_P, _P, _I, _I, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P])
+
+
+def get_lib():
+    """Build (once per source hash) and load the kernel's launch function."""
+    return _KERNEL.get()
+
+
+def _check(bvh, o, d):
+    if bvh.nodes.dim() != 2 or bvh.nodes.shape[1] != 16:
+        raise ValueError(f"nodes must be (M, 16), got {tuple(bvh.nodes.shape)}")
+    if bvh.woop.dim() != 2 or bvh.woop.shape[1] != 12:
+        raise ValueError(f"woop must be (T, 12), got {tuple(bvh.woop.shape)}")
+    if o.dim() != 2 or o.shape[1] != 3 or d.shape != o.shape:
+        raise ValueError(f"o, d must be (B, 3), got {tuple(o.shape)}, {tuple(d.shape)}")
+    for name, x in (("nodes", bvh.nodes), ("woop", bvh.woop), ("o", o), ("d", d)):
+        if x.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, got {x.dtype}")
+        if x.device != o.device:
+            raise ValueError(f"{name} is on {x.device}, rays on {o.device}")
+
+
+def intersect_bvh_plain(bvh, o, d, t_min=1e-4, t_max=torch.inf, any_hit: bool = False,
+                        with_counts: bool = False):
+    """Plain PyTorch version of the kernel's contract (the lockstep oracle)."""
+    _check(bvh, o, d)
+    return intersect(bvh, o, d, t_min, t_max, any_hit=any_hit, max_steps=MAX_STEPS,
+                     with_counts=with_counts)
+
+
+def _aligned(x):
+    x = x.contiguous()
+    return x.clone() if x.data_ptr() % 16 else x  # the kernel reads float4 rows
+
+
+def intersect_bvh(bvh, o, d, t_min=1e-4, t_max=torch.inf, any_hit: bool = False) -> Hit:
+    """Closest (or, with `any_hit`, some) hit of each ray over the BVH.
+
+    bvh: a BVH (nodes (M, 16), woop (T, 12) float32); o, d (B, 3) float32;
+    t_min / t_max scalars or (B,). CUDA tensors go to the kernel, CPU
+    tensors to the plain version."""
+    if o.device.type == "cpu":
+        return intersect_bvh_plain(bvh, o, d, t_min, t_max, any_hit=any_hit)
+    if o.device.type != "cuda":
+        raise ValueError(f"intersect_bvh runs on cuda or cpu tensors, not {o.device}")
+    _check(bvh, o, d)
+    nodes, woop = _aligned(bvh.nodes), _aligned(bvh.woop)
+    o, d = o.contiguous(), d.contiguous()
+    B = o.shape[0]
+    tmin = _per_ray(t_min, B, o.device)
+    tmax = _per_ray(t_max, B, o.device)
+    t = torch.empty(B, dtype=torch.float32, device=o.device)
+    prim = torch.empty(B, dtype=torch.int32, device=o.device)
+    bary = torch.empty(B, 2, dtype=torch.float32, device=o.device)
+    with torch.cuda.device(o.device):
+        stream = torch.cuda.current_stream().cuda_stream
+    _KERNEL.launch(nodes.data_ptr(), woop.data_ptr(), woop.shape[0], int(bvh.root_code),
+                   o.data_ptr(), d.data_ptr(), tmin.data_ptr(), tmax.data_ptr(), B,
+                   int(bool(any_hit)), MAX_STEPS, t.data_ptr(), prim.data_ptr(),
+                   bary.data_ptr(), stream)
+    launches["any_hit" if any_hit else "closest"] += 1
+    return Hit(t=t, prim=prim, bary=bary, valid=prim >= 0)

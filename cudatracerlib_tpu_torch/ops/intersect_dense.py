@@ -16,47 +16,25 @@ hold the kernel against it.
 from __future__ import annotations
 
 import ctypes
-import os
-import threading
 
 import torch
 
-from .._build_util import build_shared, load
+from .._build_util import CudaKernel
 from ..accel.traversal import Hit, intersect_brute_force
 
-SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-                   "csrc", "intersect_dense.cu")
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC"]
 T_MAX_CLAMP = 1e30
 
 # Kernel launches by mode; each launch of the CUDA kernel adds one here
 # (plain-version calls do not).
 launches = {"closest": 0, "any_hit": 0}
 
-_LOCK = threading.Lock()
-_LIB = None
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_KERNEL = CudaKernel("intersect_dense", [_P, _I, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P])
 
 
-def nvcc_path() -> str:
-    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    return os.path.join(home, "bin", "nvcc")
-
-
-def get_lib() -> ctypes.CDLL:
-    """Build (once per source hash) and load the kernel library."""
-    global _LIB
-    with _LOCK:
-        if _LIB is None:
-            lib = load(build_shared(SRC, "intersect_dense", [nvcc_path()] + NVCC_FLAGS))
-            lib.intersect_dense_launch.restype = ctypes.c_int
-            lib.intersect_dense_launch.argtypes = [
-                ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ]
-            _LIB = lib
-        return _LIB
+def get_lib():
+    """Build (once per source hash) and load the kernel's launch function."""
+    return _KERNEL.get()
 
 
 def _per_ray(x, n: int, device) -> torch.Tensor:
@@ -110,12 +88,9 @@ def intersect_dense(woop, o, d, t_min=1e-4, t_max=T_MAX_CLAMP, any_hit: bool = F
     bary = torch.empty(B, 2, dtype=torch.float32, device=o.device)
     with torch.cuda.device(o.device):
         stream = torch.cuda.current_stream().cuda_stream
-    err = get_lib().intersect_dense_launch(
-        woop.data_ptr(), T, o.data_ptr(), d.data_ptr(), tmin.data_ptr(),
-        tmax.data_ptr(), B, int(bool(any_hit)), t.data_ptr(), prim.data_ptr(),
-        bary.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"intersect_dense kernel launch failed: cudaError {err}")
+    _KERNEL.launch(woop.data_ptr(), T, o.data_ptr(), d.data_ptr(), tmin.data_ptr(),
+                   tmax.data_ptr(), B, int(bool(any_hit)), t.data_ptr(), prim.data_ptr(),
+                   bary.data_ptr(), stream)
     launches["any_hit" if any_hit else "closest"] += 1
     return Hit(t=t, prim=prim, bary=bary, valid=prim >= 0)
 

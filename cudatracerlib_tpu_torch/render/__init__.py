@@ -1,1 +1,1 @@
-from . import path_tracer  # noqa: F401
+from . import path_tracer, wavefront  # noqa: F401

@@ -3,10 +3,12 @@
 
 The JAX bounce `lax.scan` becomes a Python loop over a SoA ray batch with
 alive masks; the film is the box-filter reshape-sum. The render is forward
-only: it runs under `torch.no_grad()` in the entry points.
+only: it runs under `torch.no_grad()` in the entry points. `surface_bounce`
+is shared with the wavefront engine (render/wavefront.py).
 
-Ported: DIFFUSE BSDFs, AREA_LIGHT lights, CONSTANT textures, PERSPECTIVE
-cameras, with or without NEE. Every other type tag or PTConfig feature
+Ported: the BSDF, light and texture types of scene/bsdf.py, lights.py and
+textures.py `PORTED`, PERSPECTIVE cameras, with or without NEE, and the
+fused shade-pack path on the card. Every other type tag or PTConfig feature
 (`regularization`, `remat`, `rec_filter != 0`, `sss`, `alpha_test`,
 normal/height/parallax maps, media) raises NotImplementedError.
 """
@@ -25,7 +27,8 @@ from ..scene import lights as lights_mod
 from ..scene import sensors
 from ..scene import textures as tex_mod
 from ..scene import scene as scene_mod
-from ..scene.scene import Scene, gather_mat_params, make_interaction
+from ..scene.scene import Scene
+from ..scene.shade_pack import build_shade_pack, hit_shading, pack_enabled
 
 RAY_EPS = 1e-3
 
@@ -119,7 +122,7 @@ class BounceOut(NamedTuple):
     o: torch.Tensor           # next ray origin
     d: torch.Tensor           # next ray direction
     throughput: torch.Tensor  # updated path throughput (RR-compensated)
-    L_add: torch.Tensor       # radiance added this bounce (emission + NEE)
+    L_add: torch.Tensor       # radiance added this bounce (env, emission, NEE)
     cont: torch.Tensor        # path continues
     bs_pdf: torch.Tensor      # solid-angle pdf of the sampled direction
     delta_now: torch.Tensor   # sampled lobe was delta (suppress next MIS)
@@ -130,32 +133,48 @@ class BounceOut(NamedTuple):
 
 
 def surface_bounce(scene: Scene, config: PTConfig, *, o, d, active, throughput,
-                   prev_pdf, prev_delta, eta_scale, sampler: Sampler,
-                   depth) -> BounceOut:
-    """One surface-path bounce: intersect -> area-light emission with MIS ->
-    NEE -> BSDF sample -> Russian roulette. `config` must be specialized."""
+                   prev_pdf, prev_delta, eta_scale, sampler: Sampler, depth,
+                   pack=None) -> BounceOut:
+    """One surface-path bounce: intersect -> environment on escape and
+    area-light emission, each with MIS -> NEE -> BSDF sample -> Russian
+    roulette. `config` must be specialized; `depth` is an int (megakernel)
+    or a per-lane tensor (wavefront pool).
+
+    `pack`: the (Tp, 64) shade pack (scene/shade_pack.py) or None; with it
+    the interaction and material parameters come from one packed gather.
+    The JAX `cone` and `path_len` arguments feed the ray cone of
+    image-texture filtering, which is not ported (image textures raise), so
+    they are left out."""
     B = o.shape[0]
     s = sampler
     hit = scene_mod.scene_intersect(scene, o, d)
-    it = make_interaction(scene, o, d, hit, flat=config.flat_shading)
+    it, mp = hit_shading(scene, o, d, hit, pack, config.tex_types, flat=config.flat_shading)
     found = hit.valid & active
     L = torch.zeros(B, 3, device=o.device)
+    no_mis = prev_delta if config.direct else torch.ones_like(prev_delta)
+
+    # ---- environment on escape (PathTracer.cu:98-111) ----
+    if lights_mod.INFINITE in config.light_types:
+        env_id = torch.clamp(scene.env_light_id, min=0).long()
+        env_L = lights_mod.eval_env(scene.lights, env_id, d)
+        env_pdf_l = (lights_mod.pdf_env_dir(scene.lights, env_id, d)
+                     * _light_select_pmf(scene, env_id, prev_pdf))
+        w_env = torch.where(no_mis, 1.0, mc.mis_weight(prev_pdf, env_pdf_l))
+        escaped = active & ~hit.valid & (scene.env_light_id >= 0)
+        L = L + torch.where(escaped[..., None], throughput * env_L * w_env[..., None], 0.0)
 
     # ---- emission at the hit (MIS against NEE) ----
     wo_world = -d
-    mat_light = scene.materials.light_id[it.mat_id.long()]
-    emissive = found & (mat_light >= 0)
-    lid = 0 if scene.n_lights == 1 else torch.clamp(mat_light, min=0).long()
-    Le = lights_mod.eval_area_emission(scene.lights, lid, it.n_geo, wo_world)
-    pdf_light_hit = (lights_mod.pdf_direct_area(scene.lights, lid, o, it.p, it.n_geo)
-                     * _light_select_pmf(scene, lid, prev_pdf))
-    if config.direct:
-        w_hit = torch.where(prev_delta, 1.0, mc.mis_weight(prev_pdf, pdf_light_hit))
-    else:
-        w_hit = torch.ones_like(prev_pdf)
-    L = L + torch.where(emissive[..., None], throughput * Le * w_hit[..., None], 0.0)
+    if lights_mod.AREA_LIGHT in config.light_types:
+        mat_light = scene.materials.light_id[it.mat_id.long()]
+        emissive = found & (mat_light >= 0)
+        lid = 0 if scene.n_lights == 1 else torch.clamp(mat_light, min=0).long()
+        Le = lights_mod.eval_area_emission(scene.lights, lid, it.n_geo, wo_world)
+        pdf_light_hit = (lights_mod.pdf_direct_area(scene.lights, lid, o, it.p, it.n_geo)
+                         * _light_select_pmf(scene, lid, prev_pdf))
+        w_hit = torch.where(no_mis, 1.0, mc.mis_weight(prev_pdf, pdf_light_hit))
+        L = L + torch.where(emissive[..., None], throughput * Le * w_hit[..., None], 0.0)
 
-    mp = gather_mat_params(scene, it, config.tex_types)
     wo_local = it.frame.to_local(wo_world)
 
     # ---- next-event estimation ----
@@ -170,7 +189,8 @@ def surface_bounce(scene: Scene, config: PTConfig, *, o, d, active, throughput,
         sh_o = _offset_ray(it.p, it.n_geo, ds.d, config.ray_eps)
         blocked = scene_mod.scene_occluded(scene, sh_o, ds.d, t_min=config.ray_eps,
                                            t_max=ds.dist - 2.0 * config.ray_eps)
-        # area lights only: the sample is never a delta (DISCRETE) measure
+        # the ported lights (area, environment) never sample a delta
+        # (DISCRETE) measure
         pdf_l_sa = ds.pdf * lpmf
         w_nee = mc.mis_weight(pdf_l_sa, pdf_b_l)
         contrib = (throughput * f_l * Lrad
@@ -211,9 +231,11 @@ def trace_radiance(scene: Scene, o, d, sampler: Sampler, config: PTConfig,
                    with_stats: bool = False):
     """Radiance along a batch of rays. Returns (L (B, 3), sampler), plus with
     `with_stats` the rays traced (alive closest-hit lanes plus NEE shadow
-    rays, summed over bounces) and the non-finite lane count."""
+    rays, summed over bounces) and the non-finite lane count. The shade pack
+    is built once here, outside the bounce loop, where it applies."""
     B = o.shape[0]
     dev = o.device
+    pack = build_shade_pack(scene) if pack_enabled(scene) else None
     throughput = torch.ones(B, 3, device=dev)
     L = torch.zeros(B, 3, device=dev)
     active = torch.ones(B, dtype=torch.bool, device=dev)
@@ -226,7 +248,7 @@ def trace_radiance(scene: Scene, o, d, sampler: Sampler, config: PTConfig,
         out = surface_bounce(scene, config, o=o, d=d, active=active,
                              throughput=throughput, prev_pdf=prev_pdf,
                              prev_delta=prev_delta, eta_scale=eta_scale,
-                             sampler=sampler, depth=depth)
+                             sampler=sampler, depth=depth, pack=pack)
         c, c3 = out.cont, out.cont[..., None]
         o = torch.where(c3, out.o, o)
         d = torch.where(c3, out.d, d)

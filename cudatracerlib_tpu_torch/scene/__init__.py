@@ -1,1 +1,1 @@
-from . import bsdf, lights, scene, sensors, shapes, textures  # noqa: F401
+from . import bsdf, lights, scene, sensors, shade_pack, shapes, textures  # noqa: F401

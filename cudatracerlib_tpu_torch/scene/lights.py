@@ -1,9 +1,10 @@
-"""Light sources (port of cudatracerlib_tpu/scene/lights.py:105-329, 427-446).
+"""Light sources (port of cudatracerlib_tpu/scene/lights.py:105-446).
 
 `build_lights` assembles the same SoA table as the JAX package for every
 light type (environment importance tables included). Sampling and emission
-are ported for AREA_LIGHT; a static light-type set with any other type
-raises NotImplementedError. `lid` may be an int or a per-lane tensor.
+are ported for AREA_LIGHT and INFINITE (the equirectangular environment
+map); a static light-type set with any other type raises
+NotImplementedError. `lid` may be an int or a per-lane tensor.
 """
 from __future__ import annotations
 
@@ -15,7 +16,7 @@ import torch
 from .._tree import tree_to
 from ..math import montecarlo as mc
 from ..math import warp
-from ..math.vecmath import PI, dot
+from ..math.vecmath import INV_PI, INV_TWOPI, PI, dot
 from ..sampling.records import SOLID_ANGLE, DirectSample
 
 POINT = 0
@@ -25,7 +26,7 @@ AREA_LIGHT = 3
 INFINITE = 4     # environment map
 CONSTANT_ENV = 5
 
-PORTED = (AREA_LIGHT,)
+PORTED = (AREA_LIGHT, INFINITE)
 MAX_LIGHT_TRIS = 64   # per-light CDF padding
 
 
@@ -60,7 +61,7 @@ class Lights(NamedTuple):
 
 def check_ported(light_types):
     if light_types is None or not set(light_types) <= set(PORTED):
-        raise NotImplementedError(f"light types {light_types}: only AREA_LIGHT is ported")
+        raise NotImplementedError(f"light types {light_types}: only {PORTED} are ported")
 
 
 def build_lights(records: list[dict], world_center, world_radius,
@@ -160,37 +161,124 @@ def light_power(lights: Lights):
     return torch.clamp(p, min=0.0)
 
 
-def sample_direct(lights: Lights, lid, ref_p, u2, active=None):
-    """Sample a point on area light `lid` as seen from `ref_p`.
-
-    Returns (DirectSample, radiance (..., 3)); the pdf is w.r.t. solid angle
-    at ref_p. `active`: the static tuple of light types in the scene."""
-    check_ported(active)
-    t = lights.ltype[lid]
+def _sample_area(lights: Lights, lid, ref_p, u2):
+    """A point on area light `lid`: (p, n, d, dist, pdf, radiance)."""
     cdf_rows = lights.tri_cdf[lid]
     tri_sel, _, u_re = mc.sample_discrete(cdf_rows, u2[..., 0])
     tri_id = torch.clamp(lights.tri_first[lid] + tri_sel, 0, lights.tris.shape[0] - 1)
     v = lights.tris[tri_id]
     bary = warp.square_to_uniform_triangle(torch.stack([u_re, u2[..., 1]], dim=-1))
-    p_area = (v[..., 0, :] * (1.0 - bary[..., 0:1] - bary[..., 1:2])
-              + v[..., 1, :] * bary[..., 0:1]
-              + v[..., 2, :] * bary[..., 1:2])
-    n_area = lights.tri_n[tri_id]
-    to_a = p_area - ref_p
+    p = (v[..., 0, :] * (1.0 - bary[..., 0:1] - bary[..., 1:2])
+         + v[..., 1, :] * bary[..., 0:1]
+         + v[..., 2, :] * bary[..., 1:2])
+    n = lights.tri_n[tri_id]
+    to_a = p - ref_p
     dist2 = torch.clamp(dot(to_a, to_a), min=1e-12)
     dist = torch.sqrt(dist2)
     d = to_a / dist[..., None]
-    cos_l = -dot(d, n_area)
+    cos_l = -dot(d, n)
     pdf = dist2 / torch.clamp(cos_l.abs() * torch.clamp(lights.area[lid], min=1e-12), min=1e-12)
-    is_area = t == AREA_LIGHT
-    rad = torch.where((is_area & (cos_l > 0.0))[..., None], lights.radiance[lid], 0.0)
+    rad = torch.where((cos_l > 0.0)[..., None], lights.radiance[lid], 0.0)
+    return p, n, d, dist, pdf, rad
+
+
+def _sample_env_direct(lights: Lights, lid, ref_p, u2):
+    """A direction of the environment map: (p, n, d, dist, pdf, radiance),
+    the point placed beyond the scene at twice its radius."""
+    d, pdf, rad = _sample_env(lights, lid, u2)
+    dist = (2.0 * torch.clamp(lights.world_radius, min=1e-6)).expand(pdf.shape)
+    return ref_p + d * dist[..., None], -d, d, dist, pdf, rad
+
+
+def sample_direct(lights: Lights, lid, ref_p, u2, active=None):
+    """Sample a direction from `ref_p` toward light `lid`: a point on an
+    area light, or an importance-sampled direction of the environment map.
+
+    Returns (DirectSample, radiance (..., 3)); the pdf is w.r.t. solid angle
+    at ref_p. `active`: the static tuple of light types in the scene; only
+    their branches are computed, and with one type its branch is the result
+    (every light of the scene has one of the active types)."""
+    check_ported(active)
+    branches = [(tag, fn(lights, lid, ref_p, u2))
+                for tag, fn in ((AREA_LIGHT, _sample_area), (INFINITE, _sample_env_direct))
+                if tag in active]
+    p, n, d, dist, pdf, rad = branches[0][1]
+    for tag, (p_i, n_i, d_i, dist_i, pdf_i, rad_i) in branches[1:]:
+        m = lights.ltype[lid] == tag
+        p, n, d = (torch.where(m[..., None], a, b) for a, b in ((p_i, p), (n_i, n), (d_i, d)))
+        dist, pdf = torch.where(m, dist_i, dist), torch.where(m, pdf_i, pdf)
+        rad = torch.where(m[..., None], rad_i, rad)
     ds = DirectSample(
-        p=p_area, n=n_area, d=d, dist=dist,
-        pdf=torch.where(is_area, pdf, 0.0),
+        p=p, n=n, d=d, dist=dist, pdf=pdf,
         measure=torch.full(pdf.shape, SOLID_ANGLE, dtype=torch.int32, device=pdf.device),
         uv=torch.zeros(d.shape[:-1] + (2,), device=d.device),
     )
     return ds, rad
+
+
+def _env_uv_from_dir(d):
+    """Equirectangular (u, v) of a direction; v = 0 at the +z pole."""
+    theta = torch.acos(torch.clamp(d[..., 2], -1.0 + 1e-7, 1.0 - 1e-7))
+    phi = torch.atan2(d[..., 1], d[..., 0])
+    phi = torch.where(phi < 0, phi + 2 * PI, phi)
+    return torch.stack([phi * INV_TWOPI, theta * INV_PI], dim=-1)
+
+
+def _env_texel(lights: Lights, d):
+    """(y, x) texel of the environment map that direction d falls in."""
+    H, W = lights.env_map.shape[0], lights.env_map.shape[1]
+    uv = _env_uv_from_dir(d)
+    x = torch.clamp((uv[..., 0] * W).to(torch.int32), 0, W - 1)
+    y = torch.clamp((uv[..., 1] * H).to(torch.int32), 0, H - 1)
+    return y.long(), x.long(), uv
+
+
+def eval_env(lights: Lights, lid, d):
+    """Environment radiance along direction d (reference EvalEnvironment)."""
+    y, x, _ = _env_texel(lights, d)
+    env = lights.env_map[y, x] * lights.radiance[lid]
+    return torch.where((lights.ltype[lid] == INFINITE)[..., None], env, 0.0)
+
+
+def pdf_env_dir(lights: Lights, lid, d):
+    """Solid-angle pdf of `_sample_env` for direction d (for MIS):
+    p(u, v) = w[y, x] H W / total over the map, divided by 2 pi^2 sin(theta)."""
+    H, W = lights.env_w.shape[0], lights.env_w.shape[1]
+    y, x, uv = _env_texel(lights, d)
+    w_yx = lights.env_w[y, x]
+    total = torch.clamp(lights.env_total, min=1e-12)
+    sin_theta = torch.clamp(torch.sin(uv[..., 1] * PI), min=1e-6)
+    pdf_inf = w_yx * H * W / total / (2.0 * PI * PI * sin_theta)
+    return torch.where(lights.ltype[lid] == INFINITE, pdf_inf, 0.0)
+
+
+def _sample_env(lights: Lights, lid, u2):
+    """Importance-sample the environment map from its 2-D luminance CDF
+    (reference InfiniteLight, Light.h:294-369): a row from the shared row
+    CDF, then a column from that row's conditional CDF. The row is a plain
+    gather `env_col_cdf[y]`, exact in float32 (the JAX package reads it
+    through a one-hot HIGHEST-precision matmul on the TPU, equal by
+    construction)."""
+    H, W = lights.env_w.shape[0], lights.env_w.shape[1]
+    y, pmf_row, uy = mc.sample_discrete(lights.env_row_cdf, u2[..., 1])
+    row_cdf = lights.env_col_cdf[y]                      # (..., W)
+    u0 = u2[..., 0]
+    below = (row_cdf < u0[..., None]) & (torch.arange(W, device=u0.device) < W - 1)
+    x = below.sum(-1)
+    hi = torch.where(below, torch.inf, row_cdf).amin(-1)
+    lo = torch.where(below, row_cdf, 0.0).amax(-1)
+    pmf_col = torch.clamp(hi - lo, min=1e-12)
+    ux = torch.clamp((u0 - lo) / pmf_col, 0.0, 1.0 - 1e-6)
+    # continuous position within the texel
+    u = (x.to(torch.float32) + ux) / W
+    v = (y.to(torch.float32) + uy) / H
+    theta = v * PI
+    phi = u * 2.0 * PI
+    st = torch.sin(theta)
+    d = torch.stack([st * torch.cos(phi), st * torch.sin(phi), torch.cos(theta)], dim=-1)
+    pdf = pmf_row * pmf_col * H * W / (2.0 * PI * PI * torch.clamp(st, min=1e-6))
+    rad = lights.env_map[y, x] * lights.radiance[lid]
+    return d, pdf, rad
 
 
 def eval_area_emission(lights: Lights, lid, n, wo):

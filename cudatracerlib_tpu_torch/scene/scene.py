@@ -272,9 +272,12 @@ def specialization(mat_id: np.ndarray, materials: dict, tex_ttype: np.ndarray,
 def build_scene(vertices: np.ndarray, normals: np.ndarray | None, uvs: np.ndarray | None,
                 mat_id: np.ndarray, materials: Materials, textures: Textures,
                 light_records: list[dict], camera: Camera,
-                env_map: np.ndarray | None = None) -> Scene:
-    """Host-side scene assembly: builds the BVH, permutes the shading data
-    into leaf order, derives the light-selection CDF and the specialization."""
+                env_map: np.ndarray | None = None, device="cuda") -> Scene:
+    """Scene assembly: builds the BVH, permutes the shading data into leaf
+    order, builds the lights (with the environment tables of `env_map`, an
+    (H, W, 3) equirectangular radiance map), derives the light-selection CDF
+    and the specialization on the host, and puts every tensor on `device`:
+    the card unless the caller asks for the CPU."""
     vertices = np.asarray(vertices, np.float32)
     T = vertices.shape[0]
     if normals is None:
@@ -287,7 +290,7 @@ def build_scene(vertices: np.ndarray, normals: np.ndarray | None, uvs: np.ndarra
         uvs[:, 2, 1] = 1.0
     mat_id = np.asarray(mat_id, np.int32)
 
-    bvh, host = build_bvh(vertices, with_host=True)
+    bvh, host = build_bvh(vertices, with_host=True, device=device)
     order = host["order"]
     v_ord = vertices[order]
     nf = np.cross(v_ord[:, 1] - v_ord[:, 0], v_ord[:, 2] - v_ord[:, 0])
@@ -324,9 +327,9 @@ def build_scene(vertices: np.ndarray, normals: np.ndarray | None, uvs: np.ndarra
             env_id = i
 
     spec = specialization(
-        mat_id, {k: v.numpy() for k, v in materials._asdict().items()},
-        textures.ttype.numpy(), {int(r["type"]) for r in light_records} or {0},
+        mat_id, {k: v.cpu().numpy() for k, v in materials._asdict().items()},
+        textures.ttype.cpu().numpy(), {int(r["type"]) for r in light_records} or {0},
         nrm_ord, nf, uv_ord)
     return Scene(bvh=bvh, shading=shading, materials=materials, textures=textures,
                  lights=lights, light_cdf=cdf, camera=camera,
-                 env_light_id=torch.tensor(np.int32(env_id)), spec=spec)
+                 env_light_id=torch.tensor(np.int32(env_id)), spec=spec).to(device)

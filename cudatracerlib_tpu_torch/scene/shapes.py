@@ -1,7 +1,9 @@
-"""Procedural geometry and the Cornell box (port of cudatracerlib_tpu/scene/shapes.py:18-141).
+"""Procedural geometry, the Cornell box and the glossy scene
+(port of cudatracerlib_tpu/scene/shapes.py:18-141, 244-321).
 
 The geometry and the scene records are the JAX package's, built through the
-port's `build_scene`.
+port's `build_scene`. Every scene factory puts its tensors on `device`, the
+card unless the caller asks for the CPU.
 """
 from __future__ import annotations
 
@@ -69,6 +71,7 @@ def cornell_box(
     green=(0.14, 0.45, 0.091),
     fov_deg: float = 39.3077,
     extra_objects: str = "boxes",
+    device="cuda",
 ):
     """The canonical Cornell box (BASELINE config 1 scene).
 
@@ -135,5 +138,85 @@ def cornell_box(
         fov_deg=fov_deg,
     )
     return build_scene(
-        vertices, None, None, mat_id, materials, textures, light_records, camera
+        vertices, None, None, mat_id, materials, textures, light_records, camera,
+        device=device,
+    )
+
+
+def _sky_envmap(res_y: int = 64, sun_dir=(0.35, -0.45, 0.82),
+                sun_radiance=120.0, sky_scale=0.6) -> np.ndarray:
+    """Procedural HDR sky: a gradient plus a bright sun disk, as an
+    (res_y, 2 res_y, 3) equirectangular map. The sharp sun is what makes the
+    environment's 2-D CDF importance sampling matter."""
+    res_x = 2 * res_y
+    theta = (np.arange(res_y) + 0.5) / res_y * np.pi
+    phi = (np.arange(res_x) + 0.5) / res_x * 2 * np.pi
+    T, P = np.meshgrid(theta, phi, indexing="ij")
+    d = np.stack([np.sin(T) * np.cos(P), np.sin(T) * np.sin(P), np.cos(T)], -1)
+    sd = np.asarray(sun_dir, np.float32)
+    sd = sd / np.linalg.norm(sd)
+    cos_sun = (d @ sd).clip(-1, 1)
+    horizon = np.clip(d[..., 2], 0.0, 1.0)
+    sky = np.stack([
+        0.25 + 0.35 * (1 - horizon),
+        0.38 + 0.25 * (1 - horizon),
+        0.75 + 0.10 * horizon,
+    ], -1) * sky_scale
+    ground = np.array([0.18, 0.15, 0.12], np.float32) * sky_scale
+    img = np.where((d[..., 2] > 0)[..., None], sky, ground[None, None])
+    sun = (cos_sun > np.cos(np.radians(2.5))).astype(np.float32)
+    img = img + sun[..., None] * np.array([1.0, 0.92, 0.80]) * sun_radiance
+    return img.astype(np.float32)
+
+
+def glossy_scene(alpha_cond=0.08, alpha_diel=0.12, device="cuda"):
+    """Bench config 2: a rough-plastic checkerboard floor, a rough gold
+    sphere, a rough glass sphere, a smooth copper box and a rough plastic
+    sphere under an HDR sun/sky environment map (6,624 padded triangles,
+    above the dense band). Returns a fully built Scene."""
+    tris, mids = [], []
+
+    def add(t, mid):
+        tris.append(t)
+        mids.extend([mid] * len(t))
+
+    ext = 6.0
+    add(quad([-ext, -ext, 0], [ext, -ext, 0], [ext, ext, 0], [-ext, ext, 0]), 0)
+    add(sphere([-1.2, 0.3, 1.0], 1.0, n_theta=24, n_phi=48), 1)      # rough gold
+    add(sphere([1.3, -0.6, 0.8], 0.8, n_theta=24, n_phi=48), 2)      # rough glass
+    add(box([0.2, 1.2, 0.0], [1.8, 2.4, 1.4]), 3)                    # smooth copper
+    add(sphere([-0.2, -1.9, 0.45], 0.45, n_theta=16, n_phi=32), 4)   # plastic
+
+    vertices = np.concatenate(tris)
+    mat_id = np.asarray(mids, np.int32)
+    textures = Textures.build([
+        {"type": 1, "color_a": [0.45, 0.45, 0.45],
+         "color_b": [0.25, 0.25, 0.28], "uv_xform": [8, 8, 0, 0]},
+        {"type": 0, "color_a": [1.0, 0.71, 0.29]},   # gold tint
+        {"type": 0, "color_a": [1, 1, 1]},
+        {"type": 0, "color_a": [0.95, 0.64, 0.54]},  # copper tint
+        {"type": 0, "color_a": [0.15, 0.30, 0.65]},  # plastic kd
+    ])
+    materials = Materials.build([
+        {"bsdf_type": B.ROUGHPLASTIC, "tex_albedo": 0, "tex_specular": 2,
+         "eta": 1.49, "alpha_u": 0.25, "alpha_v": 0.25},
+        {"bsdf_type": B.ROUGHCONDUCTOR, "tex_albedo": 1,
+         "cond_eta": [0.143, 0.375, 1.44], "cond_k": [3.98, 2.39, 1.60],
+         "alpha_u": alpha_cond, "alpha_v": alpha_cond},
+        {"bsdf_type": B.ROUGHDIELECTRIC, "tex_albedo": 2, "tex_specular": 2,
+         "tex_transmittance": 2, "eta": 1.5,
+         "alpha_u": alpha_diel, "alpha_v": alpha_diel},
+        {"bsdf_type": B.CONDUCTOR, "tex_albedo": 3,
+         "cond_eta": [0.20, 0.92, 1.10], "cond_k": [3.90, 2.45, 2.14]},
+        {"bsdf_type": B.ROUGHPLASTIC, "tex_albedo": 4, "tex_specular": 2,
+         "eta": 1.49, "alpha_u": 0.08, "alpha_v": 0.08},
+    ])
+    light_records = [{"type": L.INFINITE, "radiance": [1.0, 1.0, 1.0]}]
+    camera = Camera.look_at(
+        origin=[0.3, -5.5, 2.2], target=[0.0, 0.0, 0.9], up=[0, 0, 1],
+        fov_deg=42.0,
+    )
+    return build_scene(
+        vertices, None, None, mat_id, materials, textures, light_records,
+        camera, env_map=_sky_envmap(), device=device,
     )

@@ -1,9 +1,9 @@
 """Texture table (port of cudatracerlib_tpu/scene/textures.py).
 
 `Textures.build` assembles the same SoA table as the JAX package for
-scenes without images; `eval_texture` is ported for scenes whose textures
-are all CONSTANT. Images and any other texture type set raise
-NotImplementedError.
+scenes without images; `eval_texture` is ported for CONSTANT and
+CHECKERBOARD textures (with their uv transform). Images and any other
+texture type set raise NotImplementedError.
 """
 from __future__ import annotations
 
@@ -24,7 +24,7 @@ BILERP = 5
 WRAP_REPEAT = 0
 FILTER_TRILINEAR = 3
 
-PORTED = (CONSTANT,)
+PORTED = (CONSTANT, CHECKERBOARD)
 ATLAS_RES = 256  # image layers are resampled to ATLAS_RES^2 MIP pyramids
 ATLAS_TOTAL = sum((ATLAS_RES >> m) ** 2 for m in range(ATLAS_RES.bit_length()))
 
@@ -71,14 +71,24 @@ class Textures(NamedTuple):
 
 def check_ported(active):
     if active is None or not set(active) <= set(PORTED):
-        raise NotImplementedError(f"texture types {active}: only CONSTANT is ported")
+        raise NotImplementedError(f"texture types {active}: only {PORTED} are ported")
 
 
 def eval_texture(tex: Textures, tid, uv, active=None):
     """Evaluate texture `tid` (per-lane int) at uv (..., 2); returns (..., 3).
 
-    `active`: the static tuple of texture types present in the scene. Only
-    all-CONSTANT sets are ported, where the value is a row lookup."""
+    `active`: the static tuple of texture types present in the scene. An
+    all-CONSTANT set is a row lookup; with CHECKERBOARD present, checker
+    lanes take the parity of floor(2 u') + floor(2 v') on the transformed
+    uv' = uv * (su, sv) + (du, dv) (reference Texture.h:127)."""
     check_ported(active)
     tid = torch.clamp(torch.as_tensor(tid, device=tex.color_a.device), 0, tex.ttype.shape[0] - 1)
-    return tex.color_a[tid]
+    ca = tex.color_a[tid]
+    if set(active) <= {CONSTANT}:
+        return ca
+    xf = tex.uv_xform[tid]
+    uv_t = uv * xf[..., 0:2] + xf[..., 2:4]
+    iu = torch.floor(uv_t[..., 0] * 2.0).to(torch.int32)
+    iv = torch.floor(uv_t[..., 1] * 2.0).to(torch.int32)
+    checker = torch.where((((iu + iv) & 1) == 0)[..., None], ca, tex.color_b[tid])
+    return torch.where((tex.ttype[tid] == CHECKERBOARD)[..., None], checker, ca)

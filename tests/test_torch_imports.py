@@ -13,18 +13,25 @@ MODULES = [
     "cudatracerlib_tpu_torch.accel.traversal",
     "cudatracerlib_tpu_torch.convert",
     "cudatracerlib_tpu_torch.math.frame",
+    "cudatracerlib_tpu_torch.math.fresnel",
+    "cudatracerlib_tpu_torch.math.microfacet",
     "cudatracerlib_tpu_torch.math.montecarlo",
+    "cudatracerlib_tpu_torch.math.rough_transmittance",
     "cudatracerlib_tpu_torch.math.vecmath",
     "cudatracerlib_tpu_torch.math.warp",
     "cudatracerlib_tpu_torch.native",
+    "cudatracerlib_tpu_torch.ops.intersect_bvh",
     "cudatracerlib_tpu_torch.ops.intersect_dense",
+    "cudatracerlib_tpu_torch.ops.shade_gather",
     "cudatracerlib_tpu_torch.render.path_tracer",
+    "cudatracerlib_tpu_torch.render.wavefront",
     "cudatracerlib_tpu_torch.sampling.records",
     "cudatracerlib_tpu_torch.sampling.rng",
     "cudatracerlib_tpu_torch.scene.bsdf",
     "cudatracerlib_tpu_torch.scene.lights",
     "cudatracerlib_tpu_torch.scene.scene",
     "cudatracerlib_tpu_torch.scene.sensors",
+    "cudatracerlib_tpu_torch.scene.shade_pack",
     "cudatracerlib_tpu_torch.scene.shapes",
     "cudatracerlib_tpu_torch.scene.textures",
 ]
@@ -64,7 +71,7 @@ def test_port_cornell_build_leaves_jax_native_lib_untouched():
     out = _run(
         "import sys\n"
         "from cudatracerlib_tpu_torch.scene.shapes import cornell_box\n"
-        "s = cornell_box()\n"
+        "s = cornell_box(device='cpu')\n"
         "print('WOOP', tuple(s.bvh.woop.shape), 'jax' in sys.modules)\n")
     assert "WOOP (60, 12) False" in out, out
     assert os.stat(JAX_NATIVE_SO).st_mtime_ns == before

@@ -169,10 +169,22 @@ def test_wrapper_rejects_bad_inputs():
 
 
 def test_dispatch_above_dense_band_is_not_ported():
-    from cudatracerlib_tpu_torch.accel.bvh import BVH
+    """Above the dense band the dispatch used to raise; it now walks the
+    BVH: for CPU tensors through the plain version, the oracle `intersect`,
+    whose hits it returns unchanged. Other devices are refused."""
+    from cudatracerlib_tpu_torch.accel.bvh import build_bvh
+    from cudatracerlib_tpu_torch.scene.shapes import sphere
 
-    big = BVH(nodes=torch.zeros(1, 16), woop=torch.zeros(ttrav.DENSE_MAX_TRIS + 4, 12),
-              tri_index=torch.zeros(1, dtype=torch.int32), root_code=np.int32(0),
-              world_min=np.zeros(3), world_max=np.ones(3))
-    with pytest.raises(NotImplementedError):
-        ttrav.intersect_auto(big, torch.zeros(2, 3), torch.ones(2, 3))
+    bvh = build_bvh(sphere([0, 0, 0], 1.0, n_theta=48, n_phi=48), device="cpu")
+    assert bvh.woop.shape[0] > ttrav.DENSE_MAX_TRIS
+    rng = np.random.default_rng(4)
+    o = torch.from_numpy(rng.uniform(-2, 2, (256, 3)).astype(np.float32))
+    d = torch.nn.functional.normalize(
+        torch.from_numpy(rng.normal(scale=0.3, size=(256, 3)).astype(np.float32)) - o, dim=-1)
+    got = ttrav.intersect_auto(bvh, o, d)
+    want = ttrav.intersect(bvh, o, d)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert got.valid.float().mean() > 0.5
+    with pytest.raises(ValueError):
+        ttrav.intersect_auto(bvh.to("meta"), o.to("meta"), d.to("meta"))

@@ -20,7 +20,7 @@ from cudatracerlib_tpu_torch.scene.shapes import cornell_box as tcornell
 
 @pytest.fixture(scope="module")
 def scenes():
-    return jcornell(), tcornell()
+    return jcornell(), tcornell(device="cpu")
 
 
 def _bits(x):
