@@ -5,7 +5,7 @@ Run from the root of a checkout, with no arguments: `python3 chip_smoke.py`.
 It imports nothing of JAX. Phases, each of which raises on failure:
 
   1. device: the card's name and power limit (nvidia-smi), the device count;
-  2. build: the three CUDA kernels (nvcc, sm_90a, one process per source,
+  2. build: the four CUDA kernels (nvcc, sm_90a, one process per source,
      all started together) and the SBVH builder (g++) from the sources in
      the checkout, each timed;
   3. kernel vs plain, `intersect_dense`: against its plain PyTorch version
@@ -42,10 +42,28 @@ It imports nothing of JAX. Phases, each of which raises on failure:
      counts are reset just before the timed render, read just after, and
      must show both kinds of `intersect_bvh` launches and `packed_gather`
      launches;
-  8. profile: `torch.profiler` over one Cornell pass and one bench-config-2
-     glossy render: wall, device kernel time, busy share, kernel launches,
-     the top kernels by device time, and the port's own kernels' launches
-     and shares.
+  8. kernel vs plain, `photon_density`: on the photon tiles and cell-sorted
+     gather queries of one bench-config-5 PPM pass (both photon maps,
+     captured from the warm seed-0 pass of 9), and on a synthetic hotspot
+     where every query has thousands of photons within the radius. Every
+     sum within 1e-4 relative (+1e-6 of the largest): the per-pair weights
+     are bit-equal, the sums run in another order; invalid queries 0. Kernel
+     and plain version timed with CUDA events; the bound counts the
+     (query, photon) pairs of the tiles that survive the cull;
+  9. PPM path (bench config 5's PPM half, `render_ppm_pass` on the caustic
+     scene, built on the card by default): a pinned pass (64x64, 4 spp,
+     2^15 photons, seed 3, pass 1) whose mean must be within 0.1% of the
+     JAX package's CPU value below, then 128x128, 4 spp, `PPMConfig()`
+     (2^17 photons, depth 6), pass 1, warm at seed 0 and timed at seed 7.
+     Rays are counted as bench.py counts them: the photon walk's rays
+     (`trace_photons` with_stats, seed 3) plus W*H*spp camera rays. The
+     launch counts are reset just before the timed pass, read just after,
+     and must show `photon_density`, both kinds of `intersect_dense`
+     launches and `packed_gather`;
+  10. profile: `torch.profiler` over one Cornell pass, one bench-config-2
+     glossy render and one bench-config-5 PPM pass: wall, device kernel
+     time, busy share, kernel launches, the top kernels by device time, and
+     the port's own kernels' launches and shares.
 
 Before its last line it prints one JSON object describing each kernel; the
 last line is {"ok": true, "device": {...}}. Without a CUDA device, or without
@@ -68,6 +86,18 @@ REF_MEAN_SEED3 = 0.13256   # JAX CPU render_counted(cornell, 256, 256, 16, seed 
 REF_GLOSSY_MEAN = 0.166997
 GLOSSY_PIN = dict(width=128, height=128, spp=8, seed=3)
 GLOSSY_TOL = 0.01
+# JAX package on the CPU with the neighbour cap lifted above every query's
+# candidate count (max_gather 891), so the estimate is exhaustive like the
+# port's kernel; computed once with
+#   JAX_PLATFORMS=cpu python tools/ppm_reference_mean.py
+# -> mean 0.326837 (render_ppm_pass(caustic_scene(), 64, 64, 4, seed 3,
+#    pass 1, PPMConfig(n_photons=2**15)))
+REF_PPM_MEAN = 0.326837
+PPM_PIN = dict(width=64, height=64, spp=4, seed=3, pass_idx=1, n_photons=1 << 15)
+PPM_TOL = 1e-3            # the CPU port's photon-major render agrees to 1e-6
+PPM_W = PPM_H = 128        # bench config 5 (bench.py:289-340)
+PPM_SPP, PPM_PASS = 4, 1
+DENSITY_RTOL, DENSITY_ATOL = 1e-4, 1e-6
 W = H = 256
 SPP, DEPTH, N_PASS = 16, 5, 5
 SOUP_RAYS = 1 << 20
@@ -83,8 +113,10 @@ FLOPS_DENSE_PAIR = 30      # one ray / Woop-row test, t and u, v
 FLOPS_BVH_INNER = 50       # two slab tests
 FLOPS_WOOP_T = 17          # per leaf row: t and its test
 FLOPS_WOOP_UV = 31         # per leaf row that passed the t test: u, v and their tests
+FLOPS_PHOTON_PAIR = 32     # per (query, photon) pair of a surviving tile (an FMA counts two)
 LEAF_SIZE = 4
-PORT_KERNELS = ("dense_kernel", "bvh_kernel", "gather_kernel")  # __global__ names in csrc/
+PORT_KERNELS = ("dense_kernel", "bvh_kernel", "gather_kernel",
+                "photon_kernel")  # __global__ names in csrc/
 
 
 def _require(cond, msg):
@@ -183,6 +215,35 @@ def _compare_bvh(label, bvh, o, d, t_min, t_max, reps):
     return worst, ms, plain_ms, flops, nbytes
 
 
+def _check_density(label, args):
+    """photon_density vs its plain version on the same CUDA tensors; returns
+    the largest absolute difference and the surviving pairs of the cull."""
+    import torch
+    from cudatracerlib_tpu_torch.ops import photon_gather as pg_ops
+
+    kf, kw = pg_ops.photon_density(*args)
+    pf, pw = pg_ops.photon_density_plain(*args)
+    torch.cuda.synchronize()
+    err, rel = 0.0, 0.0
+    for what, k, p in (("flux", kf, pf), ("sum_w", kw, pw)):
+        diff = (k - p).abs()
+        bad = diff > DENSITY_RTOL * p.abs() + DENSITY_ATOL * float(p.abs().max())
+        _require(not bool(bad.any()), f"photon_density {label} {what}: {int(bad.sum())} sums "
+                                      f"outside tolerance, worst {float(diff.max())}")
+        err = max(err, float(diff.max()))
+        big = p.abs() > 1e-3 * float(p.abs().max())
+        rel = max(rel, float((diff[big] / p.abs()[big]).max()) if bool(big.any()) else 0.0)
+    q_valid = args[4]
+    _require(bool((kw[~q_valid] == 0).all()) and bool((kf[~q_valid] == 0).all()),
+             f"photon_density {label}: an invalid query got a nonzero sum")
+    pairs = pg_ops.surviving_pairs(args[1], args[2], q_valid, args[5])
+    tiles = args[0]
+    print(f"[kernel vs plain] photon_density {label}: {args[2].shape[0]} queries "
+          f"({int(q_valid.sum())} valid) x {tiles.shape[0]} tiles, radius {float(args[5]):.6f}, "
+          f"{pairs} surviving pairs, max abs err {err:.3g}, max rel err {rel:.3g}")
+    return err, pairs
+
+
 def _profile(label, fn):
     """Device kernel time, busy share and launches of one call of `fn`."""
     import torch
@@ -243,14 +304,16 @@ def main():
     from cudatracerlib_tpu_torch.accel.bvh import build_bvh, woop_transform
     from cudatracerlib_tpu_torch.ops import intersect_bvh as bvh_ops
     from cudatracerlib_tpu_torch.ops import intersect_dense as ops
+    from cudatracerlib_tpu_torch.ops import photon_gather as pg_ops
     from cudatracerlib_tpu_torch.ops import shade_gather as sg_ops
     from cudatracerlib_tpu_torch.render import path_tracer as pt
+    from cudatracerlib_tpu_torch.render import ppm
     from cudatracerlib_tpu_torch.render import wavefront as wf
     from cudatracerlib_tpu_torch.scene import scene as scene_mod
     from cudatracerlib_tpu_torch.scene import shade_pack
-    from cudatracerlib_tpu_torch.scene.shapes import cornell_box, glossy_scene
+    from cudatracerlib_tpu_torch.scene.shapes import caustic_scene, cornell_box, glossy_scene
 
-    counters = (ops.launches, bvh_ops.launches, sg_ops.launches)
+    counters = (ops.launches, bvh_ops.launches, sg_ops.launches, pg_ops.launches)
 
     def reset_counts():
         for c in counters:
@@ -272,7 +335,8 @@ def main():
         return time.perf_counter() - t0
 
     builds = {"intersect_dense.cu": ops.get_lib, "intersect_bvh.cu": bvh_ops.get_lib,
-              "shade_gather.cu": sg_ops.get_lib, "bvh_builder.cpp (g++)": native.get_lib}
+              "shade_gather.cu": sg_ops.get_lib, "photon_gather.cu": pg_ops.get_lib,
+              "bvh_builder.cpp (g++)": native.get_lib}
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(builds)) as pool:
         secs = dict(zip(builds, pool.map(timed, builds.values())))
@@ -421,10 +485,101 @@ def main():
     print(f"[main path] glossy {W}x{H} spp {spp2} depth {DEPTH} seed 7: rays {int(brays)}, "
           f"{gdt:.4f} s, {int(brays) / gdt / 1e6:.3f} Mrays/s, mean {float(bimg.mean()):.6f}")
 
-    # ---- 8. profile ----
+    # ---- 8. photon_density vs its plain version, on bench-config-5 inputs ----
+    caustic = caustic_scene()
+    _require(caustic.bvh.woop.device.type == "cuda", "caustic_scene() did not build on the card")
+    pcfg = ppm.PPMConfig()
+    captured = []
+    real_density = pg_ops.photon_density
+
+    def capture(*args):
+        captured.append(args)
+        return real_density(*args)
+
+    pg_ops.photon_density = capture
+    try:  # the warm pass of 9, at seed 0
+        ppm.render_ppm_pass(caustic, PPM_W, PPM_H, PPM_SPP, 0, PPM_PASS, pcfg)
+        torch.cuda.synchronize()
+    finally:
+        pg_ops.photon_density = real_density
+    _require(len(captured) == 2, f"a PPM pass called photon_density {len(captured)} times, not 2")
+    dens_err, pairs = 0.0, []
+    for label, args in zip(("global map", "caustic map"), captured):
+        e, n_pairs = _check_density(label, args)
+        dens_err, pairs = max(dens_err, e), pairs + [n_pairs]
+    rng = np.random.default_rng(2)
+    n_hot = 1 << 15
+    hpos = np.zeros((n_hot, 3), np.float32)
+    hpos[:, :2] = rng.normal(scale=0.03, size=(n_hot, 2))
+    hn = np.tile(np.float32([[0, 0, 1]]), (n_hot, 1))
+    hwi = rng.normal(size=(n_hot, 3)).astype(np.float32) + hn
+    hwi /= np.linalg.norm(hwi, axis=-1, keepdims=True)
+    hq = np.zeros((1 << 14, 3), np.float32)
+    hq[:, :2] = rng.normal(scale=0.03, size=(1 << 14, 2))
+    hqv = rng.random(1 << 14) >= 0.05
+    hq = hq[np.argsort(np.where(hqv, np.floor(hq[:, 0] / 0.05) * 1e3 + np.floor(hq[:, 1] / 0.05),
+                                1e9), kind="stable")]
+    t = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(dev)  # noqa: E731
+    htiles, haabbs = pg_ops.build_photon_tiles(t(hpos), t(rng.uniform(0, 1, (n_hot, 3))
+                                                         .astype(np.float32)),
+                                               t(hn), t(rng.random(n_hot) >= 0.1), [-1, -1, -1],
+                                               [1, 1, 1], 40, wi=t(hwi))
+    e, _ = _check_density("hotspot", (htiles, haabbs, t(hq), t(np.tile(hn[:1], (1 << 14, 1))),
+                                      t(hqv), np.float32(0.05)))
+    dens_err = max(dens_err, e)
+    main_args = captured[0]
+    ms_pd = _time_ms(lambda: pg_ops.photon_density(*main_args), 20)
+    plain_ms_pd = _time_ms(lambda: pg_ops.photon_density_plain(*main_args), 2)
+    ms_pd_c = _time_ms(lambda: pg_ops.photon_density(*captured[1]), 20)
+    n_q = main_args[2].shape[0]
+    pd_bytes = (main_args[0].numel() + main_args[1].numel()) * 4 + n_q * (12 + 12 + 1) + n_q * 16
+    pd_bound = _bound(FLOPS_PHOTON_PAIR * pairs[0], pd_bytes)
+    print(f"[time] photon_density global map: kernel {ms_pd:.4f} ms, plain {plain_ms_pd:.4f} ms, "
+          f"bound {pd_bound[0]:.5f} ms ({pd_bound[1]}: {FLOPS_PHOTON_PAIR * pairs[0]} operations, "
+          f"{pd_bytes} bytes); caustic map: kernel {ms_pd_c:.4f} ms, bound "
+          f"{_bound(FLOPS_PHOTON_PAIR * pairs[1], pd_bytes)[0]:.5f} ms")
+
+    # ---- 9. the PPM path: pinned pass, then bench config 5's PPM half ----
+    pin = PPM_PIN
+    pin_img = ppm.render_ppm_pass(caustic, pin["width"], pin["height"], pin["spp"], pin["seed"],
+                                  pin["pass_idx"], pcfg._replace(n_photons=pin["n_photons"]))
+    pmean = float(pin_img.mean())
+    _require(bool(torch.isfinite(pin_img).all()), "the pinned PPM image is not finite")
+    _require(abs(pmean - REF_PPM_MEAN) <= PPM_TOL * REF_PPM_MEAN,
+             f"pinned PPM mean {pmean} is not within {PPM_TOL:.1%} of {REF_PPM_MEAN}")
+    print(f"[main path] ppm pinned {pin}: mean {pmean:.6f} (ref {REF_PPM_MEAN}, "
+          f"{100 * (pmean / REF_PPM_MEAN - 1):+.4f}%)")
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    pimg = ppm.render_ppm_pass(caustic, PPM_W, PPM_H, PPM_SPP, 7, PPM_PASS, pcfg)
+    torch.cuda.synchronize()
+    pdt = time.perf_counter() - t0
+    plaunch = {"photon_density": dict(pg_ops.launches), "intersect_dense": dict(ops.launches),
+               "packed_gather": dict(sg_ops.launches), "intersect_bvh": dict(bvh_ops.launches)}
+    print(f"[main path] ppm launches {json.dumps(plaunch)}")
+    _require(plaunch["photon_density"]["density"] > 0,
+             f"the PPM path did not launch photon_density: {plaunch}")
+    _require(plaunch["intersect_dense"]["closest"] > 0 and plaunch["intersect_dense"]["any_hit"] > 0,
+             f"the PPM path did not launch intersect_dense for both ray kinds: {plaunch}")
+    _require(plaunch["packed_gather"]["gather"] > 0,
+             f"the PPM path did not launch packed_gather: {plaunch}")
+    _require(bool(torch.isfinite(pimg).all()) and tuple(pimg.shape) == (PPM_H, PPM_W, 3),
+             "the bench-config-5 PPM image is not finite or has the wrong shape")
+    base5 = pt.specialize_config(caustic, pcfg.base)
+    _, ph_rays = ppm.trace_photons(caustic, pcfg.n_photons, 3, base5, with_stats=True)
+    rays5 = int(ph_rays) + PPM_W * PPM_H * PPM_SPP
+    print(f"[main path] ppm {PPM_W}x{PPM_H} spp {PPM_SPP} {pcfg.n_photons} photons depth "
+          f"{pcfg.base.max_depth} pass {PPM_PASS} seed 7: rays {rays5} ({int(ph_rays)} photon + "
+          f"{PPM_W * PPM_H * PPM_SPP} camera), {pdt:.4f} s, {rays5 / pdt / 1e6:.3f} Mrays/s, "
+          f"mean {float(pimg.mean()):.6f}")
+
+    # ---- 10. profile ----
     _profile("cornell pass", lambda: pt.render(scene, W, H, SPP, 7, cfg))
     _profile("glossy bench config 2",
              lambda: wf.render_wavefront_counted(glossy, W, H, spp2, 7, gcfg))
+    _profile("ppm bench config 5 pass",
+             lambda: ppm.render_ppm_pass(caustic, PPM_W, PPM_H, PPM_SPP, 7, PPM_PASS, pcfg))
 
     print(json.dumps({"kernels": [
         {
@@ -465,6 +620,19 @@ def main():
             "bound_ms": gather_bound[0],
             "bound_by": gather_bound[1],
             "library_ms": lib_ms_g,
+        },
+        {
+            "name": "photon_density",
+            "route": "cuda",
+            "source": "cudatracerlib_tpu_torch/csrc/photon_gather.cu",
+            "replaces": "cudatracerlib_tpu/ops/photon_gather.py:164",
+            "launches": plaunch["photon_density"]["density"],
+            "max_abs_err": dens_err,
+            "ms": ms_pd,
+            "plain_ms": plain_ms_pd,
+            "bound_ms": pd_bound[0],
+            "bound_by": pd_bound[1],
+            "library_ms": None,
         },
     ]}))
     print(smi)

@@ -46,9 +46,10 @@ def _group(cls, arrays, prefix, device):
                   for f in cls._fields})
 
 
-def scene_from_numpy(arrays: dict[str, np.ndarray], device="cpu") -> Scene:
-    """Build a port Scene on `device` from flattened Scene arrays. The
-    specialization is derived from the arrays by specialize_config."""
+def scene_from_numpy(arrays: dict[str, np.ndarray], device="cuda") -> Scene:
+    """Build a port Scene on `device` (the card unless the caller asks for
+    the CPU) from flattened Scene arrays. The specialization is derived from
+    the arrays by specialize_config."""
     groups = {name: _group(cls, arrays, name, device) for name, cls in _TENSOR_GROUPS.items()}
     bvh = BVH(
         nodes=torch.from_numpy(np.array(arrays["bvh.nodes"])).to(device),

@@ -1,6 +1,7 @@
 """BSDF evaluation and sampling (port of cudatracerlib_tpu/scene/bsdf.py).
 
-Ported: DIFFUSE, CONDUCTOR, ROUGHCONDUCTOR, ROUGHDIELECTRIC, ROUGHPLASTIC;
+Ported: DIFFUSE, DIELECTRIC, CONDUCTOR, ROUGHCONDUCTOR, ROUGHDIELECTRIC,
+ROUGHPLASTIC;
 any other type in the scene's static type set raises NotImplementedError.
 Conventions as in the JAX package: directions are unit vectors in the local
 shading frame (+z = normal), `wo` points to the previous vertex, eval
@@ -25,6 +26,7 @@ from ..math.rough_transmittance import rough_fdr, rough_transmittance
 from ..math.vecmath import INV_PI, dot
 from ..sampling.records import (
     E_DELTA_REFLECTION,
+    E_DELTA_TRANSMISSION,
     E_DIFFUSE_REFLECTION,
     E_GLOSSY_REFLECTION,
     E_GLOSSY_TRANSMISSION,
@@ -48,7 +50,7 @@ BLEND = 13
 HK = 14
 NULL_BSDF = 15
 
-PORTED = (DIFFUSE, ROUGHDIELECTRIC, CONDUCTOR, ROUGHCONDUCTOR, ROUGHPLASTIC)
+PORTED = (DIFFUSE, DIELECTRIC, ROUGHDIELECTRIC, CONDUCTOR, ROUGHCONDUCTOR, ROUGHPLASTIC)
 _TWO_SIDED = (DIFFUSE, ROUGHDIFFUSE, CONDUCTOR, ROUGHCONDUCTOR, PLASTIC,
               ROUGHPLASTIC, PHONG, WARD)
 
@@ -124,6 +126,25 @@ def _conductor_sample(mp, wo):
     weight = torch.where(valid[..., None], mp.specular * F, 0.0)
     pdf = torch.where(valid, 1.0, 0.0)
     return _mirror(wo), weight, pdf, _stype(pdf, E_DELTA_REFLECTION), torch.ones_like(pdf)
+
+
+def _dielectric_sample(mp, wo, u1):
+    """Smooth dielectric: Fresnel-weighted choice of the mirror or the
+    refracted direction (signed cos_t covers both sides). Radiance is
+    compressed by 1/eta^2 on transmission."""
+    F, cos_t, eta_it, eta_ti = fres.fresnel_dielectric(fr.cos_theta(wo), mp.eta)
+    pick_reflect = u1 < F
+    wi_t = torch.stack([-wo[..., 0] * eta_ti, -wo[..., 1] * eta_ti, cos_t], dim=-1)
+    wi = torch.where(pick_reflect[..., None], _mirror(wo), wi_t)
+    # F / F and (1 - F) / (1 - F), as the JAX package writes its
+    # stop-gradient ratios: 1 wherever the lobe can be picked
+    r_refl = F / torch.clamp(F, min=1e-12)
+    r_trans = (1.0 - F) / torch.clamp(1.0 - F, min=1e-12)
+    weight = torch.where(pick_reflect[..., None], mp.specular * r_refl[..., None],
+                         mp.transmittance * (eta_ti * eta_ti * r_trans)[..., None])
+    pdf = torch.where(pick_reflect, F, 1.0 - F)
+    stype = torch.where(pick_reflect, E_DELTA_REFLECTION, E_DELTA_TRANSMISSION).to(torch.int32)
+    return wi, weight, pdf, stype, torch.where(pick_reflect, 1.0, eta_it)
 
 
 def _roughconductor_f_pdf(mp, wo, wi):
@@ -261,7 +282,8 @@ def _roughplastic_sample(mp, wo, u2, u1):
             _stype(pdf, E_GLOSSY_REFLECTION), torch.ones_like(pdf))
 
 
-# eval/pdf families in the JAX dispatch order; CONDUCTOR is delta (eval 0)
+# eval/pdf families in the JAX dispatch order; CONDUCTOR and DIELECTRIC are
+# delta (eval 0)
 _EVAL = [
     (DIFFUSE, _diffuse_eval),
     (ROUGHCONDUCTOR, _roughconductor_f_pdf),
@@ -301,6 +323,7 @@ def sample_bsdf(mp: MatParams, wo, u2, u1, active=None) -> BSDFSample:
     makers = [
         (DIFFUSE, lambda: _diffuse_sample(mp, wo_l, u2)),
         (CONDUCTOR, lambda: _conductor_sample(mp, wo_l)),
+        (DIELECTRIC, lambda: _dielectric_sample(mp, wo_l, u1)),
         (ROUGHCONDUCTOR, lambda: _roughconductor_sample(mp, wo_l, u2)),
         (ROUGHDIELECTRIC, lambda: _roughdielectric_sample(mp, wo_l, u2, u1)),
         (ROUGHPLASTIC, lambda: _roughplastic_sample(mp, wo_l, u2, u1)),

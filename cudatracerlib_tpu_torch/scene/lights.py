@@ -1,10 +1,11 @@
-"""Light sources (port of cudatracerlib_tpu/scene/lights.py:105-446).
+"""Light sources (port of cudatracerlib_tpu/scene/lights.py:105-535).
 
 `build_lights` assembles the same SoA table as the JAX package for every
-light type (environment importance tables included). Sampling and emission
-are ported for AREA_LIGHT and INFINITE (the equirectangular environment
-map); a static light-type set with any other type raises
-NotImplementedError. `lid` may be an int or a per-lane tensor.
+light type (environment importance tables included). Direct sampling,
+emission and emitted-ray sampling (the photon entry point) are ported for
+AREA_LIGHT and INFINITE (the equirectangular environment map); a static
+light-type set with any other type raises NotImplementedError. `lid` may be
+an int or a per-lane tensor.
 """
 from __future__ import annotations
 
@@ -16,6 +17,7 @@ import torch
 from .._tree import tree_to
 from ..math import montecarlo as mc
 from ..math import warp
+from ..math.frame import Frame
 from ..math.vecmath import INV_PI, INV_TWOPI, PI, dot
 from ..sampling.records import SOLID_ANGLE, DirectSample
 
@@ -161,8 +163,9 @@ def light_power(lights: Lights):
     return torch.clamp(p, min=0.0)
 
 
-def _sample_area(lights: Lights, lid, ref_p, u2):
-    """A point on area light `lid`: (p, n, d, dist, pdf, radiance)."""
+def _area_point(lights: Lights, lid, u2):
+    """A uniform point on area light `lid` (a triangle from its area CDF,
+    then a uniform point on it) and that triangle's normal."""
     cdf_rows = lights.tri_cdf[lid]
     tri_sel, _, u_re = mc.sample_discrete(cdf_rows, u2[..., 0])
     tri_id = torch.clamp(lights.tri_first[lid] + tri_sel, 0, lights.tris.shape[0] - 1)
@@ -171,7 +174,12 @@ def _sample_area(lights: Lights, lid, ref_p, u2):
     p = (v[..., 0, :] * (1.0 - bary[..., 0:1] - bary[..., 1:2])
          + v[..., 1, :] * bary[..., 0:1]
          + v[..., 2, :] * bary[..., 1:2])
-    n = lights.tri_n[tri_id]
+    return p, lights.tri_n[tri_id]
+
+
+def _sample_area(lights: Lights, lid, ref_p, u2):
+    """A point on area light `lid`: (p, n, d, dist, pdf, radiance)."""
+    p, n = _area_point(lights, lid, u2)
     to_a = p - ref_p
     dist2 = torch.clamp(dot(to_a, to_a), min=1e-12)
     dist = torch.sqrt(dist2)
@@ -296,3 +304,42 @@ def pdf_direct_area(lights: Lights, lid, ref_p, p, n):
     cos_l = dot(d, n).abs()
     pdf = dist2 / torch.clamp(cos_l * torch.clamp(lights.area[lid], min=1e-12), min=1e-12)
     return torch.where(lights.ltype[lid] == AREA_LIGHT, pdf, 0.0)
+
+
+def _emit_area(lights: Lights, lid, u_pos, u_dir):
+    """Emitted ray of an area light: a uniform point, a cosine-distributed
+    direction about its normal, power weight Le A pi."""
+    p, n = _area_point(lights, lid, u_pos)
+    d = Frame.from_normal(n).to_world(warp.square_to_cosine_hemisphere(u_dir))
+    w = lights.radiance[lid] * (PI * lights.area[lid])[..., None]
+    return p + n * 1e-4, d, w.expand(d.shape)
+
+
+def _emit_env(lights: Lights, lid, u_pos, u_dir):
+    """Emitted ray of the environment map: an importance-sampled direction,
+    its origin on the world-sphere disk facing it."""
+    wr = torch.clamp(lights.world_radius, min=1e-6)
+    d_env, pdf_env, rad_env = _sample_env(lights, lid, u_dir)
+    d = -d_env  # emitted toward the scene
+    disk = warp.square_to_uniform_disk_concentric(u_pos) * wr
+    on_disk = torch.stack([disk[..., 0], disk[..., 1], torch.zeros_like(disk[..., 0])], dim=-1)
+    o = lights.world_center + Frame.from_normal(d).to_world(on_disk) - d * wr
+    w = rad_env * (PI * wr * wr / torch.clamp(pdf_env, min=1e-12))[..., None]
+    return o, d, w
+
+
+def sample_emitter_ray(lights: Lights, lid, u_pos, u_dir, active=None):
+    """Sample an emitted ray of light `lid` (the photon and light-tracing
+    entry point, reference sampleEmitterRay). Returns (origin, direction,
+    power weight (..., 3)), the weight being Le cos / (pdf_pos pdf_dir) so a
+    particle walk just multiplies. `active`: the static tuple of light types
+    in the scene; only their branches are computed, as in sample_direct."""
+    check_ported(active)
+    branches = [(tag, fn(lights, lid, u_pos, u_dir))
+                for tag, fn in ((AREA_LIGHT, _emit_area), (INFINITE, _emit_env))
+                if tag in active]
+    o, d, w = branches[0][1]
+    for tag, (o_i, d_i, w_i) in branches[1:]:
+        m = (lights.ltype[lid] == tag)[..., None]
+        o, d, w = torch.where(m, o_i, o), torch.where(m, d_i, d), torch.where(m, w_i, w)
+    return o, d, w

@@ -1,5 +1,5 @@
-"""Procedural geometry, the Cornell box and the glossy scene
-(port of cudatracerlib_tpu/scene/shapes.py:18-141, 244-321).
+"""Procedural geometry, the Cornell box, the glossy scene and the caustic
+scene (port of cudatracerlib_tpu/scene/shapes.py:18-141, 244-374).
 
 The geometry and the scene records are the JAX package's, built through the
 port's `build_scene`. Every scene factory puts its tensors on `device`, the
@@ -219,4 +219,58 @@ def glossy_scene(alpha_cond=0.08, alpha_diel=0.12, device="cuda"):
     return build_scene(
         vertices, None, None, mat_id, materials, textures, light_records,
         camera, env_map=_sky_envmap(), device=device,
+    )
+
+
+def caustic_scene(light_radiance=(400.0, 380.0, 340.0), device="cuda"):
+    """Bench config 5: a smooth dielectric sphere focusing a small bright
+    area light onto the diffuse floor of a closed room (3,160 padded
+    triangles, inside the dense band). Returns a fully built Scene."""
+    tris, mids = [], []
+
+    def add(t, mid):
+        tris.append(t)
+        mids.extend([mid] * len(t))
+
+    # closed room so light doesn't escape (keeps photon passes efficient)
+    add(quad([-2, -2, 0], [2, -2, 0], [2, 2, 0], [-2, 2, 0]), 0)     # floor
+    add(quad([-2, -2, 3], [-2, 2, 3], [2, 2, 3], [2, -2, 3]), 1)     # ceiling
+    add(quad([-2, 2, 0], [2, 2, 0], [2, 2, 3], [-2, 2, 3]), 1)       # back
+    add(quad([-2, -2, 0], [-2, 2, 0], [-2, 2, 3], [-2, -2, 3]), 2)   # left
+    add(quad([2, -2, 0], [2, -2, 3], [2, 2, 3], [2, 2, 0]), 3)       # right
+    add(sphere([0.0, 0.3, 1.1], 0.55, n_theta=24, n_phi=48), 4)      # glass
+    light_tris = quad([-0.12, 0.18, 2.799], [-0.12, 0.42, 2.799],
+                      [0.12, 0.42, 2.799], [0.12, 0.18, 2.799])
+    add(light_tris, 5)
+
+    vertices = np.concatenate(tris)
+    mat_id = np.asarray(mids, np.int32)
+    textures = Textures.build([
+        {"type": 0, "color_a": [0.68, 0.65, 0.60]},
+        {"type": 0, "color_a": [0.55, 0.55, 0.55]},
+        {"type": 0, "color_a": [0.60, 0.12, 0.10]},
+        {"type": 0, "color_a": [0.12, 0.45, 0.14]},
+        {"type": 0, "color_a": [1, 1, 1]},
+        {"type": 0, "color_a": [0, 0, 0]},
+    ])
+    materials = Materials.build([
+        {"bsdf_type": B.DIFFUSE, "tex_albedo": 0},
+        {"bsdf_type": B.DIFFUSE, "tex_albedo": 1},
+        {"bsdf_type": B.DIFFUSE, "tex_albedo": 2},
+        {"bsdf_type": B.DIFFUSE, "tex_albedo": 3},
+        {"bsdf_type": B.DIELECTRIC, "tex_albedo": 4, "tex_specular": 4,
+         "tex_transmittance": 4, "eta": 1.5},
+        {"bsdf_type": B.DIFFUSE, "tex_albedo": 5,
+         "emission": np.asarray(light_radiance, np.float32), "light_id": 0},
+    ])
+    light_records = [
+        {"type": L.AREA_LIGHT, "radiance": light_radiance, "tris": light_tris}
+    ]
+    camera = Camera.look_at(
+        origin=[0.0, -5.2, 1.6], target=[0.0, 0.3, 0.9], up=[0, 0, 1],
+        fov_deg=33.0,
+    )
+    return build_scene(
+        vertices, None, None, mat_id, materials, textures, light_records, camera,
+        device=device,
     )

@@ -10,8 +10,10 @@ JAX_NATIVE_SO = os.path.join(REPO, "cudatracerlib_tpu", "native", "_native.so")
 MODULES = [
     "cudatracerlib_tpu_torch",
     "cudatracerlib_tpu_torch.accel.bvh",
+    "cudatracerlib_tpu_torch.accel.hashgrid",
     "cudatracerlib_tpu_torch.accel.traversal",
     "cudatracerlib_tpu_torch.convert",
+    "cudatracerlib_tpu_torch.image.film",
     "cudatracerlib_tpu_torch.math.frame",
     "cudatracerlib_tpu_torch.math.fresnel",
     "cudatracerlib_tpu_torch.math.microfacet",
@@ -22,8 +24,10 @@ MODULES = [
     "cudatracerlib_tpu_torch.native",
     "cudatracerlib_tpu_torch.ops.intersect_bvh",
     "cudatracerlib_tpu_torch.ops.intersect_dense",
+    "cudatracerlib_tpu_torch.ops.photon_gather",
     "cudatracerlib_tpu_torch.ops.shade_gather",
     "cudatracerlib_tpu_torch.render.path_tracer",
+    "cudatracerlib_tpu_torch.render.ppm",
     "cudatracerlib_tpu_torch.render.wavefront",
     "cudatracerlib_tpu_torch.sampling.records",
     "cudatracerlib_tpu_torch.sampling.rng",

@@ -22,13 +22,14 @@ from cudatracerlib_tpu.scene.shapes import cornell_box as jcornell
 from cudatracerlib_tpu_torch.convert import flatten, scene_from_numpy
 from cudatracerlib_tpu_torch.render import path_tracer as tpt
 from cudatracerlib_tpu_torch.sampling.rng import Sampler as TSampler
+from cudatracerlib_tpu_torch.scene import bsdf as tbsdf
 from cudatracerlib_tpu_torch.scene.shapes import cornell_box as tcornell
 
 
 @pytest.fixture(scope="module")
 def scenes():
     js = jcornell()
-    return js, scene_from_numpy(flatten(js))
+    return js, scene_from_numpy(flatten(js), device="cpu")
 
 
 def _assert_images_close(port, ref, frac=0.99, rel=1e-3):
@@ -141,5 +142,11 @@ def test_unported_config_raises(scenes, cfg):
 
 
 def test_unported_bsdf_types_raise():
+    """A scene whose materials include an unported BSDF (here the spheres'
+    glass made THINDIELECTRIC) raises when its specialization is derived."""
+    s = tcornell(extra_objects="spheres", device="cpu")
+    bt = s.materials.bsdf_type.clone()
+    bt[5] = tbsdf.THINDIELECTRIC
+    s = s._replace(materials=s.materials._replace(bsdf_type=bt), spec=None)
     with pytest.raises(NotImplementedError):
-        tpt.render(tcornell(extra_objects="spheres", device="cpu"), 8, 8, 1, 0, tpt.PTConfig(max_depth=2))
+        tpt.render(s, 8, 8, 1, 0, tpt.PTConfig(max_depth=2))

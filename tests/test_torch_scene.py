@@ -68,7 +68,7 @@ def test_specialization_matches(scenes):
 def test_scene_from_numpy_roundtrip(scenes):
     js, ts = scenes
     arrays = flatten(js)
-    conv = scene_from_numpy(arrays)
+    conv = scene_from_numpy(arrays, device="cpu")
     back = flatten(conv)
     assert set(back) == set(arrays)
     for k in arrays:

@@ -171,7 +171,7 @@ def test_bsdf_eval_pdf_sample(tag):
 def test_bsdf_unported_tags_raise():
     _, tmp = _mat_params(tbsdf.DIFFUSE, 0, n=4)
     wo = _t(_dirs(4, 1))
-    for active in [(0, 2), (7,), (0, 14), None]:
+    for active in [(0, 3), (7,), (0, 14), None]:
         with pytest.raises(NotImplementedError):
             tbsdf.eval_bsdf(tmp, wo, wo, active)
         with pytest.raises(NotImplementedError):
