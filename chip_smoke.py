@@ -11,11 +11,20 @@ It imports nothing of JAX. Phases, each of which raises on failure:
   3. kernel vs plain, `intersect_dense`: against its plain PyTorch version
      on the same CUDA tensors, closest-hit and any-hit, at the Cornell path's
      shapes (60 Woop rows vs the camera rays and first-bounce rays of a
-     256x256, 16-spp pass) and at the top of the dense band (a random
+     256x256, 16-spp pass), at the PPM path's (its arguments captured in a
+     warm bench-config-5 pass at seed 0: the first photon-walk launch, 2^17
+     lanes x 3,160 rows, the first eye launch and the shadow-ray launch,
+     65,536 lanes each) and at the top of the dense band (a random
      4096-triangle soup vs 2^20 random rays). Tolerance: `valid` agrees on
      >= 99.999% of rays and every disagreement is edge-grazing; on rays both
      hit at equal Woop rows, t within 1e-4 * max(1, t) and the barycentrics
-     within 1e-4. Both versions are timed with CUDA events;
+     within 1e-4. The wrapper, the kernel alone (prebuilt ranges and
+     outputs) and the plain version are timed with CUDA events. The bound
+     counts every box test plus the rows of the chunks each ray's box test
+     passes at its final t (`cull_sweep`, the plain cull emulation); the
+     all-rows figure of the old sweep is printed beside it. As a yardstick,
+     not gated, `intersect_bvh` is timed on the PPM rays over the caustic
+     BVH;
   4. Cornell path: the Cornell box at bench config 1 (256x256, 16 spp, depth
      5), built on the card by default: one counted pass at seed 3, whose
      image mean must be within 0.5% of 0.13256 (the JAX package's CPU value,
@@ -29,7 +38,8 @@ It imports nothing of JAX. Phases, each of which raises on failure:
      their first-bounce rays, and on a random 65,536-triangle soup vs 2^20
      random rays (a deep tree). The oracle also counts node and leaf visits
      and the leaf rows that pass the t test, from which the kernel's bound
-     is computed;
+     is computed. The wrapper and the kernel alone (each launch with its own
+     zeroed ray counter, made beforehand) are timed;
   6. kernel vs plain, `packed_gather`: the glossy shade pack at the first-hit
      prims of those 2^20 camera rays, plus indices out of range on purpose;
      the output must be bit-equal to `table[idx.clamp(0, Tr - 1)]`. The
@@ -44,7 +54,7 @@ It imports nothing of JAX. Phases, each of which raises on failure:
      launches;
   8. kernel vs plain, `photon_density`: on the photon tiles and cell-sorted
      gather queries of one bench-config-5 PPM pass (both photon maps,
-     captured from the warm seed-0 pass of 9), and on a synthetic hotspot
+     captured in the warm seed-0 pass of 3), and on a synthetic hotspot
      where every query has thousands of photons within the radius. Every
      sum within 1e-4 relative (+1e-6 of the largest): the per-pair weights
      are bit-equal, the sums run in another order; invalid queries 0. Kernel
@@ -110,6 +120,7 @@ PEAK_BYTES = 3.35e12
 # operations per unit of work, counted from the kernels' sources (a min,
 # max or compare counts as one, as a multiply or an add does)
 FLOPS_DENSE_PAIR = 30      # one ray / Woop-row test, t and u, v
+FLOPS_BOX_TEST = 25        # one ray / chunk-box slab test (6 sub, 6 mul, 10 min/max, 3 compare)
 FLOPS_BVH_INNER = 50       # two slab tests
 FLOPS_WOOP_T = 17          # per leaf row: t and its test
 FLOPS_WOOP_UV = 31         # per leaf row that passed the t test: u, v and their tests
@@ -160,25 +171,91 @@ def _check_hits(label, mode, r, t_scale):
     return 0.0
 
 
-def _compare(label, woop, o, d, t_min, t_max, reps):
-    """intersect_dense vs its plain version on the same CUDA tensors."""
+def _time_kernel_ms(prepared, launch):
+    """Kernel-only time: launches of prebuilt arguments (ranges, outputs and,
+    for the BVH kernel, a zeroed ray counter each), under CUDA events."""
     import torch
+
+    launch(prepared[0])  # warm
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for p in prepared[1:]:
+        launch(p)
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (len(prepared) - 1)
+
+
+def _dense_work(woop, boxes, o, d, t_min, t_max):
+    """Operations the dense query needs on these inputs: every ray's box
+    tests plus FLOPS_DENSE_PAIR for each row of the chunks its box test
+    passes at its final t (the plain cull emulation's count); also the
+    all-rows figure of the old sweep and how far the emulation's hits
+    differ from the plain version's (0 expected)."""
     from cudatracerlib_tpu_torch.ops import intersect_dense as ops
 
+    import torch
+    from cudatracerlib_tpu_torch.accel.traversal import _slab_test
+
+    hit, n_chunks, n_rows = ops.cull_sweep(woop, boxes, o, d, t_min, t_max)
+    plain = ops.intersect_dense_plain(woop, o, d, t_min, t_max)
+    off = int((hit.prim != plain.prim).sum()) + int((hit.t != plain.t).sum())
+    B, C, T = o.shape[0], boxes.shape[0], woop.shape[0]
+    rows = int(n_rows.sum())
+    flops = FLOPS_BOX_TEST * B * C + FLOPS_DENSE_PAIR * rows
+    # what a warp sweeps: the union of its 32 lanes' chunks (at the final t,
+    # so a floor of what the running t enters)
+    t_lo = torch.as_tensor(t_min, dtype=torch.float32, device=o.device).expand(B)
+    inv_d = 1.0 / torch.where(d.abs() < 1e-20, torch.where(d < 0, -1e-20, 1e-20), d)
+    union = 0
+    for s in range(0, B - B % 32, 1 << 15):
+        sl = slice(s, min(s + (1 << 15), B - B % 32))
+        enter, _ = _slab_test(boxes[None, :, 0:3], boxes[None, :, 4:7], o[sl, None],
+                              inv_d[sl, None], t_lo[sl, None], hit.t[sl, None])
+        union += int(enter.reshape(-1, 32, C).any(1).sum())
+    return dict(flops=flops, all_rows_flops=FLOPS_DENSE_PAIR * B * T, rows=rows,
+                mean_chunks=float(n_chunks.double().mean()), emulation_off=off,
+                warp_chunks=union / max(1, B // 32),
+                nbytes=B * (24 + 8 + 16) + (woop.numel() + boxes.numel()) * 4)
+
+
+def _compare(label, woop, o, d, t_min, t_max, reps, boxes=None):
+    """intersect_dense vs its plain version on the same CUDA tensors, closest
+    and any-hit; times the wrapper, the kernel alone and the plain version,
+    and counts the work for the bound. Returns a dict."""
+    import torch
+    from cudatracerlib_tpu_torch.accel.bvh import chunk_boxes_from_woop
+    from cudatracerlib_tpu_torch.ops import intersect_dense as ops
+
+    if boxes is None:
+        boxes = chunk_boxes_from_woop(woop)
     plain = ops.intersect_dense_plain(woop, o, d, t_min, t_max)
     t_scale = float(torch.clamp(plain.t[plain.valid].abs().max(), min=1.0))
     worst = 0.0
     for any_hit in (False, True):
-        kern = ops.intersect_dense(woop, o, d, t_min, t_max, any_hit=any_hit)
+        kern = ops.intersect_dense(woop, o, d, t_min, t_max, any_hit=any_hit, boxes=boxes)
         torch.cuda.synchronize()
         r = ops.compare_hits(kern, plain, woop, t_min, t_max, any_hit=any_hit)
         worst = max(worst, _check_hits(label, "any_hit" if any_hit else "closest", r, t_scale))
-    ms = _time_ms(lambda: ops.intersect_dense(woop, o, d, t_min, t_max), reps)
+    wrap_ms = _time_ms(lambda: ops.intersect_dense(woop, o, d, t_min, t_max, boxes=boxes), reps)
+    prepared, _ = ops.launch_args(woop, o, d, t_min, t_max, boxes=boxes)
+    ms = _time_kernel_ms([prepared] * (reps + 1), ops.launch)
     plain_ms = _time_ms(lambda: ops.intersect_dense_plain(woop, o, d, t_min, t_max),
                         max(1, reps // 10))
-    print(f"[time] {label}: {o.shape[0]} rays x {woop.shape[0]} tris: kernel {ms:.4f} ms, "
-          f"plain {plain_ms:.4f} ms")
-    return worst, ms, plain_ms
+    work = _dense_work(woop, boxes, o, d, t_min, t_max)
+    bound = _bound(work["flops"], work["nbytes"])
+    old_bound = _bound(work["all_rows_flops"], work["nbytes"])
+    print(f"[time] {label}: {o.shape[0]} rays x {woop.shape[0]} rows ({boxes.shape[0]} chunks): "
+          f"kernel {ms:.4f} ms, wrapper {wrap_ms:.4f} ms, plain {plain_ms:.4f} ms")
+    print(f"[work] {label}: mean chunks entered {work['mean_chunks']:.3f} of {boxes.shape[0]} "
+          f"(a warp's union {work['warp_chunks']:.2f}), "
+          f"rows {work['rows']} ({work['rows'] / o.shape[0]:.2f} a ray), {work['flops']} "
+          f"operations, bound {bound[0]:.5f} ms ({bound[1]}); all-rows sweep (the old bound) "
+          f"{work['all_rows_flops']} operations, {old_bound[0]:.5f} ms; cull emulation vs "
+          f"plain: {work['emulation_off']} differing t / prim")
+    return dict(err=worst, ms=ms, wrap_ms=wrap_ms, plain_ms=plain_ms, bound=bound,
+                old_bound=old_bound)
 
 
 def _compare_bvh(label, bvh, o, d, t_min, t_max, reps):
@@ -207,12 +284,93 @@ def _compare_bvh(label, bvh, o, d, t_min, t_max, reps):
         torch.cuda.synchronize()
         r = ops.compare_hits(kern, plain, bvh.woop, t_min, t_max, any_hit=any_hit)
         worst = max(worst, _check_hits(label, "any_hit" if any_hit else "closest", r, t_scale))
-    ms = _time_ms(lambda: bvh_ops.intersect_bvh(bvh, o, d, t_min, t_max), reps)
+    wrap_ms = _time_ms(lambda: bvh_ops.intersect_bvh(bvh, o, d, t_min, t_max), reps)
+    ms = _bvh_kernel_ms(bvh, o, d, t_min, t_max, reps)
     plain_ms = _time_ms(lambda: bvh_ops.intersect_bvh_plain(bvh, o, d, t_min, t_max), 1)
     nbytes = o.shape[0] * (24 + 8 + 16) + 4 * (bvh.nodes.numel() + bvh.woop.numel())
     print(f"[time] {label}: {o.shape[0]} rays x {bvh.woop.shape[0]} rows: kernel {ms:.4f} ms, "
-          f"plain {plain_ms:.4f} ms")
+          f"wrapper {wrap_ms:.4f} ms, plain {plain_ms:.4f} ms")
     return worst, ms, plain_ms, flops, nbytes
+
+
+def _bvh_kernel_ms(bvh, o, d, t_min, t_max, reps, any_hit=False):
+    """intersect_bvh's kernel alone: each launch gets its own zeroed ray
+    counter, all made beforehand."""
+    import torch
+    from cudatracerlib_tpu_torch.ops import intersect_bvh as bvh_ops
+
+    counters = torch.zeros(reps + 1, dtype=torch.int32, device=o.device)
+    prepared = [bvh_ops.launch_args(bvh, o, d, t_min, t_max, any_hit, next_ray=counters[k:k + 1])[0]
+                for k in range(reps + 1)]
+    return _time_kernel_ms(prepared, bvh_ops.launch)
+
+
+def _capture_ppm(caustic, pcfg):
+    """One warm bench-config-5 PPM pass (seed 0) with intersect_dense's and
+    photon_density's arguments captured: ({label: (woop, o, d, t_min,
+    t_max, any_hit, boxes)} of the first photon-walk launch, the first eye
+    launch and the shadow-ray launch, [photon_density's argument tuples])."""
+    import torch
+    from cudatracerlib_tpu_torch.ops import intersect_dense as ops
+    from cudatracerlib_tpu_torch.ops import photon_gather as pg_ops
+    from cudatracerlib_tpu_torch.render import ppm
+
+    dense_calls, density_calls = [], []
+    real_dense, real_density = ops.intersect_dense, pg_ops.photon_density
+
+    def capture_dense(woop, o, d, t_min=1e-4, t_max=ops.T_MAX_CLAMP, any_hit=False, boxes=None):
+        keep = lambda x: x.clone() if isinstance(x, torch.Tensor) else x  # noqa: E731
+        dense_calls.append((woop, keep(o), keep(d), keep(t_min), keep(t_max), any_hit, boxes))
+        return real_dense(woop, o, d, t_min, t_max, any_hit=any_hit, boxes=boxes)
+
+    def capture_density(*args):
+        density_calls.append(args)
+        return real_density(*args)
+
+    ops.intersect_dense, pg_ops.photon_density = capture_dense, capture_density
+    try:
+        ppm.render_ppm_pass(caustic, PPM_W, PPM_H, PPM_SPP, 0, PPM_PASS, pcfg)
+        torch.cuda.synchronize()
+    finally:
+        ops.intersect_dense, pg_ops.photon_density = real_dense, real_density
+    _require(len(density_calls) == 2,
+             f"a PPM pass called photon_density {len(density_calls)} times, not 2")
+    n_eye = PPM_W * PPM_H * PPM_SPP
+    return {
+        "ppm photon rays": next(c for c in dense_calls if c[1].shape[0] == pcfg.n_photons),
+        "ppm eye rays": next(c for c in dense_calls if c[1].shape[0] == n_eye and not c[5]),
+        "ppm shadow rays": next(c for c in dense_calls if c[5]),
+    }, density_calls
+
+
+def _soup(seed, n_tri, spread, dev):
+    """A random triangle soup (numpy, (n_tri, 3, 3)) and SOUP_RAYS random
+    rays through it on `dev`."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    centers = rng.uniform(-1.0, 1.0, (n_tri, 1, 3))
+    tris = (centers + rng.normal(scale=spread, size=(n_tri, 3, 3))).astype(np.float32)
+    o = torch.from_numpy(rng.uniform(-1.5, 1.5, (SOUP_RAYS, 3)).astype(np.float32)).to(dev)
+    d = torch.nn.functional.normalize(
+        torch.from_numpy(rng.normal(size=(SOUP_RAYS, 3)).astype(np.float32)).to(dev), dim=-1)
+    return tris, o, d
+
+
+def _first_bounce(scene, cfg, o, d, sampler, pack=None):
+    """The continuing rays of one `surface_bounce` from all-active lanes."""
+    import torch
+    from cudatracerlib_tpu_torch.render import path_tracer as pt
+
+    n, dev = o.shape[0], o.device
+    b = pt.surface_bounce(scene, cfg, o=o, d=d, active=torch.ones(n, dtype=torch.bool, device=dev),
+                          throughput=torch.ones(n, 3, device=dev),
+                          prev_pdf=torch.zeros(n, device=dev),
+                          prev_delta=torch.ones(n, dtype=torch.bool, device=dev),
+                          eta_scale=torch.ones(n, device=dev), sampler=sampler, depth=0,
+                          pack=pack)
+    return b.o[b.cont].contiguous(), b.d[b.cont].contiguous()
 
 
 def _check_density(label, args):
@@ -273,7 +431,10 @@ def _profile(label, fn):
     for name, us in top:
         print(f"[profile] {label}:   {us / 1e3:9.3f} ms {100 * us / busy:5.1f}%  {name[:90]}")
     for kernel in PORT_KERNELS:  # the port's own kernels, wherever they rank
-        mine = [e for e in kernels if e.name.startswith(f"(anonymous namespace)::{kernel}(")]
+        mine = [e for e in kernels
+                if e.name.startswith((f"(anonymous namespace)::{kernel}(",
+                                      f"void (anonymous namespace)::{kernel}<",
+                                      f"(anonymous namespace)::{kernel}<"))]
         us = sum(e.time_range.end - e.time_range.start for e in mine)
         n = len(mine)
         print(f"[profile] {label}: port kernel {kernel}: {n} launches, {us / 1e3:.3f} ms, "
@@ -343,31 +504,35 @@ def main():
     print(f"[build] {', '.join(f'{k} {v:.2f} s' for k, v in secs.items())}; "
           f"all in {time.perf_counter() - t0:.2f} s (nvcc sm_90a, in parallel)")
 
-    # ---- 3. intersect_dense vs plain at the Cornell path's shapes and at the band top ----
+    # ---- 3. intersect_dense vs plain at the Cornell and PPM paths' shapes and at the band top ----
     scene = cornell_box()
     _require(scene.bvh.woop.device.type == "cuda", "cornell_box() did not build on the card")
     cfg = pt.specialize_config(scene, pt.PTConfig(max_depth=DEPTH))
     o, d, _, sampler = pt.camera_rays(scene, W, H, SPP, 3)
-    woop = scene.bvh.woop
-    err_cam, ms_cam, plain_ms_cam = _compare("cornell camera rays", woop, o, d, 1e-4,
-                                             torch.inf, 50)
-    n = o.shape[0]
-    b0 = pt.surface_bounce(scene, cfg, o=o, d=d, active=torch.ones(n, dtype=torch.bool, device=dev),
-                           throughput=torch.ones(n, 3, device=dev),
-                           prev_pdf=torch.zeros(n, device=dev),
-                           prev_delta=torch.ones(n, dtype=torch.bool, device=dev),
-                           eta_scale=torch.ones(n, device=dev), sampler=sampler, depth=0)
-    err_b1, _, _ = _compare("cornell first-bounce rays", woop, b0.o[b0.cont].contiguous(),
-                            b0.d[b0.cont].contiguous(), 1e-4, torch.inf, 50)
+    woop, boxes = scene.bvh.woop, scene.bvh.chunk_boxes
+    cam = _compare("cornell camera rays", woop, o, d, 1e-4, torch.inf, 50, boxes)
+    bounce = _compare("cornell first-bounce rays", woop,
+                      *_first_bounce(scene, cfg, o, d, sampler), 1e-4, torch.inf, 50, boxes)
 
-    rng = np.random.default_rng(0)
-    centers = rng.uniform(-1.0, 1.0, (4096, 1, 3))
-    tris = (centers + rng.normal(scale=0.08, size=(4096, 3, 3))).astype(np.float32)
+    tris, so, sd = _soup(0, 4096, 0.08, dev)
     soup = torch.from_numpy(woop_transform(tris[:, 0], tris[:, 1], tris[:, 2])).to(dev)
-    so = torch.from_numpy(rng.uniform(-1.5, 1.5, (SOUP_RAYS, 3)).astype(np.float32)).to(dev)
-    sd = torch.nn.functional.normalize(
-        torch.from_numpy(rng.normal(size=(SOUP_RAYS, 3)).astype(np.float32)).to(dev), dim=-1)
-    err_soup, ms_soup, plain_ms_soup = _compare("soup4096", soup, so, sd, 1e-4, 2.0, 10)
+    soup_r = _compare("soup4096", soup, so, sd, 1e-4, 2.0, 10)
+
+    # the PPM path: intersect_dense's and photon_density's arguments, captured
+    # in bench config 5's warm pass (seed 0; 9 times the pass at seed 7)
+    caustic = caustic_scene()
+    _require(caustic.bvh.woop.device.type == "cuda", "caustic_scene() did not build on the card")
+    pcfg = ppm.PPMConfig()
+    ppm_args, captured = _capture_ppm(caustic, pcfg)
+    ppm_r = {label: _compare(label, c[0], c[1], c[2], c[3], c[4], 20, c[6])
+             for label, c in ppm_args.items()}
+    for label in ("ppm photon rays", "ppm eye rays"):  # yardstick, not gated
+        c = ppm_args[label]
+        ms_y = _bvh_kernel_ms(caustic.bvh, c[1], c[2], c[3], c[4], 20)
+        print(f"[yardstick] {label}: {c[1].shape[0]} rays x {c[0].shape[0]} rows: intersect_bvh "
+              f"kernel over the caustic BVH {ms_y:.4f} ms, intersect_dense kernel "
+              f"{ppm_r[label]['ms']:.4f} ms")
+    dense_err = max(r["err"] for r in [cam, bounce, soup_r, *ppm_r.values()])
 
     # ---- 4. the Cornell path at bench config 1 ----
     img1, rays = pt.render_counted(scene, W, H, SPP, 3, cfg)
@@ -392,9 +557,10 @@ def main():
     print(f"[main path] cornell {W}x{H} spp {SPP} depth {DEPTH}: seed-3 mean {mean1:.6f} "
           f"(ref {REF_MEAN_SEED3}), rays/pass {rays_pass}, {N_PASS} passes in {dt:.4f} s, "
           f"{mrays:.3f} Mrays/s, progressive mean {float(img.mean()):.6f}")
-    print(f"[summary] soup4096: kernel {ms_soup:.4f} ms, plain {plain_ms_soup:.4f} ms; "
-          f"max abs err {max(err_cam, err_b1, err_soup):.3g}")
-    dense_bound = _bound(FLOPS_DENSE_PAIR * n * woop.shape[0], n * (24 + 8 + 16) + woop.numel() * 4)
+    print(f"[summary] intersect_dense kernel: cornell camera {cam['ms']:.4f} ms (bound "
+          f"{cam['bound'][0]:.5f}), ppm photon {ppm_r['ppm photon rays']['ms']:.4f} ms (bound "
+          f"{ppm_r['ppm photon rays']['bound'][0]:.5f}), soup4096 {soup_r['ms']:.4f} ms; "
+          f"max abs err {dense_err:.3g}")
 
     # ---- 5. intersect_bvh vs its plain version on glossy rays and a deep soup ----
     glossy = glossy_scene()
@@ -403,27 +569,15 @@ def main():
     _, go, gd, gstate = wf._camera_ray(glossy, ids, 3, W, H)
     err_g, ms_bvh, plain_ms_bvh, bvh_flops, bvh_bytes = _compare_bvh(
         "glossy camera rays", glossy.bvh, go, gd, 1e-4, torch.inf, 20)
-    gn = go.shape[0]
-    g1 = pt.surface_bounce(glossy, gcfg, o=go, d=gd,
-                           active=torch.ones(gn, dtype=torch.bool, device=dev),
-                           throughput=torch.ones(gn, 3, device=dev),
-                           prev_pdf=torch.zeros(gn, device=dev),
-                           prev_delta=torch.ones(gn, dtype=torch.bool, device=dev),
-                           eta_scale=torch.ones(gn, device=dev), sampler=pt.Sampler(state=gstate),
-                           depth=0, pack=shade_pack.build_shade_pack(glossy))
+    g1o, g1d = _first_bounce(glossy, gcfg, go, gd, pt.Sampler(state=gstate),
+                             shade_pack.build_shade_pack(glossy))
     err_g1, ms_bvh_b1, plain_ms_bvh_b1, _, _ = _compare_bvh(
-        "glossy first-bounce rays", glossy.bvh, g1.o[g1.cont].contiguous(),
-        g1.d[g1.cont].contiguous(), 1e-4, torch.inf, 20)
-    rng = np.random.default_rng(1)
-    centers = rng.uniform(-1.0, 1.0, (SOUP_TRIS, 1, 3))
-    tris = (centers + rng.normal(scale=0.03, size=(SOUP_TRIS, 3, 3))).astype(np.float32)
+        "glossy first-bounce rays", glossy.bvh, g1o, g1d, 1e-4, torch.inf, 20)
+    tris, so, sd = _soup(1, SOUP_TRIS, 0.03, dev)
     t0 = time.perf_counter()
     soup_bvh = build_bvh(tris)
     print(f"[build] soup65536 BVH: {soup_bvh.nodes.shape[0]} nodes, "
           f"{soup_bvh.woop.shape[0]} rows, {time.perf_counter() - t0:.2f} s")
-    so = torch.from_numpy(rng.uniform(-1.5, 1.5, (SOUP_RAYS, 3)).astype(np.float32)).to(dev)
-    sd = torch.nn.functional.normalize(
-        torch.from_numpy(rng.normal(size=(SOUP_RAYS, 3)).astype(np.float32)).to(dev), dim=-1)
     err_s65, ms_s65, plain_ms_s65, s65_flops, s65_bytes = _compare_bvh(
         "soup65536", soup_bvh, so, sd, 1e-4, torch.inf, 5)
     bvh_bound = _bound(bvh_flops, bvh_bytes)
@@ -485,24 +639,7 @@ def main():
     print(f"[main path] glossy {W}x{H} spp {spp2} depth {DEPTH} seed 7: rays {int(brays)}, "
           f"{gdt:.4f} s, {int(brays) / gdt / 1e6:.3f} Mrays/s, mean {float(bimg.mean()):.6f}")
 
-    # ---- 8. photon_density vs its plain version, on bench-config-5 inputs ----
-    caustic = caustic_scene()
-    _require(caustic.bvh.woop.device.type == "cuda", "caustic_scene() did not build on the card")
-    pcfg = ppm.PPMConfig()
-    captured = []
-    real_density = pg_ops.photon_density
-
-    def capture(*args):
-        captured.append(args)
-        return real_density(*args)
-
-    pg_ops.photon_density = capture
-    try:  # the warm pass of 9, at seed 0
-        ppm.render_ppm_pass(caustic, PPM_W, PPM_H, PPM_SPP, 0, PPM_PASS, pcfg)
-        torch.cuda.synchronize()
-    finally:
-        pg_ops.photon_density = real_density
-    _require(len(captured) == 2, f"a PPM pass called photon_density {len(captured)} times, not 2")
+    # ---- 8. photon_density vs its plain version, on bench-config-5 inputs (captured in 3) ----
     dens_err, pairs = 0.0, []
     for label, args in zip(("global map", "caustic map"), captured):
         e, n_pairs = _check_density(label, args)
@@ -588,12 +725,19 @@ def main():
             "source": "cudatracerlib_tpu_torch/csrc/intersect_dense.cu",
             "replaces": "cudatracerlib_tpu/ops/intersect_pallas.py:89",
             "launches": launches["closest"] + launches["any_hit"],
-            "max_abs_err": max(err_cam, err_b1, err_soup),
-            "ms": ms_cam,
-            "plain_ms": plain_ms_cam,
-            "bound_ms": dense_bound[0],
-            "bound_by": dense_bound[1],
+            "max_abs_err": dense_err,
+            "ms": cam["ms"],
+            "plain_ms": cam["plain_ms"],
+            "bound_ms": cam["bound"][0],
+            "bound_by": cam["bound"][1],
             "library_ms": None,
+            "wrapper_ms": cam["wrap_ms"],
+            "ppm_launches": plaunch["intersect_dense"]["closest"]
+            + plaunch["intersect_dense"]["any_hit"],
+            "ppm_ms": ppm_r["ppm photon rays"]["ms"],
+            "ppm_plain_ms": ppm_r["ppm photon rays"]["plain_ms"],
+            "ppm_bound_ms": ppm_r["ppm photon rays"]["bound"][0],
+            "ppm_bound_by": ppm_r["ppm photon rays"]["bound"][1],
         },
         {
             "name": "intersect_bvh",

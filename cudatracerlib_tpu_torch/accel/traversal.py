@@ -205,14 +205,15 @@ def refine_hit(bvh, o, d, hit: Hit) -> Hit:
 
 def intersect_auto(bvh, o, d, t_min=1e-4, t_max=torch.inf, any_hit: bool = False) -> Hit:
     """Closest-hit (or any-hit) query against the scene BVH's triangles:
-    the dense intersector up to DENSE_MAX_TRIS Woop rows, the BVH walk
-    above (each a CUDA kernel for CUDA tensors, its plain version for CPU
-    tensors)."""
+    the dense intersector up to DENSE_MAX_TRIS Woop rows (with the BVH's
+    chunk boxes), the BVH walk above (each a CUDA kernel for CUDA tensors,
+    its plain version for CPU tensors)."""
     sg = lambda x: x.detach() if isinstance(x, torch.Tensor) else x  # noqa: E731
     if bvh.woop.shape[0] <= DENSE_MAX_TRIS:
         from ..ops.intersect_dense import intersect_dense
 
-        raw = intersect_dense(bvh.woop, sg(o), sg(d), sg(t_min), sg(t_max), any_hit=any_hit)
+        raw = intersect_dense(bvh.woop, sg(o), sg(d), sg(t_min), sg(t_max), any_hit=any_hit,
+                              boxes=bvh.chunk_boxes)
     else:
         from ..ops.intersect_bvh import intersect_bvh
 

@@ -11,7 +11,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .accel.bvh import BVH
+from .accel.bvh import BVH, chunk_boxes_from_woop
 from .scene.lights import Lights
 from .scene.scene import Materials, Scene, ShadingData
 from .scene.sensors import Camera
@@ -24,6 +24,9 @@ _TENSOR_GROUPS = {
     "lights": Lights,
     "camera": Camera,
 }
+# port-only leaves derived from others: left out of `flatten`, rebuilt by
+# `scene_from_numpy` (the dense intersector's boxes, from the Woop rows)
+_DERIVED = {"bvh.chunk_boxes"}
 
 
 def flatten(tree, prefix: str = "") -> dict[str, np.ndarray]:
@@ -32,6 +35,8 @@ def flatten(tree, prefix: str = "") -> dict[str, np.ndarray]:
     out: dict[str, np.ndarray] = {}
     for name, v in zip(tree._fields, tree):
         key = prefix + name
+        if key in _DERIVED:
+            continue
         if isinstance(v, tuple) and hasattr(v, "_fields"):
             out.update(flatten(v, key + "."))
         elif isinstance(v, torch.Tensor):
@@ -51,13 +56,15 @@ def scene_from_numpy(arrays: dict[str, np.ndarray], device="cuda") -> Scene:
     the CPU) from flattened Scene arrays. The specialization is derived from
     the arrays by specialize_config."""
     groups = {name: _group(cls, arrays, name, device) for name, cls in _TENSOR_GROUPS.items()}
+    woop = torch.from_numpy(np.array(arrays["bvh.woop"])).to(device)
     bvh = BVH(
         nodes=torch.from_numpy(np.array(arrays["bvh.nodes"])).to(device),
-        woop=torch.from_numpy(np.array(arrays["bvh.woop"])).to(device),
+        woop=woop,
         tri_index=torch.from_numpy(np.array(arrays["bvh.tri_index"])).to(device),
         root_code=np.int32(arrays["bvh.root_code"]),
         world_min=np.array(arrays["bvh.world_min"]),
         world_max=np.array(arrays["bvh.world_max"]),
+        chunk_boxes=chunk_boxes_from_woop(woop),
     )
     return Scene(
         bvh=bvh,

@@ -1,45 +1,72 @@
-// Dense ray / Woop-triangle intersection for Hopper (sm_90a).
+// Dense ray / Woop-triangle intersection for Hopper (sm_90a): a warp-culled
+// sweep over chunk boxes.
 //
 // Replaces the Pallas TPU kernel cudatracerlib_tpu/ops/intersect_pallas.py:89
 // `intersect_dense` (body `_dense_kernel`, :33-85): for each ray, the closest
 // hit over ALL T Woop triangles (T <= DENSE_MAX_TRIS = 4096) with t in
-// (t_min, t_max). Same arithmetic as `_dense_kernel`: the |dz| < 1e-20 guard,
-// `t > tmin && t < best_t` starting from tmax, ascending triangle order with
-// a strict `<` so the lowest index wins a tie (leaf padding duplicates rows).
+// (t_min, t_max). Same test as `_dense_kernel`: the |dz| < 1e-20 guard,
+// `t > tmin && t < best_t` starting from tmax (clamped to 1e30), ascending
+// triangle order with a strict `<` so the lowest index wins a tie (leaf
+// padding duplicates rows). The Woop test is written with __fmul_rn /
+// __fadd_rn in the plain version's order ((x0 y0 + x1 y1) + x2 y2) + w, so
+// no FMA contraction moves t: t, u, v equal the plain version's bit for bit
+// (with contraction, u, v of thin triangles drifted by up to 3e-4).
 //
-// What bounds it on the H100: FP32 work, about 20 FMA/FMUL/FADD plus one
-// IEEE divide per (ray, triangle) pair, i.e. ~20 * T flops per ray; the rays
-// themselves are 32 bytes in and 16 bytes out, so device memory is not the
-// limit once T exceeds a few dozen. The design keeps that arithmetic fed:
-//   * one ray per thread, its origin/direction/best hit in registers;
-//   * the woop table is staged through shared memory in chunks of CHUNK rows
-//     (24 KB, under the 48 KB static limit, so several blocks share an SM);
-//     every thread of the block reads the same row, which is a shared-memory
-//     broadcast (no bank conflicts), as three 16-byte loads;
-//   * u, v are only evaluated once t passes the range test;
-//   * any-hit lanes stop testing at their first hit, and a block stops
-//     staging chunks once none of its lanes still needs them.
-// No wgmma/TMA yet: the test is not a matrix product at this size.
+// What bounds it on the H100: FP32 work. An all-rows sweep costs about 30
+// operations per (ray, row) pair, O(T) per ray: 4.1e8 pairs for 2^17 photon
+// rays over 3,160 rows. The rays are 32 bytes in and 16 out, so memory is
+// never the limit. The design cuts the pairs rather than their cost:
+//   * the rows come in BVH leaf order, so CHUNK = 32 consecutive rows lie
+//     close together; each chunk has a padded AABB (accel/bvh.py
+//     `chunk_boxes`, built with the BVH), 8 floats read as two float4;
+//   * one ray per lane. Each lane slab-tests the next chunk's box against
+//     its own live range (t_min, best_t); the warp votes (`__any_sync`)
+//     and sweeps the chunk's rows only if some lane enters the box. Lanes
+//     that did not enter test the rows too (same instructions, and only ever
+//     closer to the all-rows sweep). A skipped row cannot hit, because its
+//     box contains it, so the winner, ties included, is the all-rows winner;
+//   * no block barrier: each warp culls, sweeps and ends on its own. Any-hit
+//     lanes drop out at their first hit, a lane with an empty range
+//     (t_min >= t_max) never votes, and a warp ends when no lane is live;
+//   * a warp stages an entered chunk's 32 rows (1.5 KB) into its own slice
+//     of shared memory with one coalesced load, then every lane reads each
+//     row as a broadcast; u, v only once t passes the range test. Staging
+//     measured faster than warp-uniform __ldg loads of the same rows (3,160
+//     rows are 152 KB, in L1 / L2) at every main-path shape on the H100.
+// The per-pair test is not a matrix product at these sizes, so no wgmma/TMA.
 //
-// Plain C interface for ctypes; the launch goes on the caller's stream and
-// the function returns cudaGetLastError().
+// Plain C interface for ctypes; a scalar t_min / t_max comes as a value
+// with a null pointer, a per-ray one as a pointer. The launch goes on the
+// caller's stream and the function returns cudaGetLastError().
 
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int BLOCK = 256;
-constexpr int CHUNK = 512;  // woop rows per shared-memory chunk: 512 * 48 B = 24 KB
+constexpr int BLOCK = 128;
+constexpr int CHUNK = 32;  // rows per chunk box: accel/bvh.py CHUNK_ROWS
+constexpr unsigned FULL = 0xffffffffu;
+constexpr float T_MAX_CLAMP = 1e30f;
+
+__device__ __forceinline__ float inv_dir(float x) {
+  return 1.0f / (fabsf(x) < 1e-20f ? (x < 0.f ? -1e-20f : 1e-20f) : x);
+}
+
+// ((a0 b0 + a1 b1) + a2 b2), each operation rounded on its own
+__device__ __forceinline__ float dot3(float a0, float a1, float a2, float b0, float b1,
+                                      float b2) {
+  return __fadd_rn(__fadd_rn(__fmul_rn(a0, b0), __fmul_rn(a1, b1)), __fmul_rn(a2, b2));
+}
 
 __global__ void __launch_bounds__(BLOCK)
-dense_kernel(const float* __restrict__ woop, int n_tri,
-             const float* __restrict__ o, const float* __restrict__ d,
-             const float* __restrict__ tmin_in, const float* __restrict__ tmax_in,
-             int n_ray, int any_hit,
+dense_kernel(const float4* __restrict__ woop, int n_tri, const float4* __restrict__ boxes,
+             const float* __restrict__ o, const float* __restrict__ d, float tmin_val,
+             const float* __restrict__ tmin_in, float tmax_val,
+             const float* __restrict__ tmax_in, int n_ray, int any_hit,
              float* __restrict__ t_out, int* __restrict__ prim_out,
              float* __restrict__ bary_out) {
-  __shared__ float4 rows[CHUNK * 3];
-
+  __shared__ float4 stage_s[(BLOCK / 32) * CHUNK * 3];  // a warp's entered chunk
+  float4* const rows = stage_s + (threadIdx.x / 32) * CHUNK * 3;
   const int i = blockIdx.x * BLOCK + threadIdx.x;
   const bool live = i < n_ray;
   float ox = 0.f, oy = 0.f, oz = 0.f, dx = 0.f, dy = 0.f, dz = 0.f;
@@ -47,34 +74,48 @@ dense_kernel(const float* __restrict__ woop, int n_tri,
   if (live) {
     ox = o[3 * i]; oy = o[3 * i + 1]; oz = o[3 * i + 2];
     dx = d[3 * i]; dy = d[3 * i + 1]; dz = d[3 * i + 2];
-    tmin = tmin_in[i];
-    best_t = tmax_in[i];
+    tmin = tmin_in ? tmin_in[i] : tmin_val;
+    best_t = fminf(tmax_in ? tmax_in[i] : tmax_val, T_MAX_CLAMP);
   }
+  const float ix = inv_dir(dx), iy = inv_dir(dy), iz = inv_dir(dz);
   int best = -1;
   float best_u = 0.f, best_v = 0.f;
-  bool active = live;
+  bool active = live && tmin < best_t;
 
-  const float4* src = reinterpret_cast<const float4*>(woop);
-  for (int base = 0; base < n_tri; base += CHUNK) {
-    // uniform across the block: every thread reaches this barrier
-    if (!__syncthreads_or(active)) break;
+  const int n_chunk = (n_tri + CHUNK - 1) / CHUNK;
+  // every lane of the warp runs every iteration: the votes need all 32
+  for (int c = 0; c < n_chunk; ++c) {
+    if (!__any_sync(FULL, active)) break;
+    bool enter = false;
+    if (active) {
+      const float4 lo = __ldg(boxes + 2 * c), hi = __ldg(boxes + 2 * c + 1);
+      const float ax = (lo.x - ox) * ix, bx = (hi.x - ox) * ix;
+      const float ay = (lo.y - oy) * iy, by = (hi.y - oy) * iy;
+      const float az = (lo.z - oz) * iz, bz = (hi.z - oz) * iz;
+      const float near = fmaxf(fmaxf(fminf(ax, bx), fminf(ay, by)), fminf(az, bz));
+      const float far = fminf(fminf(fmaxf(ax, bx), fmaxf(ay, by)), fmaxf(az, bz));
+      enter = fmaxf(near, tmin) <= fminf(far, best_t);
+    }
+    if (!__any_sync(FULL, enter)) continue;
+    const int base = c * CHUNK;
     const int n = min(CHUNK, n_tri - base);
-    for (int k = threadIdx.x; k < 3 * n; k += BLOCK) rows[k] = src[3 * base + k];
-    __syncthreads();
+    for (int k = threadIdx.x & 31; k < 3 * n; k += 32) rows[k] = __ldg(woop + 3 * base + k);
+    __syncwarp();
     if (active) {
       for (int j = 0; j < n; ++j) {
         const float4 r2 = rows[3 * j + 2];
-        const float oz_p = r2.x * ox + r2.y * oy + r2.z * oz + r2.w;
-        const float dz_p = r2.x * dx + r2.y * dy + r2.z * dz;
+        const float oz_p = __fadd_rn(dot3(r2.x, r2.y, r2.z, ox, oy, oz), r2.w);
+        const float dz_p = dot3(r2.x, r2.y, r2.z, dx, dy, dz);
         const float inv_dz = 1.0f / (fabsf(dz_p) < 1e-20f ? 1e-20f : dz_p);
-        const float t = -oz_p * inv_dz;
+        const float t = __fmul_rn(-oz_p, inv_dz);
         if (t > tmin && t < best_t) {
           const float4 r0 = rows[3 * j];
           const float4 r1 = rows[3 * j + 1];
-          const float px = ox + t * dx, py = oy + t * dy, pz = oz + t * dz;
-          const float u = r0.x * px + r0.y * py + r0.z * pz + r0.w;
-          const float v = r1.x * px + r1.y * py + r1.z * pz + r1.w;
-          if (u >= 0.f && v >= 0.f && u + v <= 1.f) {
+          const float u = __fadd_rn(__fadd_rn(dot3(r0.x, r0.y, r0.z, ox, oy, oz), r0.w),
+                                    __fmul_rn(t, dot3(r0.x, r0.y, r0.z, dx, dy, dz)));
+          const float v = __fadd_rn(__fadd_rn(dot3(r1.x, r1.y, r1.z, ox, oy, oz), r1.w),
+                                    __fmul_rn(t, dot3(r1.x, r1.y, r1.z, dx, dy, dz)));
+          if (u >= 0.f && v >= 0.f && __fadd_rn(u, v) <= 1.f) {
             best_t = t;
             best = base + j;
             best_u = u;
@@ -87,7 +128,7 @@ dense_kernel(const float* __restrict__ woop, int n_tri,
         }
       }
     }
-    __syncthreads();  // the next chunk overwrites `rows`
+    __syncwarp();  // the next entered chunk overwrites `rows`
   }
   if (live) {
     t_out[i] = best_t;
@@ -99,17 +140,16 @@ dense_kernel(const float* __restrict__ woop, int n_tri,
 
 }  // namespace
 
-extern "C" int intersect_dense_launch(const float* woop, int n_tri,
-                                      const float* o, const float* d,
-                                      const float* tmin, const float* tmax,
-                                      int n_ray, int any_hit, float* t_out,
-                                      int* prim_out, float* bary_out,
-                                      void* stream) {
+extern "C" int intersect_dense_launch(const float* woop, int n_tri, const float* boxes,
+                                      const float* o, const float* d, float tmin_val,
+                                      const float* tmin, float tmax_val, const float* tmax,
+                                      int n_ray, int any_hit, float* t_out, int* prim_out,
+                                      float* bary_out, void* stream) {
   if (n_ray > 0) {
     const int grid = (n_ray + BLOCK - 1) / BLOCK;
     dense_kernel<<<grid, BLOCK, 0, static_cast<cudaStream_t>(stream)>>>(
-        woop, n_tri, o, d, tmin, tmax, n_ray, any_hit, t_out, prim_out,
-        bary_out);
+        reinterpret_cast<const float4*>(woop), n_tri, reinterpret_cast<const float4*>(boxes),
+        o, d, tmin_val, tmin, tmax_val, tmax, n_ray, any_hit, t_out, prim_out, bary_out);
   }
   return static_cast<int>(cudaGetLastError());
 }

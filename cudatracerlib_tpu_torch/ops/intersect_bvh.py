@@ -1,5 +1,5 @@
-"""BVH stack-walk ray / Woop-triangle intersection: the CUDA kernel and its
-plain version.
+"""BVH ray / Woop-triangle intersection: the CUDA kernel (a persistent
+while-while traversal) and its plain version.
 
 Port of the Pallas TPU kernel cudatracerlib_tpu/ops/cluster_trace.py:411
 (`intersect_clusters`), which serves scenes above the dense band. The kernel
@@ -21,7 +21,7 @@ import torch
 
 from .._build_util import CudaKernel
 from ..accel.traversal import Hit, intersect
-from .intersect_dense import _per_ray
+from .intersect_dense import aligned, range_arg
 
 MAX_STEPS = 100_000
 
@@ -29,9 +29,9 @@ MAX_STEPS = 100_000
 # (plain-version calls do not).
 launches = {"closest": 0, "any_hit": 0}
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _KERNEL = CudaKernel("intersect_bvh",
-                     [_P, _P, _I, _I, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P])
+                     [_P, _P, _I, _I, _P, _P, _F, _P, _F, _P, _I, _I, _I, _P, _P, _P, _P, _P])
 
 
 def get_lib():
@@ -61,9 +61,37 @@ def intersect_bvh_plain(bvh, o, d, t_min=1e-4, t_max=torch.inf, any_hit: bool = 
                      with_counts=with_counts)
 
 
-def _aligned(x):
-    x = x.contiguous()
-    return x.clone() if x.data_ptr() % 16 else x  # the kernel reads float4 rows
+def launch_args(bvh, o, d, t_min=1e-4, t_max=torch.inf, any_hit: bool = False,
+                next_ray=None):
+    """(arguments of one kernel launch, its outputs t, prim, bary) for
+    CUDA tensors: what `intersect_bvh` launches, also for timing the kernel
+    alone. `next_ray` is the zeroed int32 ray counter (a new one if None)."""
+    _check(bvh, o, d)
+    nodes, woop = aligned(bvh.nodes), aligned(bvh.woop)
+    o, d = o.contiguous(), d.contiguous()
+    B = o.shape[0]
+    tmin_v, tmin = range_arg(t_min, B, o.device)
+    tmax_v, tmax = range_arg(t_max, B, o.device)
+    if next_ray is None:
+        next_ray = torch.zeros(1, dtype=torch.int32, device=o.device)
+    t = torch.empty(B, dtype=torch.float32, device=o.device)
+    prim = torch.empty(B, dtype=torch.int32, device=o.device)
+    bary = torch.empty(B, 2, dtype=torch.float32, device=o.device)
+    with torch.cuda.device(o.device):
+        stream = torch.cuda.current_stream().cuda_stream
+    args = (nodes.data_ptr(), woop.data_ptr(), woop.shape[0], int(bvh.root_code), o.data_ptr(),
+            d.data_ptr(), tmin_v, None if tmin is None else tmin.data_ptr(), tmax_v,
+            None if tmax is None else tmax.data_ptr(), B, int(bool(any_hit)), MAX_STEPS,
+            next_ray.data_ptr(), t.data_ptr(), prim.data_ptr(), bary.data_ptr(), stream)
+    keep = (nodes, woop, o, d, tmin, tmax, next_ray)  # outlive the launch
+    return (args, keep, o.device), (t, prim, bary)
+
+
+def launch(prepared) -> None:
+    """Launch the kernel with `launch_args`' arguments (not counted)."""
+    args, _, device = prepared
+    with torch.cuda.device(device):  # the launch sizes its grid for this card
+        _KERNEL.launch(*args)
 
 
 def intersect_bvh(bvh, o, d, t_min=1e-4, t_max=torch.inf, any_hit: bool = False) -> Hit:
@@ -76,20 +104,7 @@ def intersect_bvh(bvh, o, d, t_min=1e-4, t_max=torch.inf, any_hit: bool = False)
         return intersect_bvh_plain(bvh, o, d, t_min, t_max, any_hit=any_hit)
     if o.device.type != "cuda":
         raise ValueError(f"intersect_bvh runs on cuda or cpu tensors, not {o.device}")
-    _check(bvh, o, d)
-    nodes, woop = _aligned(bvh.nodes), _aligned(bvh.woop)
-    o, d = o.contiguous(), d.contiguous()
-    B = o.shape[0]
-    tmin = _per_ray(t_min, B, o.device)
-    tmax = _per_ray(t_max, B, o.device)
-    t = torch.empty(B, dtype=torch.float32, device=o.device)
-    prim = torch.empty(B, dtype=torch.int32, device=o.device)
-    bary = torch.empty(B, 2, dtype=torch.float32, device=o.device)
-    with torch.cuda.device(o.device):
-        stream = torch.cuda.current_stream().cuda_stream
-    _KERNEL.launch(nodes.data_ptr(), woop.data_ptr(), woop.shape[0], int(bvh.root_code),
-                   o.data_ptr(), d.data_ptr(), tmin.data_ptr(), tmax.data_ptr(), B,
-                   int(bool(any_hit)), MAX_STEPS, t.data_ptr(), prim.data_ptr(),
-                   bary.data_ptr(), stream)
+    prepared, (t, prim, bary) = launch_args(bvh, o, d, t_min, t_max, any_hit)
+    launch(prepared)
     launches["any_hit" if any_hit else "closest"] += 1
     return Hit(t=t, prim=prim, bary=bary, valid=prim >= 0)

@@ -11,7 +11,10 @@ and runs the plain PyTorch version for CPU tensors; it never falls back
 from one to the other. `intersect_dense_plain` is the plain version of the
 same contract (accel/traversal.py's brute force, with t_max clamped to 1e30
 as the kernel's caller does), used by the CPU path and by the checks that
-hold the kernel against it.
+hold the kernel against it. The kernel sweeps only the chunks of
+CHUNK_ROWS rows whose padded box (accel/bvh.py `chunk_boxes`) some lane of
+its warp enters; `cull_sweep` is that per-lane cull in plain PyTorch, which
+also counts the rows a ray's cull cannot skip (the work the bound charges).
 """
 from __future__ import annotations
 
@@ -20,7 +23,8 @@ import ctypes
 import torch
 
 from .._build_util import CudaKernel
-from ..accel.traversal import Hit, intersect_brute_force
+from ..accel.bvh import CHUNK_ROWS, chunk_boxes_from_woop
+from ..accel.traversal import Hit, _slab_test, intersect_brute_force, intersect_woop
 
 T_MAX_CLAMP = 1e30
 
@@ -28,8 +32,9 @@ T_MAX_CLAMP = 1e30
 # (plain-version calls do not).
 launches = {"closest": 0, "any_hit": 0}
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
-_KERNEL = CudaKernel("intersect_dense", [_P, _I, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P])
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_KERNEL = CudaKernel("intersect_dense",
+                     [_P, _I, _P, _P, _P, _F, _P, _F, _P, _I, _I, _P, _P, _P, _P])
 
 
 def get_lib():
@@ -37,12 +42,24 @@ def get_lib():
     return _KERNEL.get()
 
 
-def _per_ray(x, n: int, device) -> torch.Tensor:
-    """Scalar or (n,) range bound -> contiguous (n,) float32 on `device`."""
-    x = torch.as_tensor(x, dtype=torch.float32, device=device)
-    if x.dim() > 1 or (x.dim() == 1 and x.shape[0] != n):
-        raise ValueError(f"range bound of shape {tuple(x.shape)} for {n} rays")
-    return x.expand(n).contiguous()
+def range_arg(x, n: int, device):
+    """A t_min / t_max bound as the kernels take it: (value, None) for a
+    scalar, (0.0, contiguous (n,) float32 tensor on `device`) per ray. A
+    0-dim tensor on the card is expanded, not read back (that would sync)."""
+    if isinstance(x, torch.Tensor):
+        if x.dim() == 0 and x.device.type == "cpu":
+            return float(x), None
+        x = x.to(device=device, dtype=torch.float32)
+        if x.dim() > 1 or (x.dim() == 1 and x.shape[0] != n):
+            raise ValueError(f"range bound of shape {tuple(x.shape)} for {n} rays")
+        return 0.0, x.expand(n).contiguous()
+    return float(x), None
+
+
+def aligned(x):
+    """Contiguous, 16-byte aligned: the kernels read rows as float4."""
+    x = x.contiguous()
+    return x.clone() if x.data_ptr() % 16 else x
 
 
 def _check(woop, o, d):
@@ -66,33 +83,106 @@ def intersect_dense_plain(woop, o, d, t_min=1e-4, t_max=T_MAX_CLAMP) -> Hit:
     return intersect_brute_force(woop, o, d, t_min, t_max)
 
 
-def intersect_dense(woop, o, d, t_min=1e-4, t_max=T_MAX_CLAMP, any_hit: bool = False) -> Hit:
-    """Closest (or, with `any_hit`, some) hit of each ray over all triangles.
-
-    woop (T, 12) float32; o, d (B, 3) float32; t_min / t_max scalars or (B,).
-    Returns a Hit with t = t_max (clamped to 1e30) and prim = -1 on a miss.
-    CUDA tensors go to the kernel, CPU tensors to the plain version."""
-    if o.device.type == "cpu":
-        return intersect_dense_plain(woop, o, d, t_min, t_max)
-    if o.device.type != "cuda":
-        raise ValueError(f"intersect_dense runs on cuda or cpu tensors, not {o.device}")
+def launch_args(woop, o, d, t_min=1e-4, t_max=T_MAX_CLAMP, any_hit: bool = False,
+                boxes=None):
+    """(arguments of one kernel launch, its outputs t, prim, bary) for
+    CUDA tensors: what `intersect_dense` launches, also for timing the
+    kernel alone. `boxes` are the table's chunk boxes (BVH.chunk_boxes),
+    derived from the Woop rows when None."""
     _check(woop, o, d)
-    woop, o, d = woop.contiguous(), o.contiguous(), d.contiguous()
-    if woop.data_ptr() % 16:
-        woop = woop.clone()  # the kernel stages rows as 16-byte loads
-    B, T = o.shape[0], woop.shape[0]
-    tmin = _per_ray(t_min, B, o.device)
-    tmax = torch.clamp(_per_ray(t_max, B, o.device), max=T_MAX_CLAMP)
+    if boxes is None:
+        boxes = chunk_boxes_from_woop(woop)
+    n_chunk = -(-woop.shape[0] // CHUNK_ROWS)
+    if tuple(boxes.shape) != (n_chunk, 8) or boxes.dtype != torch.float32 \
+            or boxes.device != o.device:
+        raise ValueError(f"boxes must be ({n_chunk}, 8) float32 on {o.device}, got "
+                         f"{tuple(boxes.shape)} {boxes.dtype} on {boxes.device}")
+    woop, boxes, o, d = aligned(woop), aligned(boxes), o.contiguous(), d.contiguous()
+    B = o.shape[0]
+    tmin_v, tmin = range_arg(t_min, B, o.device)
+    tmax_v, tmax = range_arg(t_max, B, o.device)
     t = torch.empty(B, dtype=torch.float32, device=o.device)
     prim = torch.empty(B, dtype=torch.int32, device=o.device)
     bary = torch.empty(B, 2, dtype=torch.float32, device=o.device)
     with torch.cuda.device(o.device):
         stream = torch.cuda.current_stream().cuda_stream
-    _KERNEL.launch(woop.data_ptr(), T, o.data_ptr(), d.data_ptr(), tmin.data_ptr(),
-                   tmax.data_ptr(), B, int(bool(any_hit)), t.data_ptr(), prim.data_ptr(),
-                   bary.data_ptr(), stream)
+    args = (woop.data_ptr(), woop.shape[0], boxes.data_ptr(), o.data_ptr(), d.data_ptr(),
+            tmin_v, None if tmin is None else tmin.data_ptr(), tmax_v,
+            None if tmax is None else tmax.data_ptr(), B, int(bool(any_hit)), t.data_ptr(),
+            prim.data_ptr(), bary.data_ptr(), stream)
+    keep = (woop, boxes, o, d, tmin, tmax)  # outlive the launch
+    return (args, keep, o.device), (t, prim, bary)
+
+
+def launch(prepared) -> None:
+    """Launch the kernel with `launch_args`' arguments (not counted)."""
+    args, _, device = prepared
+    with torch.cuda.device(device):
+        _KERNEL.launch(*args)
+
+
+def intersect_dense(woop, o, d, t_min=1e-4, t_max=T_MAX_CLAMP, any_hit: bool = False,
+                    boxes=None) -> Hit:
+    """Closest (or, with `any_hit`, some) hit of each ray over all triangles.
+
+    woop (T, 12) float32; o, d (B, 3) float32; t_min / t_max scalars or (B,);
+    boxes: the table's (ceil(T / CHUNK_ROWS), 8) chunk boxes, derived from
+    `woop` when None (the BVH carries them). Returns a Hit with t = t_max
+    (clamped to 1e30) and prim = -1 on a miss. CUDA tensors go to the
+    kernel, CPU tensors to the plain version."""
+    if o.device.type == "cpu":
+        return intersect_dense_plain(woop, o, d, t_min, t_max)
+    if o.device.type != "cuda":
+        raise ValueError(f"intersect_dense runs on cuda or cpu tensors, not {o.device}")
+    prepared, (t, prim, bary) = launch_args(woop, o, d, t_min, t_max, any_hit, boxes)
+    launch(prepared)
     launches["any_hit" if any_hit else "closest"] += 1
     return Hit(t=t, prim=prim, bary=bary, valid=prim >= 0)
+
+
+def cull_sweep(woop, boxes, o, d, t_min=1e-4, t_max=T_MAX_CLAMP, ray_chunk: int = 1 << 16):
+    """The kernel's cull in plain PyTorch: chunks in ascending order, each
+    swept for the rays whose range (t_min, best t so far) enters its box,
+    rows in ascending order with a strict `<`. Returns (Hit, chunks, rows):
+    per ray, the chunks whose box the ray enters over (t_min, its final t)
+    and their rows, int64; no culled sweep can test fewer rows (the dense
+    bound charges these). The Hit equals the all-rows sweep's bit for bit
+    when no hit lies outside its row's box."""
+    _check(woop, o, d)
+    B, T, dev = o.shape[0], woop.shape[0], o.device
+    t_min = torch.as_tensor(t_min, dtype=torch.float32, device=dev).expand(B)
+    best_t = torch.clamp(torch.as_tensor(t_max, dtype=torch.float32, device=dev),
+                         max=T_MAX_CLAMP).expand(B).clone()
+    prim = torch.full((B,), -1, dtype=torch.int32, device=dev)
+    bary = torch.zeros(B, 2, device=dev)
+    inv_d = 1.0 / torch.where(d.abs() < 1e-20, torch.where(d < 0, -1e-20, 1e-20), d)
+    lo, hi = boxes[:, 0:3], boxes[:, 4:7]
+    for c in range(boxes.shape[0]):
+        enter, _ = _slab_test(lo[c:c + 1], hi[c:c + 1], o, inv_d, t_min, best_t)
+        sel = (enter & (t_min < best_t)).nonzero()[:, 0]
+        if sel.numel() == 0:
+            continue
+        rows = woop[c * CHUNK_ROWS:(c + 1) * CHUNK_ROWS]
+        t, u, v, h = intersect_woop(rows[None], o[sel, None], d[sel, None],
+                                    t_min[sel, None], best_t[sel, None])
+        best = torch.where(h, t, torch.inf).argmin(-1, keepdim=True)
+        won = h.any(-1)
+        w = sel[won]
+        best_t[w] = t.gather(-1, best)[won, 0]
+        prim[w] = (c * CHUNK_ROWS + best[won, 0]).to(torch.int32)
+        bary[w] = torch.cat([u.gather(-1, best), v.gather(-1, best)], -1)[won]
+    rows_per_chunk = torch.clamp(T - CHUNK_ROWS * torch.arange(boxes.shape[0], device=dev),
+                                 max=CHUNK_ROWS)
+    n_chunks = torch.zeros(B, dtype=torch.int64, device=dev)
+    n_rows = torch.zeros(B, dtype=torch.int64, device=dev)
+    for s in range(0, B, ray_chunk):
+        sl = slice(s, s + ray_chunk)
+        enter, _ = _slab_test(lo[None], hi[None], o[sl, None], inv_d[sl, None],
+                              t_min[sl, None], best_t[sl, None])
+        enter = enter & (t_min[sl, None] < best_t[sl, None])
+        n_chunks[sl] = enter.sum(-1)
+        n_rows[sl] = (enter * rows_per_chunk).sum(-1)
+    return Hit(t=best_t, prim=prim, bary=bary, valid=prim >= 0), n_chunks, n_rows
 
 
 def compare_hits(a: Hit, b: Hit, woop, t_min, t_max, any_hit: bool = False,

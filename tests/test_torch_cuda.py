@@ -1,5 +1,6 @@
 """The port's CUDA kernels on the card, against their plain PyTorch
-versions: the dense and the BVH intersector, the shade-pack gather and the
+versions: the dense intersector (chunk-culled sweep) and the BVH
+intersector (persistent while-while walk), the shade-pack gather and the
 photon density estimate.
 
 Every test needs an NVIDIA GPU and skips without one. This file imports no
@@ -10,6 +11,8 @@ edge-grazing ones; on rays both versions hit at equal Woop rows, t within
 1e-4 * max(1, t) and the barycentrics within 1e-4. The gather is exact.
 The photon density within 1e-4 relative (+1e-6 of the largest sum): the
 per-pair weights are bit-equal, the sums run in another order.
+The BVH kernel's t, u, v are bit-equal to its oracle's on every ray whose
+two hits name the same Woop row content.
 Renders on the card: mean within 1% of the CPU render, rays within 0.1%.
 """
 import numpy as np
@@ -48,10 +51,10 @@ def _soup(dev, n_tri, n_ray, seed):
     return woop, o, d
 
 
-def _assert_agree(woop, o, d, t_min, t_max):
+def _assert_agree(woop, o, d, t_min, t_max, boxes=None):
     plain = ops.intersect_dense_plain(woop, o, d, t_min, t_max)
     for any_hit in (False, True):
-        kern = ops.intersect_dense(woop, o, d, t_min, t_max, any_hit=any_hit)
+        kern = ops.intersect_dense(woop, o, d, t_min, t_max, any_hit=any_hit, boxes=boxes)
         torch.cuda.synchronize()
         r = ops.compare_hits(kern, plain, woop, t_min, t_max, any_hit=any_hit)
         assert r["hits"] > 0
@@ -81,6 +84,54 @@ def test_kernel_on_cornell_camera_rays(dev):
     scene = cornell_box(device=dev)
     o, d, _, _ = pt.camera_rays(scene, 128, 128, 4, 3)
     _assert_agree(scene.bvh.woop, o, d, 1e-4, torch.inf)
+
+
+def _caustic_photon_rays(dev):
+    """The caustic scene (on the card) and its photon walk's rays of the
+    first two bounces, 2^15 lanes each, captured at the dense intersector."""
+    scene = caustic_scene(device=dev)
+    seen = []
+    real = ops.intersect_dense
+
+    def capture(woop, o, d, *args, **kw):
+        seen.append((o.clone(), d.clone()))
+        return real(woop, o, d, *args, **kw)
+
+    ops.intersect_dense = capture
+    try:
+        cfg = pt.specialize_config(scene, ppm.PPMConfig().base._replace(max_depth=2))
+        ppm.trace_photons(scene, 1 << 15, 3, cfg)
+    finally:
+        ops.intersect_dense = real
+    return scene, seen
+
+
+def test_kernel_on_caustic_rays(dev):
+    """3,160 rows (99 chunk boxes, the BVH's): photon rays of two bounces
+    and camera rays, closest and any-hit."""
+    scene, seen = _caustic_photon_rays(dev)
+    o, d, _, _ = pt.camera_rays(scene, 64, 64, 4, 3)
+    for ro, rd in (*seen, (o, d)):
+        _assert_agree(scene.bvh.woop, ro, rd, 1e-4, torch.inf, boxes=scene.bvh.chunk_boxes)
+
+
+def test_kernel_empty_ranges(dev):
+    """Lanes with t_min >= t_max test nothing and return t_max; the others
+    agree with the plain version."""
+    scene, seen = _caustic_photon_rays(dev)
+    o, d = seen[0]
+    n = o.shape[0]
+    g = torch.Generator(device="cpu").manual_seed(1)
+    t_max = (torch.rand(n, generator=g) * 4 + 0.1).to(dev)
+    k = torch.arange(n, device=dev)
+    empty = k % 3 == 0
+    t_min = torch.where(empty, t_max + 0.5 * (k % 2), 1e-4)
+    _assert_agree(scene.bvh.woop, o, d, t_min, t_max, boxes=scene.bvh.chunk_boxes)
+    for any_hit in (False, True):
+        hit = ops.intersect_dense(scene.bvh.woop, o, d, t_min, t_max, any_hit=any_hit,
+                                  boxes=scene.bvh.chunk_boxes)
+        assert not hit.valid[empty].any() and torch.equal(hit.t[empty], t_max[empty])
+        assert hit.valid[~empty].float().mean() > 0.2
 
 
 def test_launch_counter_and_output_types(dev):
@@ -163,6 +214,36 @@ def test_bvh_launch_counter_and_output_types(dev, glossy):
     assert hit.t.device.type == "cuda" and hit.prim.dtype == torch.int32 and hit.valid.all()
     empty = bvh_ops.intersect_bvh(glossy.bvh, o[:0], d[:0])
     assert empty.t.shape == (0,) and empty.bary.shape == (0, 2)
+
+
+@pytest.mark.parametrize("n", [0, 1, 31, 33, 1000, 1 << 18])
+def test_persistent_bvh_kernel_batches(dev, glossy, n):
+    """Ray counts around the warp's batch of 32, one not a multiple of it,
+    and 2^18 rays, more than the card keeps resident (132 SMs x 32 warps x
+    32 lanes = 135,168): against the oracle, t / u / v bit-equal where the
+    two hits name the same Woop row content."""
+    g = torch.Generator(device="cpu").manual_seed(n)
+    ids = torch.randperm(512 * 512, generator=g)[:n].to(dev)
+    _, o, d, _ = wf._camera_ray(glossy, ids, 3, 512, 512)
+    woop = glossy.bvh.woop
+    for any_hit in (False, True):
+        plain = bvh_ops.intersect_bvh_plain(glossy.bvh, o, d, 1e-4, torch.inf, any_hit=any_hit)
+        kern = bvh_ops.intersect_bvh(glossy.bvh, o, d, 1e-4, torch.inf, any_hit=any_hit)
+        torch.cuda.synchronize()
+        assert kern.t.shape == (n,) and kern.bary.shape == (n, 2)
+        if n == 0:
+            continue
+        r = ops.compare_hits(kern, plain, woop, 1e-4, torch.inf, any_hit=any_hit)
+        assert r["valid_mismatch_not_grazing"] == 0, r
+        if not any_hit:
+            assert r["prim_mismatch_not_grazing"] == 0, r
+            both = kern.valid & plain.valid
+            same = both & (woop[kern.prim.clamp(min=0).long()]
+                           == woop[plain.prim.clamp(min=0).long()]).all(-1)
+            assert torch.equal(kern.t[same], plain.t[same])
+            assert torch.equal(kern.bary[same], plain.bary[same])
+            assert torch.equal(kern.t[~kern.valid & ~plain.valid],
+                               plain.t[~kern.valid & ~plain.valid])
 
 
 def test_shade_gather_bit_equal(dev, glossy):
