@@ -57,9 +57,13 @@ It imports nothing of JAX. Phases, each of which raises on failure:
      captured in the warm seed-0 pass of 3), and on a synthetic hotspot
      where every query has thousands of photons within the radius. Every
      sum within 1e-4 relative (+1e-6 of the largest): the per-pair weights
-     are bit-equal, the sums run in another order; invalid queries 0. Kernel
-     and plain version timed with CUDA events; the bound counts the
-     (query, photon) pairs of the tiles that survive the cull;
+     are bit-equal, the sums run in another order; invalid queries 0; two
+     launches bit-equal. The pairs of each cull basis (block x tile, the
+     kernel's warp x 32-photon chunk, within r, w > 0) and the surviving
+     tiles per block are counted; the kernel alone (arguments and scratch
+     made beforehand), the wrapper and the plain version are timed with CUDA
+     events; the bound charges the operations of the pairs within r (what
+     the inputs need) against the bytes, the other bases printed beside it;
   9. PPM path (bench config 5's PPM half, `render_ppm_pass` on the caustic
      scene, built on the card by default): a pinned pass (64x64, 4 spp,
      2^15 photons, seed 3, pass 1) whose mean must be within 0.1% of the
@@ -124,10 +128,10 @@ FLOPS_BOX_TEST = 25        # one ray / chunk-box slab test (6 sub, 6 mul, 10 min
 FLOPS_BVH_INNER = 50       # two slab tests
 FLOPS_WOOP_T = 17          # per leaf row: t and its test
 FLOPS_WOOP_UV = 31         # per leaf row that passed the t test: u, v and their tests
-FLOPS_PHOTON_PAIR = 32     # per (query, photon) pair of a surviving tile (an FMA counts two)
+FLOPS_PHOTON_PAIR = 32     # per (valid query, photon) pair weighed (an FMA counts two)
 LEAF_SIZE = 4
-PORT_KERNELS = ("dense_kernel", "bvh_kernel", "gather_kernel",
-                "photon_kernel")  # __global__ names in csrc/
+PORT_KERNELS = ("dense_kernel", "bvh_kernel", "gather_kernel", "photon_kernel",
+                "photon_reduce_kernel")  # __global__ names in csrc/
 
 
 def _require(cond, msg):
@@ -373,15 +377,46 @@ def _first_bounce(scene, cfg, o, d, sampler, pack=None):
     return b.o[b.cont].contiguous(), b.d[b.cont].contiguous()
 
 
+def _hotspot(dev):
+    """photon_density's arguments on a synthetic hotspot: 2^15 photons and
+    2^14 cell-sorted queries within a few cm, every query with thousands of
+    photons within the radius."""
+    import numpy as np
+    import torch
+    from cudatracerlib_tpu_torch.ops import photon_gather as pg_ops
+
+    rng = np.random.default_rng(2)
+    n_hot = 1 << 15
+    hpos = np.zeros((n_hot, 3), np.float32)
+    hpos[:, :2] = rng.normal(scale=0.03, size=(n_hot, 2))
+    hn = np.tile(np.float32([[0, 0, 1]]), (n_hot, 1))
+    hwi = rng.normal(size=(n_hot, 3)).astype(np.float32) + hn
+    hwi /= np.linalg.norm(hwi, axis=-1, keepdims=True)
+    hq = np.zeros((1 << 14, 3), np.float32)
+    hq[:, :2] = rng.normal(scale=0.03, size=(1 << 14, 2))
+    hqv = rng.random(1 << 14) >= 0.05
+    hq = hq[np.argsort(np.where(hqv, np.floor(hq[:, 0] / 0.05) * 1e3 + np.floor(hq[:, 1] / 0.05),
+                                1e9), kind="stable")]
+    t = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(dev)  # noqa: E731
+    htiles, haabbs = pg_ops.build_photon_tiles(t(hpos), t(rng.uniform(0, 1, (n_hot, 3))
+                                                         .astype(np.float32)),
+                                               t(hn), t(rng.random(n_hot) >= 0.1), [-1, -1, -1],
+                                               [1, 1, 1], 40, wi=t(hwi))
+    return (htiles, haabbs, t(hq), t(np.tile(hn[:1], (1 << 14, 1))), t(hqv), np.float32(0.05))
+
+
 def _check_density(label, args):
-    """photon_density vs its plain version on the same CUDA tensors; returns
-    the largest absolute difference and the surviving pairs of the cull."""
+    """photon_density vs its plain version on the same CUDA tensors, and two
+    launches bit-equal; returns the largest absolute difference."""
     import torch
     from cudatracerlib_tpu_torch.ops import photon_gather as pg_ops
 
     kf, kw = pg_ops.photon_density(*args)
+    kf2, kw2 = pg_ops.photon_density(*args)
     pf, pw = pg_ops.photon_density_plain(*args)
     torch.cuda.synchronize()
+    _require(torch.equal(kf, kf2) and torch.equal(kw, kw2),
+             f"photon_density {label}: two launches differ")
     err, rel = 0.0, 0.0
     for what, k, p in (("flux", kf, pf), ("sum_w", kw, pw)):
         diff = (k - p).abs()
@@ -394,12 +429,41 @@ def _check_density(label, args):
     q_valid = args[4]
     _require(bool((kw[~q_valid] == 0).all()) and bool((kf[~q_valid] == 0).all()),
              f"photon_density {label}: an invalid query got a nonzero sum")
-    pairs = pg_ops.surviving_pairs(args[1], args[2], q_valid, args[5])
-    tiles = args[0]
     print(f"[kernel vs plain] photon_density {label}: {args[2].shape[0]} queries "
-          f"({int(q_valid.sum())} valid) x {tiles.shape[0]} tiles, radius {float(args[5]):.6f}, "
-          f"{pairs} surviving pairs, max abs err {err:.3g}, max rel err {rel:.3g}")
-    return err, pairs
+          f"({int(q_valid.sum())} valid) x {args[0].shape[0]} tiles, radius "
+          f"{float(args[5]):.6f}, max abs err {err:.3g}, max rel err {rel:.3g}, two launches "
+          f"bit-equal")
+    return err
+
+
+def _density_work(label, args):
+    """The pairs each cull basis keeps and the bound: the larger of the
+    operations of the pairs within r (the work these inputs need) and the
+    bytes, the 12 used rows of every non-empty tile, the tile boxes, the
+    queries and the output, each once. The bounds on the kernel's own warp x
+    32-photon chunk basis and on PR 3's block x tile basis are returned
+    beside it."""
+    from cudatracerlib_tpu_torch.ops import photon_gather as pg_ops
+
+    tiles, aabbs, q = args[0], args[1], args[2]
+    c = pg_ops.cull_counts(*args)
+    per_block = c.pop("tiles_per_block").double()
+    non_empty = int((aabbs[:, 0] <= aabbs[:, 3]).sum())
+    nbytes = (non_empty * 12 * pg_ops.PT + aabbs.numel()) * 4 + q.shape[0] * (12 + 12 + 1 + 16)
+    bound = _bound(FLOPS_PHOTON_PAIR * c["within_r"], nbytes)
+    chunk_bound = _bound(FLOPS_PHOTON_PAIR * c["warp_chunk"], nbytes)
+    old_bound = _bound(FLOPS_PHOTON_PAIR * c["block_tile"], nbytes)
+    print(f"[work] photon_density {label}: {tiles.shape[0]} tiles ({non_empty} non-empty), "
+          f"surviving tiles per block of {pg_ops.BQ}: median {float(per_block.median()):.0f}, "
+          f"mean {float(per_block.mean()):.2f}, max {int(per_block.max())}; pairs: block x tile "
+          f"{c['block_tile']}, warp x chunk {c['warp_chunk']}, within r {c['within_r']}, "
+          f"w > 0 {c['positive']}; bound {bound[0]:.5f} ms ({bound[1]}: "
+          f"{FLOPS_PHOTON_PAIR * c['within_r']} operations on the pairs within r, "
+          f"{_bound(FLOPS_PHOTON_PAIR * c['within_r'], 0)[0]:.5f} ms; {nbytes} bytes, "
+          f"{_bound(0, nbytes)[0]:.5f} ms); on the warp x chunk basis {chunk_bound[0]:.5f} ms "
+          f"({chunk_bound[1]}), on the block x tile basis {old_bound[0]:.5f} ms "
+          f"({old_bound[1]})")
+    return dict(c, bound=bound, chunk_bound=chunk_bound, old_bound=old_bound)
 
 
 def _profile(label, fn):
@@ -458,8 +522,6 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda:0")
     torch.cuda.set_device(dev)
-
-    import numpy as np
 
     from cudatracerlib_tpu_torch import native
     from cudatracerlib_tpu_torch.accel.bvh import build_bvh, woop_transform
@@ -640,41 +702,32 @@ def main():
           f"{gdt:.4f} s, {int(brays) / gdt / 1e6:.3f} Mrays/s, mean {float(bimg.mean()):.6f}")
 
     # ---- 8. photon_density vs its plain version, on bench-config-5 inputs (captured in 3) ----
-    dens_err, pairs = 0.0, []
+    dens_err, work = 0.0, {}
     for label, args in zip(("global map", "caustic map"), captured):
-        e, n_pairs = _check_density(label, args)
-        dens_err, pairs = max(dens_err, e), pairs + [n_pairs]
-    rng = np.random.default_rng(2)
-    n_hot = 1 << 15
-    hpos = np.zeros((n_hot, 3), np.float32)
-    hpos[:, :2] = rng.normal(scale=0.03, size=(n_hot, 2))
-    hn = np.tile(np.float32([[0, 0, 1]]), (n_hot, 1))
-    hwi = rng.normal(size=(n_hot, 3)).astype(np.float32) + hn
-    hwi /= np.linalg.norm(hwi, axis=-1, keepdims=True)
-    hq = np.zeros((1 << 14, 3), np.float32)
-    hq[:, :2] = rng.normal(scale=0.03, size=(1 << 14, 2))
-    hqv = rng.random(1 << 14) >= 0.05
-    hq = hq[np.argsort(np.where(hqv, np.floor(hq[:, 0] / 0.05) * 1e3 + np.floor(hq[:, 1] / 0.05),
-                                1e9), kind="stable")]
-    t = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(dev)  # noqa: E731
-    htiles, haabbs = pg_ops.build_photon_tiles(t(hpos), t(rng.uniform(0, 1, (n_hot, 3))
-                                                         .astype(np.float32)),
-                                               t(hn), t(rng.random(n_hot) >= 0.1), [-1, -1, -1],
-                                               [1, 1, 1], 40, wi=t(hwi))
-    e, _ = _check_density("hotspot", (htiles, haabbs, t(hq), t(np.tile(hn[:1], (1 << 14, 1))),
-                                      t(hqv), np.float32(0.05)))
-    dens_err = max(dens_err, e)
+        dens_err = max(dens_err, _check_density(label, args))
+        work[label] = _density_work(label, args)
+    dens_err = max(dens_err, _check_density("hotspot", _hotspot(dev)))
+    info = pg_ops.kernel_info()
+    print(f"[build] photon_density: {json.dumps(info)}, {pg_ops.kernel_config()[1]} splits a "
+          f"block of {pg_ops.kernel_config()[0]} queries")
+    pd_ms = {}
+    for label, args in zip(("global map", "caustic map"), captured):
+        prepared, _ = pg_ops.launch_args(*args)
+        pd_ms[label] = dict(
+            ms=_time_kernel_ms([prepared] * 21, pg_ops.launch),
+            wrap_ms=_time_ms(lambda: pg_ops.photon_density(*args), 20))  # noqa: B023
     main_args = captured[0]
-    ms_pd = _time_ms(lambda: pg_ops.photon_density(*main_args), 20)
     plain_ms_pd = _time_ms(lambda: pg_ops.photon_density_plain(*main_args), 2)
-    ms_pd_c = _time_ms(lambda: pg_ops.photon_density(*captured[1]), 20)
-    n_q = main_args[2].shape[0]
-    pd_bytes = (main_args[0].numel() + main_args[1].numel()) * 4 + n_q * (12 + 12 + 1) + n_q * 16
-    pd_bound = _bound(FLOPS_PHOTON_PAIR * pairs[0], pd_bytes)
-    print(f"[time] photon_density global map: kernel {ms_pd:.4f} ms, plain {plain_ms_pd:.4f} ms, "
-          f"bound {pd_bound[0]:.5f} ms ({pd_bound[1]}: {FLOPS_PHOTON_PAIR * pairs[0]} operations, "
-          f"{pd_bytes} bytes); caustic map: kernel {ms_pd_c:.4f} ms, bound "
-          f"{_bound(FLOPS_PHOTON_PAIR * pairs[1], pd_bytes)[0]:.5f} ms")
+    pd_bound = work["global map"]["bound"]
+    for label, t in pd_ms.items():
+        print(f"[time] photon_density {label}: kernel {t['ms']:.4f} ms, wrapper "
+              f"{t['wrap_ms']:.4f} ms, bound {work[label]['bound'][0]:.5f} ms "
+              f"({100 * work[label]['bound'][0] / t['ms']:.2f}% of it; warp x chunk basis "
+              f"{work[label]['chunk_bound'][0]:.5f} ms, "
+              f"{100 * work[label]['chunk_bound'][0] / t['ms']:.1f}%; block x tile basis "
+              f"{work[label]['old_bound'][0]:.5f} ms, "
+              f"{100 * work[label]['old_bound'][0] / t['ms']:.1f}%)")
+    print(f"[time] photon_density global map: plain {plain_ms_pd:.4f} ms")
 
     # ---- 9. the PPM path: pinned pass, then bench config 5's PPM half ----
     pin = PPM_PIN
@@ -772,11 +825,15 @@ def main():
             "replaces": "cudatracerlib_tpu/ops/photon_gather.py:164",
             "launches": plaunch["photon_density"]["density"],
             "max_abs_err": dens_err,
-            "ms": ms_pd,
+            "ms": pd_ms["global map"]["ms"],
             "plain_ms": plain_ms_pd,
             "bound_ms": pd_bound[0],
             "bound_by": pd_bound[1],
             "library_ms": None,
+            "wrapper_ms": pd_ms["global map"]["wrap_ms"],
+            "reduce_launches": plaunch["photon_density"]["density_reduce"],
+            "caustic_ms": pd_ms["caustic map"]["ms"],
+            "caustic_bound_ms": work["caustic map"]["bound"][0],
         },
     ]}))
     print(smi)

@@ -55,6 +55,7 @@ class CudaKernel:
         self.name = name
         self.argtypes = argtypes
         self._fn = None
+        self._lib = None
         self._lock = threading.Lock()
 
     def get(self):
@@ -62,12 +63,20 @@ class CudaKernel:
         with self._lock:
             if self._fn is None:
                 src = os.path.join(CSRC, f"{self.name}.cu")
-                lib = load(build_shared(src, self.name, [nvcc_path()] + NVCC_FLAGS))
-                fn = getattr(lib, f"{self.name}_launch")
-                fn.restype = ctypes.c_int
-                fn.argtypes = self.argtypes
-                self._fn = fn
+                self._lib = load(build_shared(src, self.name, [nvcc_path()] + NVCC_FLAGS))
+                self._fn = self._bind("launch", self.argtypes)
             return self._fn
+
+    def function(self, suffix: str, argtypes: list):
+        """Another C function `<name>_<suffix>` of the same library."""
+        self.get()
+        return self._bind(suffix, argtypes)
+
+    def _bind(self, suffix, argtypes):
+        fn = getattr(self._lib, f"{self.name}_{suffix}")
+        fn.restype = ctypes.c_int
+        fn.argtypes = argtypes
+        return fn
 
     def launch(self, *args) -> None:
         err = self.get()(*args)

@@ -10,7 +10,8 @@ Tolerances as in chip_smoke.py: `valid` agrees on every ray except
 edge-grazing ones; on rays both versions hit at equal Woop rows, t within
 1e-4 * max(1, t) and the barycentrics within 1e-4. The gather is exact.
 The photon density within 1e-4 relative (+1e-6 of the largest sum): the
-per-pair weights are bit-equal, the sums run in another order.
+per-pair weights are bit-equal, the sums run in another order; two
+launches are bit-equal.
 The BVH kernel's t, u, v are bit-equal to its oracle's on every ray whose
 two hits name the same Woop row content.
 Renders on the card: mean within 1% of the CPU render, rays within 0.1%.
@@ -307,6 +308,64 @@ def test_photon_density_kernel_matches_plain(dev, n_ph, n_q, spread):
     for k, p in ((kf, pf), (kw, pw)):
         assert ((k - p).abs() <= 1e-4 * p.abs() + 1e-6 * float(p.abs().max())).all()
     assert (kw[~qv] == 0).all() and (kf[~qv] == 0).all() and (kw[qv] > 0).float().mean() > 0.9
+
+
+def _assert_density_agrees(args, radius=0.07):
+    kf, kw = pg_ops.photon_density(*args, radius)
+    pf, pw = pg_ops.photon_density_plain(*args, radius)
+    torch.cuda.synchronize()
+    assert kf.shape == pf.shape and kw.shape == pw.shape
+    for k, p in ((kf, pf), (kw, pw)):
+        if p.numel():
+            assert ((k - p).abs() <= 1e-4 * p.abs() + 1e-6 * float(p.abs().max())).all()
+    qv = args[4]
+    assert (kw[~qv] == 0).all() and (kf[~qv] == 0).all()
+    return kf, kw
+
+
+@pytest.mark.parametrize("n_q", [0, 1, 33, 300, 4097])
+def test_photon_density_ragged_batches(dev, n_q):
+    """B = 0, below one warp, not a multiple of 32 or of the CTA's 256, and
+    a block of 256 queries with no valid one (queries 256-511)."""
+    tiles, aabbs, q, qn, qv = _photon_cloud(dev, 20_000, n_q, 0.3, 11)
+    qv[256:512] = False
+    kf, kw = _assert_density_agrees((tiles, aabbs, q, qn, qv))
+    assert kf.shape == (n_q, 3) and kw.shape == (n_q,)
+    if n_q > 256:
+        assert (kw[256:512] == 0).all() and (kw[qv] > 0).float().mean() > 0.9
+
+
+def test_photon_density_hot_block_and_many_tiles(dev):
+    """One block of 256 queries that keeps every non-empty tile of 40 (the
+    last ones hold only invalid photons), more than the splits times the
+    ring's stages; then 1,100 tiles, more than one cull round of 1,024 and
+    no multiple of 256."""
+    tiles, aabbs, q, qn, qv = _photon_cloud(dev, 40 * 512, 256, 0.03, 5)
+    non_empty = int((aabbs[:, 0] <= aabbs[:, 3]).sum())
+    assert int(pg_ops.block_cull(aabbs, q, qv, 0.07).sum()) == non_empty > 16
+    _assert_density_agrees((tiles, aabbs, q, qn, qv))
+    tiles, aabbs, q, qn, qv = _photon_cloud(dev, 1100 * 512, 8192, 0.45, 3)
+    assert tiles.shape[0] == 1100
+    _assert_density_agrees((tiles, aabbs, q, qn, qv))
+
+
+def test_photon_density_deterministic_and_counted(dev):
+    """Two launches give the same bits; one estimate counts one launch of
+    the density kernel and one of the reduction over its splits."""
+    args = _photon_cloud(dev, 200_000, 20_000, 0.45, 7) + (0.07,)
+    before = dict(pg_ops.launches)
+    a = pg_ops.photon_density(*args)
+    b = pg_ops.photon_density(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    assert pg_ops.launches["density"] == before["density"] + 2
+    assert pg_ops.launches["density_reduce"] == before["density_reduce"] + 2
+    prepared, out = pg_ops.launch_args(*args)
+    pg_ops.launch(prepared)
+    torch.cuda.synchronize()
+    assert torch.equal(out[:, 3], a[1]) and pg_ops.launches["density"] == before["density"] + 2
+    info = pg_ops.kernel_info()
+    assert info["local_bytes"] == 0 and info["ctas_per_sm"] >= 2
 
 
 def test_ppm_pass_on_card_launches_its_kernels(dev):
