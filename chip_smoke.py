@@ -78,13 +78,17 @@ It imports nothing of JAX. Phases, each of which raises on failure:
      glossy render and one bench-config-5 PPM pass: wall, device kernel
      time, busy share, kernel launches, the top kernels by device time, and
      the port's own kernels' launches and shares;
-  11. kernel vs plain, `packed_gather`'s backward: the table cotangent of a
-     seeded uniform (2^20, 64) cotangent at phase 6's first-hit prims (real
-     duplicate counts), against the float64 plain version within 1e-5
-     relative, zero on rows no lane hit, two launches bit-equal, and bit-equal
-     to the plain emulation of its summation order on 4,096 lanes (C = 64
-     and the refinement's C = 12). The kernels alone, the wrapper (with its
-     stable sort), the plain version and `index_add_` are timed;
+  11. kernel vs plain, `packed_gather`'s backward, at three shapes: the
+     pack (a seeded uniform (2^20, 64) cotangent at phase 6's first-hit
+     prims onto the glossy pack's rows), the texture lookup (2^20 x 3 onto
+     Cornell's 5 texture rows, at the texture ids of the first colour lookup
+     whose backward a bench-config-1 Cornell gradient pass sums, captured
+     there) and the hit refinement's Woop rows (2^20 x 12 at the first-hit
+     prims onto the glossy Woop rows). At each: against the float64 plain
+     version within 1e-5 relative, zero on rows no lane hit, two launches
+     bit-equal, bit-equal to the plain emulation of its summation order on
+     4,096 lanes; the kernels alone, the whole call, the plain version and
+     `index_add_` timed against the bytes bound;
   12. gradient gates: the card's gradients of TestGradients' albedo and
      radiance cases (Cornell 32x32, 8 spp, depth 4, rr_start 99, seed 0)
      against the JAX package's CPU values pinned below; central differences
@@ -173,8 +177,8 @@ FLOPS_WOOP_T = 17          # per leaf row: t and its test
 FLOPS_WOOP_UV = 31         # per leaf row that passed the t test: u, v and their tests
 FLOPS_PHOTON_PAIR = 32     # per (valid query, photon) pair weighed (an FMA counts two)
 LEAF_SIZE = 4
-PORT_KERNELS = ("dense_kernel", "bvh_kernel", "gather_kernel", "gather_bwd_kernel",
-                "gather_bwd_combine_kernel", "photon_kernel",
+PORT_KERNELS = ("dense_kernel", "bvh_kernel", "gather_kernel", "gather_bwd_tile_kernel",
+                "gather_bwd_range_kernel", "gather_bwd_final_kernel", "photon_kernel",
                 "photon_reduce_kernel")  # __global__ names in csrc/
 
 
@@ -578,47 +582,76 @@ def _median(xs):
     return 0.5 * (xs[(len(xs) - 1) // 2] + xs[len(xs) // 2])
 
 
-def _check_gather_bwd(pack, idx, dev):
-    """Phase 11: packed_gather's backward kernels against the float64 plain
-    version at the main path's indices and against the plain emulation of
-    their order; timed beside the plain version and index_add_."""
+def _capture_texture_ids(scene, cfg):
+    """The (lanes,) texture ids of the first texture-colour lookup whose
+    cotangent the backward sums in one Cornell forward+backward at bench
+    config 1 (w.r.t. color_a and radiance): the texture shape of phase 11."""
+    from cudatracerlib_tpu_torch.ops import shade_gather as sg_ops
+
+    n_tex, seen = scene.textures.color_a.shape[0], []
+    real = sg_ops.packed_gather_bwd
+
+    def record(g, idx, n_rows):
+        if n_rows == n_tex and g.shape[1] == 3 and not seen:
+            seen.append(idx.clone())
+        return real(g, idx, n_rows)
+
+    sg_ops.packed_gather_bwd = record
+    try:
+        _loss_and_grads(scene, ["textures.color_a", "lights.radiance"], W, H, SPP, 3, cfg)
+    finally:
+        sg_ops.packed_gather_bwd = real
+    _require(bool(seen), "the Cornell gradient pass made no texture-colour backward call")
+    return seen[0]
+
+
+def _check_gather_bwd(label, idx, n_rows, cols, dev):
+    """Phase 11 at one shape: packed_gather's backward kernels against the
+    float64 plain version on a seeded uniform cotangent (so a row no lane hit
+    sums to 0 and every hit row is positive), twice bit-equal, bit-equal to
+    the plain emulation of their order on 4,096 lanes; the kernels alone,
+    the whole call, the plain version and index_add_ timed against the
+    bytes the inputs need (g and idx read once, the table written once)."""
     import torch
     from cudatracerlib_tpu_torch.ops import shade_gather as sg_ops
 
-    n_rows, n, C = pack.shape[0], idx.shape[0], pack.shape[1]
-    g = torch.rand(n, C, generator=torch.Generator(device=dev).manual_seed(1), device=dev)
+    n = idx.shape[0]
+    g = torch.rand(n, cols, generator=torch.Generator(device=dev).manual_seed(1), device=dev)
     k1 = sg_ops.packed_gather_bwd(g, idx, n_rows)
     k2 = sg_ops.packed_gather_bwd(g, idx, n_rows)
     plain = sg_ops.packed_gather_bwd_plain(g, idx, n_rows)
     torch.cuda.synchronize()
-    _require(torch.equal(k1, k2), "packed_gather_bwd: two launches differ")
-    hit = plain > 0           # the cotangent is positive, so a row no lane hit sums to 0
-    _require(bool((k1[~hit] == 0).all()), "packed_gather_bwd: a row no lane hit is not 0")
+    _require(torch.equal(k1, k2), f"packed_gather_bwd {label}: two launches differ")
+    hit = plain > 0
+    _require(bool((k1[~hit] == 0).all()), f"packed_gather_bwd {label}: an unhit row is not 0")
     rel = float(((k1 - plain).abs()[hit] / plain[hit]).max())
     err = float((k1 - plain).abs().max())
-    _require(rel <= BWD_RTOL, f"packed_gather_bwd: max relative error {rel} > {BWD_RTOL}")
-    for cols in (C, 12):      # the summation order, bit for bit, on a slice
-        gs, ids = g[:4096, :cols].contiguous(), idx[:4096]
-        emu = sg_ops.packed_gather_bwd_emulated(gs.cpu(), ids.cpu(), n_rows)
-        _require(torch.equal(sg_ops.packed_gather_bwd(gs, ids, n_rows).cpu(), emu),
-                 f"packed_gather_bwd C={cols}: not bit-equal to the emulation of its order")
+    _require(rel <= BWD_RTOL, f"packed_gather_bwd {label}: max relative error {rel} > {BWD_RTOL}")
+    gs, ids = g[:4096].contiguous(), idx[:4096]
+    emu = sg_ops.packed_gather_bwd_emulated(gs.cpu(), ids.cpu(), n_rows)
+    _require(torch.equal(sg_ops.packed_gather_bwd(gs, ids, n_rows).cpu(), emu),
+             f"packed_gather_bwd {label}: not bit-equal to the emulation of its order")
     counts = torch.bincount(torch.clamp(idx, 0, n_rows - 1).long(), minlength=n_rows)
-    chunk = sg_ops.BWD_CHUNK
-    print(f"[kernel vs plain] packed_gather_bwd: {n} lanes x {C} onto {n_rows} rows "
-          f"({int((counts > 0).sum())} hit, the most hit {int(counts.max())} lanes = "
-          f"{-(-int(counts.max()) // chunk)} chunks of {chunk}), max rel err {rel:.3g}, max abs "
-          f"err {err:.3g}, two launches bit-equal, bit-equal to the emulation (C={C} and 12)")
+    T = sg_ops.BWD_TILE
+    rows_in_tiles = sum(int(torch.unique(torch.clamp(idx[t:t + T], 0, n_rows - 1)).numel())
+                        for t in range(0, n, T))
+    print(f"[kernel vs plain] packed_gather_bwd {label}: {n} lanes x {cols} onto {n_rows} rows "
+          f"({int((counts > 0).sum())} hit, the most hit {int(counts.max())} lanes), tiles of "
+          f"{T} lanes hold {rows_in_tiles} (tile, row) partials ({rows_in_tiles * cols * 4} bytes), "
+          f"max rel err {rel:.3g}, max abs err {err:.3g}, two launches bit-equal, bit-equal to "
+          f"the emulation on 4,096 lanes")
     prepared, _ = sg_ops.bwd_launch_args(g, idx, n_rows)
     ms = _time_kernel_ms([prepared] * 21, sg_ops.bwd_launch)
     wrap_ms = _time_ms(lambda: sg_ops.packed_gather_bwd(g, idx, n_rows), 20)
     plain_ms = _time_ms(lambda: sg_ops.packed_gather_bwd_plain(g, idx, n_rows), 3)
     rows = torch.clamp(idx, 0, n_rows - 1).long()
-    lib_ms = _time_ms(lambda: torch.zeros(n_rows, C, device=dev).index_add_(0, rows, g), 20)
-    bound = _bound(n * C, n * C * 4 + n * 4 + n_rows * C * 4)
-    print(f"[time] packed_gather_bwd {n} x {C}: kernels {ms:.4f} ms, wrapper (sort + kernels) "
-          f"{wrap_ms:.4f} ms, plain (float64 index_add_) {plain_ms:.4f} ms, index_add_ "
-          f"(float32, atomics) {lib_ms:.4f} ms, bound {bound[0]:.5f} ms ({bound[1]}: "
-          f"{n * C * 4 + n * 4 + n_rows * C * 4} bytes)")
+    lib_ms = _time_ms(lambda: torch.zeros(n_rows, cols, device=dev).index_add_(0, rows, g), 20)
+    nbytes = n * cols * 4 + n * 4 + n_rows * cols * 4
+    bound = _bound(n * cols, nbytes)
+    print(f"[time] packed_gather_bwd {label} {n} x {cols}: kernels {ms:.4f} ms, whole call "
+          f"{wrap_ms:.4f} ms, plain (float64 index_add_) {plain_ms:.4f} ms, index_add_ (float32, "
+          f"atomics) {lib_ms:.4f} ms, bound {bound[0]:.5f} ms ({bound[1]}: {nbytes} bytes); "
+          f"{100 * bound[0] / ms:.1f}% of the bound alone, {100 * bound[0] / wrap_ms:.1f}% whole")
     return dict(err=err, rel=rel, ms=ms, wrap_ms=wrap_ms, plain_ms=plain_ms, lib_ms=lib_ms,
                 bound=bound)
 
@@ -1030,8 +1063,12 @@ def main():
     _profile("ppm bench config 5 pass",
              lambda: ppm.render_ppm_pass(caustic, PPM_W, PPM_H, PPM_SPP, 7, PPM_PASS, pcfg))
 
-    # ---- 11. packed_gather's backward vs its plain version ----
-    bwd = _check_gather_bwd(pack, idx_main, dev)
+    # ---- 11. packed_gather's backward vs its plain version, at three shapes ----
+    tex_ids = _capture_texture_ids(scene, cfg)
+    bwd = {"pack": _check_gather_bwd("pack", idx_main, pack.shape[0], pack.shape[1], dev),
+           "texture": _check_gather_bwd("texture", tex_ids, scene.textures.color_a.shape[0], 3,
+                                        dev),
+           "woop": _check_gather_bwd("woop", idx_main, glossy.bvh.woop.shape[0], 12, dev)}
 
     # ---- 12. gradient gates: pinned JAX gradients, FD vs AD, remat ----
     _grad_gates(scene)
@@ -1048,7 +1085,9 @@ def main():
     ggrad = _grad_pass("glossy", glossy, gcfg, gpaths, named, reset_counts, W, H, SPP, 3)
     gl = ggrad["launches"]
     _require(gl["intersect_bvh"]["closest"] > 0 and gl["intersect_bvh"]["any_hit"] > 0
-             and gl["shade_gather"]["gather"] > 0 and gl["shade_gather"]["gather_bwd"] > 0,
+             and gl["shade_gather"]["gather"] > 0
+             and all(gl["shade_gather"][k] > 0 for k in ("gather_bwd_tile", "gather_bwd_range",
+                                                          "gather_bwd_final")),
              f"the glossy gradient pass did not launch its kernels: {gl}")
     g_tex = ggrad["grads"]["textures.color_a"]
     i, c = divmod(int(abs(g_tex).argmax()), g_tex.shape[1])
@@ -1136,16 +1175,22 @@ def main():
             "route": "cuda",
             "source": "cudatracerlib_tpu_torch/csrc/shade_gather_bwd.cu",
             "replaces": "cudatracerlib_tpu/ops/shade_gather.py:127",
-            "launches": gl["shade_gather"]["gather_bwd"],
-            "max_abs_err": bwd["err"],
-            "ms": bwd["ms"],
-            "plain_ms": bwd["plain_ms"],
-            "bound_ms": bwd["bound"][0],
-            "bound_by": bwd["bound"][1],
-            "library_ms": bwd["lib_ms"],
-            "wrapper_ms": bwd["wrap_ms"],
-            "max_rel_err": bwd["rel"],
-            "combine_launches": gl["shade_gather"]["gather_bwd_combine"],
+            "launches": gl["shade_gather"]["gather_bwd_tile"],
+            "max_abs_err": max(b["err"] for b in bwd.values()),
+            "ms": bwd["pack"]["ms"],
+            "plain_ms": bwd["pack"]["plain_ms"],
+            "bound_ms": bwd["pack"]["bound"][0],
+            "bound_by": bwd["pack"]["bound"][1],
+            "library_ms": bwd["pack"]["lib_ms"],
+            "wrapper_ms": bwd["pack"]["wrap_ms"],
+            "max_rel_err": max(b["rel"] for b in bwd.values()),
+            "range_launches": gl["shade_gather"]["gather_bwd_range"],
+            "final_launches": gl["shade_gather"]["gather_bwd_final"],
+            "cornell_launches": cgrad["launches"]["shade_gather"]["gather_bwd_tile"],
+            **{f"{k}_{f}": bwd[k][v] for k in ("texture", "woop")
+               for f, v in (("ms", "ms"), ("wrapper_ms", "wrap_ms"), ("plain_ms", "plain_ms"),
+                            ("library_ms", "lib_ms"))},
+            **{f"{k}_bound_ms": bwd[k]["bound"][0] for k in ("texture", "woop")},
         },
         {
             "name": "photon_density",

@@ -33,14 +33,16 @@ from .._build_util import CudaKernel
 
 MAX_ROWS = 16384   # the shade pack's band (scene/shade_pack.pack_enabled)
 MAX_BWD_COLS = 64  # the backward kernel's widest row: 32 threads x 2 columns
-BWD_CHUNK = 256    # sorted positions a warp of the backward sums (CHUNK in the .cu)
+BWD_TILE = 256        # lanes a tile of the backward (TILE in the .cu)
+BWD_MAX_RANGES = 32   # ranges of tiles the final kernel folds while tiles allow (MAX_RANGES)
+BWD_MAX_RANGE_TILES = 1024  # tiles a range, at most (MAX_RANGE_TILES)
 
 # Each launch of a CUDA kernel adds one here (plain-version calls do not).
-launches = {"gather": 0, "gather_bwd": 0, "gather_bwd_combine": 0}
+launches = {"gather": 0, "gather_bwd_tile": 0, "gather_bwd_range": 0, "gather_bwd_final": 0}
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _KERNEL = CudaKernel("shade_gather", [_P, _I, _I, _P, _I, _P, _P])
-_BWD_KERNEL = CudaKernel("shade_gather_bwd", [_P, _I, _P, _P, _I, _I, _I, _P, _P, _P])
+_BWD_KERNEL = CudaKernel("shade_gather_bwd", [_P, _I, _P, _L, _I, _P, _P, _L, _P])
 
 
 def get_lib():
@@ -163,79 +165,106 @@ def packed_gather_bwd_plain(g, idx, n_rows: int):
     return out.index_add_(0, rows, g.double()).float()
 
 
+def bwd_range_tiles(n_tiles: int) -> int:
+    """Tiles a range of the backward's range kernel: ceil(n_tiles /
+    BWD_MAX_RANGES) within [32, BWD_MAX_RANGE_TILES] (`range_tiles` in the
+    .cu)."""
+    return min(max(32, -(-n_tiles // BWD_MAX_RANGES)), BWD_MAX_RANGE_TILES)
+
+
+def _fold(terms):
+    """The left fold t0 + t1 + ... in float32, from the first term."""
+    acc = None
+    for t in terms:
+        acc = t if acc is None else acc + t
+    return acc
+
+
 def packed_gather_bwd_emulated(g, idx, n_rows: int):
     """The backward kernels' float32 additions, in their order, in plain
-    PyTorch (Python loops: small inputs only). Lanes sorted stably by
-    clamped row are cut into chunks of BWD_CHUNK; each chunk's runs of equal
-    row are summed in order; a run that is a whole row is the result, the
-    edge runs of a row that crosses chunks are summed in chunk order by
-    eight contiguous groups, whose sums are added in group order. On the
-    same inputs the kernels give these sums bit for bit."""
+    PyTorch (Python loops: small inputs only). Every sum is a left fold from
+    its first term:
+      1. the lanes are cut into tiles of BWD_TILE; a tile's lanes
+         are ordered by (clamped row, lane) and that order is cut into blocks
+         of 32 positions; a row's lanes within a block are folded in order,
+         and its blocks' sums in block order: the tile partial;
+      2. the tiles are cut into ranges of `bwd_range_tiles(n_tiles)`; a row's
+         tile partials are folded in tile order within a range, and its
+         range sums in range order;
+      3. a row no lane hit is 0.
+    On the same inputs the kernels give these sums bit for bit."""
     _check_bwd(g, idx, n_rows)
-    chunk = BWD_CHUNK
-    keys, order = torch.sort(torch.clamp(idx, 0, n_rows - 1), stable=True)
-    keys, n = keys.tolist(), g.shape[0]
-    grad = torch.zeros(n_rows, g.shape[1], dtype=torch.float32, device=g.device)
-    partial = {}
-    for p0 in range(0, n, chunk):
-        p1 = min(p0 + chunk, n)
-        a = p0
-        while a < p1:
-            row, acc, b = keys[a], torch.zeros_like(grad[0]), a
-            while b < p1 and keys[b] == row:
-                acc = acc + g[order[b]]
-                b += 1
-            crosses = ((a == p0 and p0 > 0 and keys[p0 - 1] == row)
-                       or (b == p1 and p1 < n and keys[p1] == row))
-            if crosses:
-                partial[p0 // chunk, 0 if a == p0 else 1] = acc
-            else:
-                grad[row] = acc
-            a = b
-    sorted_keys = torch.tensor(keys, dtype=torch.int64)
-    for row in range(n_rows):
-        s = int(torch.searchsorted(sorted_keys, row))
-        e = int(torch.searchsorted(sorted_keys, row, right=True))
-        if s == e or s // chunk == (e - 1) // chunk:
-            continue
-        cs, m = s // chunk, (e - 1) // chunk - s // chunk + 1
-        total = None
-        for w in range(8):
-            acc = torch.zeros_like(grad[0])
-            for k in range(m * w // 8, m * (w + 1) // 8):
-                acc = acc + partial[cs + k, 1 if k == 0 and s != cs * chunk else 0]
-            total = acc if total is None else total + acc
-        grad[row] = total
+    n, C = g.shape
+    T = BWD_TILE
+    rows = torch.clamp(idx, 0, n_rows - 1).tolist()
+    tiles = {}                                    # row -> [(tile, partial)]
+    for t0 in range(0, n, T):
+        order = sorted(range(t0, min(t0 + T, n)), key=lambda b: (rows[b], b))
+        pieces = {}                               # row -> [block sums]
+        for k in range(0, len(order), 32):
+            blk = order[k:k + 32]
+            for row in dict.fromkeys(rows[b] for b in blk):
+                pieces.setdefault(row, []).append(_fold(g[b] for b in blk if rows[b] == row))
+        for row, ps in pieces.items():
+            tiles.setdefault(row, []).append((t0 // T, _fold(ps)))
+    grad = torch.zeros(n_rows, C, dtype=torch.float32, device=g.device)
+    span = bwd_range_tiles(-(-n // T))
+    for row, tp in tiles.items():
+        grad[row] = _fold(_fold(p for t, p in tp if t // span == j)
+                          for j in dict.fromkeys(t // span for t, _ in tp))
     return grad
 
 
+def bwd_scratch_floats(cols: int, n: int, n_rows: int) -> int:
+    """Float32 words of scratch the backward kernels take
+    (`shade_gather_bwd_scratch` in the .cu): the tile partials (a slot per
+    tile and row it holds, at most min(T, n_rows) a tile), the tiles' row
+    masks (two words per tile and 32 rows), the range partials and each
+    row's mask of ranges (a word per 32 ranges), each rounded up to 16
+    bytes."""
+    T = BWD_TILE
+    n_tiles, n_words = -(-n // T), -(-n_rows // 32)
+    n_ranges = -(-n_tiles // bwd_range_tiles(n_tiles))
+    r4 = lambda x: (x + 3) & ~3  # noqa: E731
+    return (r4(n_tiles * min(T, n_rows) * cols) + r4(2 * n_tiles * n_words)
+            + r4(n_ranges * n_rows * cols) + r4(-(-n_ranges // 32) * n_rows))
+
+
 def bwd_launch_args(g, idx, n_rows: int):
-    """The backward kernels' arguments for CUDA tensors: the lanes ordered
-    by clamped row (a stable sort), the output and the partials' scratch.
-    Returns (args, grad)."""
+    """The backward kernels' arguments for CUDA tensors: g (16-byte
+    aligned), the indices (clamped in the kernel), the output and the
+    scratch. Returns (args, grad)."""
     _check_bwd(g, idx, n_rows)
-    if not 1 <= g.shape[1] <= MAX_BWD_COLS:
-        raise ValueError(f"the backward kernel takes 1 <= C <= {MAX_BWD_COLS}, got {g.shape[1]}")
-    g = g.contiguous()
-    keys, order = torch.sort(torch.clamp(idx, 0, n_rows - 1), stable=True)
-    keys, order = keys.to(torch.int32).contiguous(), order.to(torch.int32)
     n, C = g.shape
+    if not 1 <= C <= MAX_BWD_COLS:
+        raise ValueError(f"the backward kernel takes 1 <= C <= {MAX_BWD_COLS}, got {C}")
+    if n_rows * BWD_TILE >= 1 << 32:
+        raise ValueError(f"the backward kernel takes n_rows < {(1 << 32) // BWD_TILE}, "
+                         f"got {n_rows}")
+    if g.device.index != torch.cuda.current_device():
+        raise ValueError(f"g is on {g.device}, the current device is cuda:"
+                         f"{torch.cuda.current_device()}: the kernels launch on the current one")
+    g, idx = g.contiguous(), idx.contiguous()
+    if g.data_ptr() % 16:
+        g = g.clone()  # the tile kernel's bulk copy moves 16-byte units
     grad = torch.empty(n_rows, C, dtype=torch.float32, device=g.device)
-    partial = torch.empty(-(-n // BWD_CHUNK), 2, C, dtype=torch.float32, device=g.device)
-    with torch.cuda.device(g.device):
-        stream = torch.cuda.current_stream().cuda_stream
-    args = (g.data_ptr(), C, keys.data_ptr(), order.data_ptr(), n, n_rows, BWD_CHUNK,
-            grad.data_ptr(), partial.data_ptr(), stream)
+    size = bwd_scratch_floats(C, n, n_rows)
+    scratch = torch.empty(max(size, 1), dtype=torch.float32, device=g.device)
+    stream = torch.cuda.current_stream().cuda_stream
+    args = (g.data_ptr(), C, idx.data_ptr(), n, n_rows, grad.data_ptr(), scratch.data_ptr(),
+            size, stream)
     # the tensors behind the pointers live as long as the arguments do
-    return (args, (g, keys, order, partial)), grad
+    return (args, (g, idx, scratch)), grad
 
 
 def bwd_launch(prepared) -> None:
-    """Enqueue both backward kernels on prepared arguments."""
+    """Enqueue the backward kernels on prepared arguments."""
     args = prepared[0]
     _BWD_KERNEL.launch(*args)
-    launches["gather_bwd"] += int(args[4] > 0)  # no lanes: only the combine runs
-    launches["gather_bwd_combine"] += 1
+    if args[3] > 0:  # no lanes: only the final kernel runs, writing zeros
+        launches["gather_bwd_tile"] += 1
+        launches["gather_bwd_range"] += 1
+    launches["gather_bwd_final"] += 1
 
 
 def packed_gather_bwd(g, idx, n_rows: int):

@@ -391,13 +391,15 @@ def test_ppm_pass_on_card_launches_its_kernels(dev):
 
 
 @pytest.mark.parametrize("n,cols", [(0, 64), (1, 64), (257, 64), (3000, 64), (3000, 12),
-                                    (3000, 3), (3000, 33)])
+                                    (3000, 3), (3000, 33), (5003, 1), (70000, 64),
+                                    (300000, 64)])
 def test_shade_gather_bwd_matches_emulation(dev, n, cols):
     """The backward kernels against the plain emulation of their order (bit
     for bit) and the float64 plain version: duplicate, out-of-range and
-    long-run indices, rows no lane hit, a batch of one chunk plus one lane;
-    C = 12 is the hit refinement's Woop-row cotangent, 3 a texture colour's,
-    33 one past a thread's first column."""
+    long-run indices, rows no lane hit, a tile plus one lane, tails that are
+    not a 16-byte multiple (C = 33, C = 1), ranges of 32 tiles (70,000 x 64)
+    and of 37 (300,000 x 64: past 1,024 tiles); C = 12 is the hit
+    refinement's Woop-row cotangent, 3 a texture colour's."""
     rng = np.random.default_rng(n + cols)
     idx = rng.integers(-3, 40, n).astype(np.int32)
     idx[rng.random(n) < 0.4] = 7
@@ -407,13 +409,37 @@ def test_shade_gather_bwd_matches_emulation(dev, n, cols):
     got = sg_ops.packed_gather_bwd(tg, ti, 37)
     again = sg_ops.packed_gather_bwd(tg, ti, 37)
     torch.cuda.synchronize()
-    assert sg_ops.launches["gather_bwd"] == before["gather_bwd"] + 2 * (n > 0)
-    assert sg_ops.launches["gather_bwd_combine"] == before["gather_bwd_combine"] + 2
+    for k in ("gather_bwd_tile", "gather_bwd_range"):
+        assert sg_ops.launches[k] == before[k] + 2 * (n > 0)
+    assert sg_ops.launches["gather_bwd_final"] == before["gather_bwd_final"] + 2
     assert torch.equal(got, again) and got.shape == (37, cols)
     emu = sg_ops.packed_gather_bwd_emulated(torch.from_numpy(g), torch.from_numpy(idx), 37)
     assert torch.equal(got.cpu(), emu)
     plain = sg_ops.packed_gather_bwd_plain(torch.from_numpy(g), torch.from_numpy(idx), 37)
     assert ((got.cpu() - plain).abs() <= 1e-5 * plain.abs()).all()
+
+
+def test_shade_gather_bwd_few_hot_rows(dev):
+    """A texture lookup's shape: 2^20 lanes x 3 onto 5 rows in runs, one row
+    hit by half the lanes, against the float64 plain version (1e-5
+    relative), twice bit-equal, bit-equal to the emulation on 4,096 lanes;
+    an unaligned view of g is copied, not refused."""
+    rng = np.random.default_rng(5)
+    n = 1 << 20
+    idx = np.repeat(rng.integers(0, 5, n // 16), 16).astype(np.int32)
+    idx[rng.random(n) < 0.5] = 2
+    g = torch.rand(n, 3, generator=torch.Generator(device=dev).manual_seed(2), device=dev)
+    ti = torch.from_numpy(idx).to(dev)
+    got = sg_ops.packed_gather_bwd(g, ti, 5)
+    assert torch.equal(got, sg_ops.packed_gather_bwd(g, ti, 5))
+    plain = sg_ops.packed_gather_bwd_plain(g, ti, 5)
+    assert ((got - plain).abs() <= 1e-5 * plain.abs()).all()
+    emu = sg_ops.packed_gather_bwd_emulated(g[:4096].cpu(), ti[:4096].cpu(), 5)
+    assert torch.equal(sg_ops.packed_gather_bwd(g[:4096], ti[:4096], 5).cpu(), emu)
+    flat = torch.rand(3 * 4096 + 1, device=dev)
+    view = flat[1:].view(4096, 3)             # 4 bytes past a 16-byte boundary
+    assert torch.equal(sg_ops.packed_gather_bwd(view, ti[:4096], 5).cpu(),
+                       sg_ops.packed_gather_bwd_emulated(view.cpu(), ti[:4096].cpu(), 5))
 
 
 def test_shade_gather_bwd_glossy_scale(dev, glossy):
@@ -429,9 +455,9 @@ def test_shade_gather_bwd_glossy_scale(dev, glossy):
     plain = sg_ops.packed_gather_bwd_plain(g, idx, pack.shape[0])
     assert ((got - plain).abs() <= 1e-5 * plain.abs()).all()
     table = pack.clone().requires_grad_()
-    before = sg_ops.launches["gather_bwd"]
+    before = sg_ops.launches["gather_bwd_tile"]
     sg_ops.packed_gather(table, idx).backward(g)
-    assert sg_ops.launches["gather_bwd"] == before + 1
+    assert sg_ops.launches["gather_bwd_tile"] == before + 1
     assert torch.equal(table.grad, got)
     with pytest.raises(ValueError):
         sg_ops.packed_gather_bwd(torch.zeros(4, 66, device=dev), idx[:4], 5)

@@ -11,8 +11,8 @@ Tolerances, stated once:
     largest row (JAX adds in float32 in lane order, the plain version in
     float64);
   * the emulation of the kernels' order against the float64 plain version:
-    1e-5 relative + 1e-6 of the largest row (float32 sums of up to a few
-    hundred lanes);
+    1e-5 relative + 1e-6 of the largest row (float32 folds of up to 40,000
+    lanes, at most 32 terms a fold below the tile);
   * refine and pack-path VJPs: 1e-3 relative + 1e-5 of the largest entry
     (the JAX pack recomputes t / u / v from the Woop columns, the port keeps
     the intersector's, so the derivatives are taken a few ulps apart).
@@ -72,29 +72,74 @@ def test_packed_gather_vjp_matches_jax():
 
 
 def _edge_inputs(n_rows=37, cols=64):
-    """Indices whose sorted runs start on chunk edges: row 0 fills chunk 0
-    exactly, row 1 starts on the next edge and crosses into a third chunk,
-    row 2 spans eleven chunks (more than the combine's eight groups); the
-    lanes are shuffled, rows past 3 get none."""
-    c = tsg.BWD_CHUNK
-    idx = np.repeat(np.arange(3, dtype=np.int32), [c, c + 44, 11 * c - 44])
+    """Indices whose runs start and end on the kernels' edges: row 0 fills
+    one 32-position block exactly, row 1 crosses two blocks, row 2 fills the
+    rest of the first tile and all of the second (a row over two tiles of
+    one group), row 3 starts on the next tile's first lane; the lanes are
+    shuffled within each tile, rows past 4 get none."""
+    T = tsg.BWD_TILE
+    idx = np.repeat(np.arange(3, dtype=np.int32), [32, 44, 2 * T - 76])
+    idx = np.concatenate([idx, np.full(T // 2, 3, np.int32)])
     rng = np.random.default_rng(1)
-    rng.shuffle(idx)
+    for t0 in range(0, idx.size, T):
+        rng.shuffle(idx[t0:t0 + T])
     return None, idx, rng.normal(size=(idx.size, cols)).astype(np.float32)
 
 
-@pytest.mark.parametrize("case", ["random", "hot", "edges"])
+def _few_hot_inputs(n_rows=5, n=40000, cols=3):
+    """A texture lookup's shape at a small size: C = 3 onto 5 rows, one row
+    hit by half the lanes, runs of one row as coherent pixels give, over 157
+    tiles (five ranges of the range kernel)."""
+    rng = np.random.default_rng(2)
+    idx = np.repeat(rng.integers(0, n_rows, n // 8), 8).astype(np.int32)
+    idx[rng.random(n) < 0.5] = 1
+    return None, idx, rng.normal(size=(n, cols)).astype(np.float32)
+
+
+def _range_inputs(n_tiles, n_rows=37, cols=64):
+    """`n_tiles` tiles of lanes (and a ragged one), so rows fold across ranges
+    of the range kernel; row 4 is hit only in the last range."""
+    n = n_tiles * tsg.BWD_TILE + 3000
+    rng = np.random.default_rng(3)
+    idx = rng.integers(0, 4, n).astype(np.int32)
+    idx[-500:] = 4
+    return None, idx, rng.normal(size=(n, cols)).astype(np.float32)
+
+
+@pytest.mark.parametrize("case", ["random", "hot", "edges", "few_hot_c3", "ranges_of_32",
+                                  "wide_ranges"])
 def test_packed_gather_bwd_emulation(case):
-    """The kernels' summation order (runs within chunks, then the edge
-    pieces in chunk order by eight groups) gives the plain version's sums,
-    with rows crossing many chunks, rows starting on a chunk edge and rows
-    no lane hit."""
+    """The kernels' summation order (runs within 32-position blocks of a
+    tile's (row, lane) order, then a row's blocks, tiles within a range and
+    ranges, each folded in order) gives the plain version's sums, with rows
+    crossing blocks, tiles and ranges (of 32 tiles, and of 33 past 1,024
+    tiles), rows starting on a block or tile edge and rows no lane hit."""
     _, idx, g = {"random": lambda: _gather_inputs(),
                  "hot": lambda: _gather_inputs(n=9000, seed=1),
-                 "edges": _edge_inputs}[case]()
-    emu = tsg.packed_gather_bwd_emulated(torch.from_numpy(g), torch.from_numpy(idx), 37)
-    plain = tsg.packed_gather_bwd_plain(torch.from_numpy(g), torch.from_numpy(idx), 37)
+                 "edges": _edge_inputs,
+                 "few_hot_c3": _few_hot_inputs,
+                 "ranges_of_32": lambda: _range_inputs(256),
+                 "wide_ranges": lambda: _range_inputs(1040)}[case]()
+    n_rows = 5 if case == "few_hot_c3" else 37
+    emu = tsg.packed_gather_bwd_emulated(torch.from_numpy(g), torch.from_numpy(idx), n_rows)
+    plain = tsg.packed_gather_bwd_plain(torch.from_numpy(g), torch.from_numpy(idx), n_rows)
     _close(emu, plain.numpy(), 1e-5, 1e-6)
+    hit = np.bincount(np.clip(idx, 0, n_rows - 1), minlength=n_rows) > 0
+    assert (emu.numpy()[~hit] == 0).all()
+
+
+def test_packed_gather_bwd_scratch_and_checks():
+    """The scratch the kernels take, counted from the tile and range sizes,
+    and the wrapper's refusals before any launch."""
+    assert [tsg.bwd_range_tiles(t) for t in (1, 1024, 1025, 4096, 1 << 20)] == [
+        32, 32, 33, 128, 1024]
+    # 2^20 x 64 onto 6,624 rows: 4,096 tiles of 256 slots, 207 words, 32 ranges
+    assert tsg.bwd_scratch_floats(64, 1 << 20, 6624) == (
+        4096 * 256 * 64 + 2 * 4096 * 207 + 32 * 6624 * 64 + 6624)
+    # no lanes: only the range partials' and masks' rounding
+    assert tsg.bwd_scratch_floats(3, 0, 5) == 0
+    with pytest.raises(ValueError):
+        tsg.bwd_launch_args(torch.zeros(4, 3), torch.zeros(4, dtype=torch.int32), 1 << 24)
 
 
 def test_packed_gather_bwd_cpu_is_plain_and_checks():
