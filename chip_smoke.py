@@ -6,8 +6,8 @@ It imports nothing of JAX. Phases, each of which raises on failure:
 
   1. device: the card's name and power limit (nvidia-smi), the device count;
   2. build: the five CUDA sources (nvcc, sm_90a, one process per source,
-     all started together) and the SBVH builder (g++) from the sources in
-     the checkout, each timed;
+     all started together) and the SBVH builder (g++, the port's own
+     native/bvh_builder.cpp) from the sources in the checkout, each timed;
   3. kernel vs plain, `intersect_dense`: against its plain PyTorch version
      on the same CUDA tensors, closest-hit and any-hit, at the Cornell path's
      shapes (60 Woop rows vs the camera rays and first-bounce rays of a
@@ -77,7 +77,9 @@ It imports nothing of JAX. Phases, each of which raises on failure:
   10. profile: `torch.profiler` over one Cornell pass, one bench-config-2
      glossy render and one bench-config-5 PPM pass: wall, device kernel
      time, busy share, kernel launches, the top kernels by device time, and
-     the port's own kernels' launches and shares;
+     the port's own kernels' launches and shares (phases 15 and 16 profile
+     the bench-config-3 render and the BDPT pass the same way, once their
+     scenes are built);
   11. kernel vs plain, `packed_gather`'s backward, at three shapes: the
      pack (a seeded uniform (2^20, 64) cotangent at phase 6's first-hit
      prims onto the glossy pack's rows), the texture lookup (2^20 x 3 onto
@@ -107,7 +109,42 @@ It imports nothing of JAX. Phases, each of which raises on failure:
      against AD on the glossy albedo entry with the largest gradient, at 5%;
   14. inverse rendering: three `entry.inverse_step`s at bench config 1 from
      the example's grey start scene toward the Cornell box; the loss must
-     fall at each step and, read at the first step's seed, after the three.
+     fall at each step and, read at the first step's seed, after the three;
+  15. bigscene, bench config 3: `build_big_scene()` on the card (~1M-triangle
+     target: 628,232 triangles), its triangle and Woop-row counts, tree
+     depth, whole build and host SBVH build times; a pinned render
+     (`build_big_scene(100_000)`, 64x64, 4 spp, seed 3, depth 5) whose mean
+     must be within 1% of the JAX package's CPU value below; then
+     `render_wavefront_counted` at 512x512, 16 spp, depth 5, warm at seed 0
+     and timed at seed 7 (rays as the engine counts them). The launch counts
+     are reset just before the timed render, read just after, and must show
+     both kinds of `intersect_bvh` launches. Then `intersect_bvh` against
+     its oracle, with the tolerances of 3, on the pool's first wave of
+     camera rays (2^20) and their first-bounce rays, closest and any hit,
+     the kernel alone and the wrapper timed, the bound from the oracle's
+     visit counts; the lanes whose oracle stack (48 entries) overflowed are
+     counted; the render is profiled as in 10;
+  16. BDPT, bench config 5's other half: a pinned pass (caustic scene,
+     64x64, 4 spp, seed 3) whose mean must be within 0.1% of the JAX
+     package's CPU value below and its rays within 0.1%; in a warm
+     bench-config-5 pass (128x128, 4 spp, `BDPTConfig()`, seed 0) the
+     arguments of `intersect_dense` (the first light-walk, eye, t=1 splat
+     and connection launches: 65,536 lanes x 3,160 rows), `packed_gather`
+     (the eye hits and the light vertices' re-fetch) and the splat sum are
+     captured, and each is held against its plain version as in 3, 6 and 11
+     (the splat sum within 1e-5 relative of the float64 plain version, two
+     launches bit-equal) and timed; then the pass at seed 7, timed, with
+     Mrays/s from its own ray count; the launch counts are reset just
+     before it, read just after, and must show both kinds of
+     `intersect_dense`, `packed_gather` and the splat sum; the pass is
+     profiled as in 10;
+  17. the light tracer and VCM: pinned renders (64x64, 16,384 paths / 4
+     spp, seed 3, VCM pass 1) within 0.1% of the JAX package's CPU values
+     below; the light tracer's splat sum (65,536 paths) held against its
+     plain version as in 16; each timed once at bench config 5's size
+     (128x128, 65,536 paths / 4 spp, seed 7), its launch counts reset just
+     before and read just after; VCM's pass also with the merge's neighbour
+     cap lifted to 512 (not gated).
 
 Before its last line it prints one JSON object describing each kernel; the
 last line is {"ok": true, "device": {...}}. Without a CUDA device, or without
@@ -156,6 +193,27 @@ FD_TOL_CAMERA, FD_TOL_GLOSSY, REMAT_TOL = 0.10, 0.05, 1e-4
 BWD_RTOL = 1e-5
 GRAD_PAIRS = 11            # phase 13: alternating forward / forward+backward walls
 PPM_TOL = 1e-3            # the CPU port's photon-major render agrees to 1e-6
+# Bench config 3's pinned render, JAX package on the CPU (`JAX_PLATFORMS=cpu python
+# tools/bigscene_reference_mean.py`): render_wavefront_counted(build_big_scene(100_000), 64, 64,
+# 4, seed 3, PTConfig(max_depth=5)) -> mean 0.144138113, 37,674 rays (the CPU port: the same
+# mean to 9 digits and the same rays, `--port`). Gate 1%, as glossy's.
+REF_BIG_MEAN, REF_BIG_RAYS = 0.144138113, 37674
+BIG_PIN = dict(n_tris=100_000, width=64, height=64, spp=4, seed=3)
+BIG_TOL = 0.01
+BIG_W = BIG_H = 512        # bench config 3 (bench.py:216-241): 512^2, 16 spp, depth 5
+BIG_SPP = 16
+BIG_CMP_LANES = 1 << 20    # the wavefront pool's width: one launch of the main path
+# The bidirectional engines' pinned renders on the caustic scene, JAX package on the CPU
+# (`JAX_PLATFORMS=cpu python tools/bdpt_reference_mean.py`) at 64x64, 4 spp, seed 3, one light
+# path a sample (VCM: pass 1): BDPT mean 0.353301913 and 397,101 rays, the light tracer
+# 0.311668307 (16,384 paths), VCM 0.334288925. The CPU port (`--port`) gives BDPT and the light
+# tracer to 9 digits and BDPT's rays exactly, VCM within 1.3e-6; 0.1% leaves the card's
+# rounding room, as the PPM gate does.
+REF_BDPT_MEAN, REF_BDPT_RAYS = 0.353301913, 397101
+REF_LT_MEAN, REF_VCM_MEAN = 0.311668307, 0.334288925
+BIDIR_PIN = dict(width=64, height=64, spp=4, seed=3, pass_idx=1)
+BIDIR_TOL = 1e-3
+VCM_OPEN_CAP = 512         # phase 17's VCM pass with the merge's neighbour cap lifted
 PPM_W = PPM_H = 128        # bench config 5 (bench.py:289-340)
 PPM_SPP, PPM_PASS = 4, 1
 DENSITY_RTOL, DENSITY_ATOL = 1e-4, 1e-6
@@ -313,15 +371,17 @@ def _compare(label, woop, o, d, t_min, t_max, reps, boxes=None):
 def _compare_bvh(label, bvh, o, d, t_min, t_max, reps):
     """intersect_bvh vs the oracle on the same CUDA tensors, closest and
     any-hit; returns (worst error, kernel ms, plain ms, flops, bytes) of
-    the closest-hit query, the work counted by the oracle."""
+    the closest-hit query, the work counted by the oracle, and the lanes
+    whose oracle stack overflowed (either kind)."""
     import torch
     from cudatracerlib_tpu_torch.ops import intersect_bvh as bvh_ops
     from cudatracerlib_tpu_torch.ops import intersect_dense as ops
 
-    worst = 0.0
+    worst, overflow = 0.0, 0
     for any_hit in (False, True):
-        plain, n_inner, n_leaf, n_tpass = bvh_ops.intersect_bvh_plain(
-            bvh, o, d, t_min, t_max, any_hit=any_hit, with_counts=True)
+        plain, n_inner, n_leaf, n_tpass, n_over = bvh_ops.intersect_bvh_plain(
+            bvh, o, d, t_min, t_max, any_hit=any_hit, with_counts=True, with_overflow=True)
+        overflow += int((n_over > 0).sum())
         if not any_hit:
             t_scale = float(torch.clamp(plain.t[plain.valid].abs().max(), min=1.0))
             flops = (FLOPS_BVH_INNER * int(n_inner.sum())
@@ -335,14 +395,23 @@ def _compare_bvh(label, bvh, o, d, t_min, t_max, reps):
         kern = bvh_ops.intersect_bvh(bvh, o, d, t_min, t_max, any_hit=any_hit)
         torch.cuda.synchronize()
         r = ops.compare_hits(kern, plain, bvh.woop, t_min, t_max, any_hit=any_hit)
+        if not any_hit and r["prim_mismatch"]:
+            lanes = ((kern.prim != plain.prim) & kern.valid & plain.valid).nonzero()[:4, 0]
+            for i in lanes.tolist():
+                print(f"[kernel vs plain] {label} lane {i}: kernel t {float(kern.t[i])!r} prim "
+                      f"{int(kern.prim[i])} bary {kern.bary[i].tolist()}, oracle t "
+                      f"{float(plain.t[i])!r} prim {int(plain.prim[i])} bary "
+                      f"{plain.bary[i].tolist()}")
         worst = max(worst, _check_hits(label, "any_hit" if any_hit else "closest", r, t_scale))
     wrap_ms = _time_ms(lambda: bvh_ops.intersect_bvh(bvh, o, d, t_min, t_max), reps)
     ms = _bvh_kernel_ms(bvh, o, d, t_min, t_max, reps)
     plain_ms = _time_ms(lambda: bvh_ops.intersect_bvh_plain(bvh, o, d, t_min, t_max), 1)
     nbytes = o.shape[0] * (24 + 8 + 16) + 4 * (bvh.nodes.numel() + bvh.woop.numel())
     print(f"[time] {label}: {o.shape[0]} rays x {bvh.woop.shape[0]} rows: kernel {ms:.4f} ms, "
-          f"wrapper {wrap_ms:.4f} ms, plain {plain_ms:.4f} ms")
-    return worst, ms, plain_ms, flops, nbytes
+          f"wrapper {wrap_ms:.4f} ms, plain {plain_ms:.4f} ms; oracle stack overflowed on "
+          f"{overflow} lanes")
+    return dict(err=worst, ms=ms, wrap_ms=wrap_ms, plain_ms=plain_ms, flops=flops, nbytes=nbytes,
+                bound=_bound(flops, nbytes), overflow=overflow)
 
 
 def _bvh_kernel_ms(bvh, o, d, t_min, t_max, reps, any_hit=False):
@@ -797,6 +866,149 @@ def _grad_pass(label, scene, cfg, paths, counters, reset_counts, width, height, 
                 mem=mem, launches=launches, idle=prof["idle"])
 
 
+def _capture_bdpt(caustic, bcfg):
+    """One warm bench-config-5 BDPT pass (seed 0) with the arguments of
+    intersect_dense, packed_gather's forward and the splat sum captured:
+    ({label: dense arguments} of the first light-walk launch, the first eye
+    launch, the first t=1 splat launch and the first connection launch,
+    [(table, idx)] of every gather, [(pixel_id, value, n_px)] of the splat
+    sums)."""
+    import torch
+    from cudatracerlib_tpu_torch.image import film as film_mod
+    from cudatracerlib_tpu_torch.ops import intersect_dense as ops
+    from cudatracerlib_tpu_torch.ops import shade_gather as sg_ops
+    from cudatracerlib_tpu_torch.render import bdpt
+
+    dense_calls, gather_calls, splat_calls = [], [], []
+    real_dense, real_gather, real_splat = ops.intersect_dense, sg_ops._gather, film_mod.splat_sum
+
+    def capture_dense(woop, o, d, t_min=1e-4, t_max=ops.T_MAX_CLAMP, any_hit=False, boxes=None):
+        keep = lambda x: x.clone() if isinstance(x, torch.Tensor) else x  # noqa: E731
+        dense_calls.append((woop, keep(o), keep(d), keep(t_min), keep(t_max), any_hit, boxes))
+        return real_dense(woop, o, d, t_min, t_max, any_hit=any_hit, boxes=boxes)
+
+    def capture_gather(table, idx):
+        gather_calls.append((table, idx.clone()))
+        return real_gather(table, idx)
+
+    def capture_splat(pixel_id, value, n_px):
+        splat_calls.append((pixel_id.clone(), value.clone(), n_px))
+        return real_splat(pixel_id, value, n_px)
+
+    ops.intersect_dense, sg_ops._gather = capture_dense, capture_gather
+    film_mod.splat_sum = capture_splat
+    try:
+        bdpt.render_bdpt_counted(caustic, PPM_W, PPM_H, PPM_SPP, 0, bcfg)
+        torch.cuda.synchronize()
+    finally:
+        ops.intersect_dense, sg_ops._gather = real_dense, real_gather
+        film_mod.splat_sum = real_splat
+    closest = [c for c in dense_calls if not c[5]]
+    shadow = [c for c in dense_calls if c[5]]
+    S = bcfg.s_max  # light walk: S closest; splats: S any-hit; eye: closest, NEE, S connections
+    _require(len(closest) == S + bcfg.base.max_depth and len(splat_calls) == 1,
+             f"a BDPT pass made {len(closest)} closest-hit launches and {len(splat_calls)} "
+             f"splat sums, not {S + bcfg.base.max_depth} and 1")
+    return {"bdpt light rays": closest[0], "bdpt eye rays": closest[S],
+            "bdpt splat rays": shadow[0], "bdpt connection rays": shadow[S + 1]}, \
+        gather_calls, splat_calls
+
+
+def _capture_splats(fn):
+    """The splat sums' arguments of one call of `fn`."""
+    from cudatracerlib_tpu_torch.image import film as film_mod
+
+    calls, real = [], film_mod.splat_sum
+
+    def capture(pixel_id, value, n_px):
+        calls.append((pixel_id.clone(), value.clone(), n_px))
+        return real(pixel_id, value, n_px)
+
+    film_mod.splat_sum = capture
+    try:
+        fn()
+    finally:
+        film_mod.splat_sum = real
+    return calls
+
+
+def _check_splat(label, pix, val, n_px, dev):
+    """The splat film's sum (packed_gather's backward kernels at C = 3) on
+    captured splats: within 1e-5 relative of the float64 plain version
+    where the sum is positive, 0 where it is 0, two launches bit-equal; the
+    kernels alone, the whole call, the plain version and `index_add_`
+    (float32, atomics) timed against the bytes the inputs need."""
+    import torch
+    from cudatracerlib_tpu_torch.image import film as film_mod
+    from cudatracerlib_tpu_torch.ops import shade_gather as sg_ops
+
+    idx = pix.to(torch.int32)
+    k1 = film_mod.splat_sum(pix, val, n_px)
+    k2 = film_mod.splat_sum(pix, val, n_px)
+    plain = sg_ops.packed_gather_bwd_plain(val, idx, n_px)
+    torch.cuda.synchronize()
+    _require(torch.equal(k1, k2), f"splat sum {label}: two launches differ")
+    _require(bool((val >= 0).all()), f"splat sum {label}: a negative splat")
+    pos = plain > 0
+    _require(bool((k1[~pos] == 0).all()), f"splat sum {label}: a pixel with no light is not 0")
+    rel = float(((k1 - plain).abs()[pos] / plain[pos]).max()) if bool(pos.any()) else 0.0
+    err = float((k1 - plain).abs().max())
+    _require(rel <= BWD_RTOL, f"splat sum {label}: max relative error {rel} > {BWD_RTOL}")
+    n = val.shape[0]
+    prepared, _ = sg_ops.bwd_launch_args(val, idx, n_px)
+    ms = _time_kernel_ms([prepared] * 21, sg_ops.bwd_launch)
+    wrap_ms = _time_ms(lambda: film_mod.splat_sum(pix, val, n_px), 20)
+    plain_ms = _time_ms(lambda: sg_ops.packed_gather_bwd_plain(val, idx, n_px), 3)
+    rows = pix.long()
+    lib_ms = _time_ms(lambda: torch.zeros(n_px, 3, device=dev).index_add_(0, rows, val), 20)
+    nbytes = n * 3 * 4 + n * 4 + n_px * 3 * 4
+    bound = _bound(n * 3, nbytes)
+    scratch = sg_ops.bwd_scratch_floats(3, n, n_px) * 4
+    print(f"[kernel vs plain] splat sum {label}: {n} splats onto {n_px} pixels "
+          f"({int(pos.any(-1).sum())} lit, {int((val > 0).any(-1).sum())} nonzero splats), max rel "
+          f"err {rel:.3g}, max abs err {err:.3g}, two launches bit-equal; scratch {scratch} bytes")
+    print(f"[time] splat sum {label}: kernels {ms:.4f} ms, whole call {wrap_ms:.4f} ms, plain "
+          f"(float64 index_add_) {plain_ms:.4f} ms, index_add_ (float32, atomics) {lib_ms:.4f} ms, "
+          f"bound {bound[0]:.5f} ms ({bound[1]}: {nbytes} bytes)")
+    return dict(err=err, rel=rel, ms=ms, wrap_ms=wrap_ms, plain_ms=plain_ms, lib_ms=lib_ms,
+                bound=bound)
+
+
+def _check_gather_at(label, table, idx):
+    """packed_gather's forward on captured arguments: bit-equal to the plain
+    version; kernel, plain version and `index_select` timed against the
+    bytes bound."""
+    import torch
+    from cudatracerlib_tpu_torch.ops import shade_gather as sg_ops
+
+    kern = sg_ops.packed_gather(table, idx)
+    plain = sg_ops.packed_gather_plain(table, idx)
+    torch.cuda.synchronize()
+    _require(torch.equal(kern, plain), f"packed_gather {label}: not bit-equal")
+    ms = _time_ms(lambda: sg_ops.packed_gather(table, idx), 50)
+    plain_ms = _time_ms(lambda: sg_ops.packed_gather_plain(table, idx), 50)
+    lib_idx = torch.clamp(idx, 0, table.shape[0] - 1)
+    lib_ms = _time_ms(lambda: torch.index_select(table, 0, lib_idx), 50)
+    n = idx.shape[0]
+    bound = _bound(0, n * table.shape[1] * 4 + n * 4 + table.numel() * 4)
+    print(f"[kernel vs plain] packed_gather {label}: {n} rows of {table.shape[1]} from "
+          f"{table.shape[0]}, bit-equal; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+          f"index_select {lib_ms:.4f} ms, bound {bound[0]:.5f} ms ({bound[1]})")
+    return dict(err=0.0, ms=ms, plain_ms=plain_ms, lib_ms=lib_ms, bound=bound)
+
+
+def _timed(fn):
+    """Host wall in seconds of one call of `fn`, ending in a synchronize,
+    and its result."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, out
+
+
 def main():
     import torch
 
@@ -816,17 +1028,23 @@ def main():
 
     from cudatracerlib_tpu_torch import entry as entry_mod
     from cudatracerlib_tpu_torch import native
-    from cudatracerlib_tpu_torch.accel.bvh import build_bvh, woop_transform
+    from cudatracerlib_tpu_torch.accel import bvh as bvh_mod
+    from cudatracerlib_tpu_torch.accel.bvh import build_bvh, tree_depth, woop_transform
+    from cudatracerlib_tpu_torch.accel.traversal import STACK_DEPTH
     from cudatracerlib_tpu_torch.ops import intersect_bvh as bvh_ops
     from cudatracerlib_tpu_torch.ops import intersect_dense as ops
     from cudatracerlib_tpu_torch.ops import photon_gather as pg_ops
     from cudatracerlib_tpu_torch.ops import shade_gather as sg_ops
+    from cudatracerlib_tpu_torch.render import bdpt, light_tracer, vcm
     from cudatracerlib_tpu_torch.render import path_tracer as pt
     from cudatracerlib_tpu_torch.render import ppm
     from cudatracerlib_tpu_torch.render import wavefront as wf
     from cudatracerlib_tpu_torch.scene import scene as scene_mod
     from cudatracerlib_tpu_torch.scene import shade_pack
+    from cudatracerlib_tpu_torch.scene.bigscene import build_big_scene
     from cudatracerlib_tpu_torch.scene.shapes import caustic_scene, cornell_box, glossy_scene
+
+    t_start = time.perf_counter()
 
     counters = (ops.launches, bvh_ops.launches, sg_ops.launches, pg_ops.launches)
 
@@ -921,21 +1139,20 @@ def main():
     gcfg = pt.specialize_config(glossy, pt.PTConfig(max_depth=DEPTH))
     ids = torch.arange(W * H * SPP, device=dev)
     _, go, gd, gstate = wf._camera_ray(glossy, ids, 3, W, H)
-    err_g, ms_bvh, plain_ms_bvh, bvh_flops, bvh_bytes = _compare_bvh(
-        "glossy camera rays", glossy.bvh, go, gd, 1e-4, torch.inf, 20)
+    bvh_cam = _compare_bvh("glossy camera rays", glossy.bvh, go, gd, 1e-4, torch.inf, 20)
+    err_g, ms_bvh, plain_ms_bvh = bvh_cam["err"], bvh_cam["ms"], bvh_cam["plain_ms"]
     g1o, g1d = _first_bounce(glossy, gcfg, go, gd, pt.Sampler(state=gstate),
                              shade_pack.build_shade_pack(glossy))
-    err_g1, ms_bvh_b1, plain_ms_bvh_b1, _, _ = _compare_bvh(
-        "glossy first-bounce rays", glossy.bvh, g1o, g1d, 1e-4, torch.inf, 20)
+    err_g1 = _compare_bvh("glossy first-bounce rays", glossy.bvh, g1o, g1d, 1e-4, torch.inf,
+                          20)["err"]
     tris, so, sd = _soup(1, SOUP_TRIS, 0.03, dev)
     t0 = time.perf_counter()
     soup_bvh = build_bvh(tris)
     print(f"[build] soup65536 BVH: {soup_bvh.nodes.shape[0]} nodes, "
           f"{soup_bvh.woop.shape[0]} rows, {time.perf_counter() - t0:.2f} s")
-    err_s65, ms_s65, plain_ms_s65, s65_flops, s65_bytes = _compare_bvh(
-        "soup65536", soup_bvh, so, sd, 1e-4, torch.inf, 5)
-    bvh_bound = _bound(bvh_flops, bvh_bytes)
-    s65_bound = _bound(s65_flops, s65_bytes)
+    s65 = _compare_bvh("soup65536", soup_bvh, so, sd, 1e-4, torch.inf, 5)
+    err_s65 = s65["err"]
+    bvh_bound, s65_bound = bvh_cam["bound"], s65["bound"]
     print(f"[bound] intersect_bvh glossy camera rays {bvh_bound[0]:.5f} ms ({bvh_bound[1]}), "
           f"soup65536 {s65_bound[0]:.5f} ms ({s65_bound[1]})")
 
@@ -1123,6 +1340,161 @@ def main():
           f"{steps}, after the three at the first step's seed {after:.6g}; radiance "
           f"{p0[1].tolist()} -> {params[1].tolist()}")
 
+    # ---- 15. bigscene, bench config 3 ----
+    sbvh_s = []
+    real_native = bvh_mod.build_bvh_native
+
+    def timed_native(*args):
+        t0 = time.perf_counter()
+        out = real_native(*args)
+        sbvh_s.append(time.perf_counter() - t0)
+        return out
+
+    bvh_mod.build_bvh_native = timed_native
+    try:
+        build_s, big = _timed(build_big_scene)
+    finally:
+        bvh_mod.build_bvh_native = real_native
+    _require(big.bvh.woop.device.type == "cuda", "build_big_scene() did not build on the card")
+    depth_big = tree_depth(big.bvh.nodes.cpu().numpy(), int(big.bvh.root_code))
+    n_tris_big = int(big.bvh.tri_index.max()) + 1
+    print(f"[build] bigscene (build_big_scene(), bench config 3): {n_tris_big} triangles, "
+          f"{big.bvh.woop.shape[0]} Woop rows (bench.py's n_tris), {big.bvh.nodes.shape[0]} nodes, "
+          f"tree depth {depth_big} inner levels (stack {STACK_DEPTH} entries), whole "
+          f"build {build_s:.2f} s, of which the host SBVH build {sbvh_s[0]:.2f} s")
+    p3 = BIG_PIN
+    pin_big = build_big_scene(p3["n_tris"])
+    cfg3 = pt.specialize_config(big, pt.PTConfig(max_depth=DEPTH))
+    bimg3, brays3 = wf.render_wavefront_counted(pin_big, p3["width"], p3["height"], p3["spp"],
+                                                p3["seed"], pt.PTConfig(max_depth=DEPTH))
+    bmean3 = float(bimg3.mean())
+    _require(bool(torch.isfinite(bimg3).all()), "the pinned bigscene image is not finite")
+    _require(abs(bmean3 - REF_BIG_MEAN) <= BIG_TOL * REF_BIG_MEAN,
+             f"bigscene pinned mean {bmean3} is not within 1% of {REF_BIG_MEAN}")
+    print(f"[main path] bigscene pinned {p3}: mean {bmean3:.9f} (ref {REF_BIG_MEAN}, "
+          f"{100 * (bmean3 / REF_BIG_MEAN - 1):+.5f}%), rays {int(brays3)} (ref {REF_BIG_RAYS})")
+    wf.render_wavefront_counted(big, BIG_W, BIG_H, BIG_SPP, 0, cfg3)   # warm
+    torch.cuda.synchronize()
+    reset_counts()
+    dt3, (img3, rays3) = _timed(lambda: wf.render_wavefront_counted(big, BIG_W, BIG_H, BIG_SPP,
+                                                                     7, cfg3))
+    launch3 = {"intersect_bvh": dict(bvh_ops.launches), "packed_gather": dict(sg_ops.launches),
+               "intersect_dense": dict(ops.launches)}
+    print(f"[main path] bigscene launches {json.dumps(launch3)}")
+    _require(launch3["intersect_bvh"]["closest"] > 0 and launch3["intersect_bvh"]["any_hit"] > 0,
+             f"the bigscene path did not launch intersect_bvh for both ray kinds: {launch3}")
+    _require(bool(torch.isfinite(img3).all()) and tuple(img3.shape) == (BIG_H, BIG_W, 3),
+             "the bench-config-3 image is not finite or has the wrong shape")
+    print(f"[main path] bigscene {BIG_W}x{BIG_H} spp {BIG_SPP} depth {DEPTH} seed 7: rays "
+          f"{int(rays3)}, {dt3:.4f} s, {int(rays3) / dt3 / 1e6:.3f} Mrays/s, mean "
+          f"{float(img3.mean()):.6f}")
+    # intersect_bvh at the bigscene shape: the pool's first wave of camera rays and its
+    # continuing first-bounce rays, against the oracle
+    bo, bd_, bstate = wf._camera_ray(big, torch.arange(BIG_CMP_LANES, device=dev), 3, BIG_W,
+                                     BIG_H)[1:]
+    big_cam = _compare_bvh("bigscene camera rays", big.bvh, bo, bd_, 1e-4, torch.inf, 10)
+    b1o, b1d = _first_bounce(big, cfg3, bo, bd_, pt.Sampler(state=bstate))
+    big_b1 = _compare_bvh("bigscene first-bounce rays", big.bvh, b1o, b1d, 1e-4, torch.inf, 10)
+    overflow_big = big_cam["overflow"] + big_b1["overflow"]
+    print(f"[bound] intersect_bvh bigscene camera rays {big_cam['bound'][0]:.5f} ms "
+          f"({big_cam['bound'][1]}; kernel at {100 * big_cam['bound'][0] / big_cam['ms']:.2f}% of "
+          f"it), first-bounce rays {big_b1['bound'][0]:.5f} ms ({big_b1['bound'][1]}; "
+          f"{100 * big_b1['bound'][0] / big_b1['ms']:.2f}%); tree depth {depth_big}, lanes whose "
+          f"oracle stack overflowed: {overflow_big}")
+    prof3 = _profile("bigscene bench config 3",
+                     lambda: wf.render_wavefront_counted(big, BIG_W, BIG_H, BIG_SPP, 7, cfg3))
+    del bo, bd_, bstate, b1o, b1d
+
+    # ---- 16. BDPT, bench config 5's other half ----
+    bcfg = bdpt.BDPTConfig()
+    bp = BIDIR_PIN
+    bd_img, bd_rays = bdpt.render_bdpt_counted(caustic, bp["width"], bp["height"], bp["spp"],
+                                               bp["seed"], bcfg)
+    bd_mean = float(bd_img.mean())
+    _require(bool(torch.isfinite(bd_img).all()), "the pinned BDPT image is not finite")
+    _require(abs(bd_mean - REF_BDPT_MEAN) <= BIDIR_TOL * REF_BDPT_MEAN,
+             f"pinned BDPT mean {bd_mean} is not within {BIDIR_TOL:.1%} of {REF_BDPT_MEAN}")
+    _require(abs(int(bd_rays) - REF_BDPT_RAYS) <= 1e-3 * REF_BDPT_RAYS,
+             f"pinned BDPT rays {int(bd_rays)} are not within 0.1% of {REF_BDPT_RAYS}")
+    print(f"[main path] bdpt pinned {bp}: mean {bd_mean:.9f} (ref {REF_BDPT_MEAN}, "
+          f"{100 * (bd_mean / REF_BDPT_MEAN - 1):+.5f}%), rays {int(bd_rays)} (ref {REF_BDPT_RAYS})")
+    bdpt_args, bdpt_gathers, bdpt_splats = _capture_bdpt(caustic, bcfg)
+    bdpt_r = {label: _compare(label, c[0], c[1], c[2], c[3], c[4], 20, c[6])
+              for label, c in bdpt_args.items()}
+    S = bcfg.s_max
+    g_eye = _check_gather_at("bdpt eye hits", *bdpt_gathers[2 * S])
+    g_lv = _check_gather_at("bdpt light-vertex re-fetch", *bdpt_gathers[S])
+    splat_bdpt = _check_splat("bdpt t=1", *bdpt_splats[0], dev)
+    torch.cuda.synchronize()
+    reset_counts()
+    dt5, (img5, rays5) = _timed(lambda: bdpt.render_bdpt_counted(caustic, PPM_W, PPM_H, PPM_SPP,
+                                                                  7, bcfg))
+    launch5 = {"intersect_dense": dict(ops.launches), "packed_gather": dict(sg_ops.launches),
+               "intersect_bvh": dict(bvh_ops.launches)}
+    print(f"[main path] bdpt launches {json.dumps(launch5)}")
+    _require(launch5["intersect_dense"]["closest"] > 0 and launch5["intersect_dense"]["any_hit"] > 0,
+             f"the BDPT path did not launch intersect_dense for both ray kinds: {launch5}")
+    _require(launch5["packed_gather"]["gather"] > 0 and launch5["packed_gather"]["gather_bwd_tile"] > 0,
+             f"the BDPT path did not launch packed_gather and the splat sum: {launch5}")
+    _require(bool(torch.isfinite(img5).all()) and tuple(img5.shape) == (PPM_H, PPM_W, 3),
+             "the bench-config-5 BDPT image is not finite or has the wrong shape")
+    print(f"[main path] bdpt {PPM_W}x{PPM_H} spp {PPM_SPP} seed 7 (BDPTConfig(): depth "
+          f"{bcfg.base.max_depth}, {bcfg.s_max} light vertices): rays {int(rays5)}, {dt5:.4f} s, "
+          f"{int(rays5) / dt5 / 1e6:.3f} Mrays/s, mean {float(img5.mean()):.6f}")
+    prof5 = _profile("bdpt bench config 5 pass",
+                     lambda: bdpt.render_bdpt_counted(caustic, PPM_W, PPM_H, PPM_SPP, 7, bcfg))
+    print(f"[splat] scratch of the splat sum: BDPT's {bdpt_splats[0][1].shape[0]} splats onto "
+          f"{PPM_W * PPM_H} pixels {sg_ops.bwd_scratch_floats(3, bdpt_splats[0][1].shape[0], PPM_W * PPM_H) * 4} "
+          f"bytes; 2^18 light paths x 6 vertices onto 512^2 "
+          f"{sg_ops.bwd_scratch_floats(3, 6 << 18, 512 * 512) * 4} bytes")
+
+    # ---- 17. the light tracer and VCM: pinned renders, then bench size ----
+    n_lt_pin = bp["width"] * bp["height"] * bp["spp"]
+    lt_pin = light_tracer.render_light_trace(caustic, bp["width"], bp["height"], n_lt_pin,
+                                             bp["seed"])
+    vcm_pin = vcm.render_vcm(caustic, bp["width"], bp["height"], bp["spp"], bp["seed"],
+                             bp["pass_idx"])
+    for label, img_p, ref in (("light tracer", lt_pin, REF_LT_MEAN), ("vcm", vcm_pin, REF_VCM_MEAN)):
+        m = float(img_p.mean())
+        _require(bool(torch.isfinite(img_p).all()), f"the pinned {label} image is not finite")
+        _require(abs(m - ref) <= BIDIR_TOL * ref,
+                 f"pinned {label} mean {m} is not within {BIDIR_TOL:.1%} of {ref}")
+        print(f"[main path] {label} pinned {bp}: mean {m:.9f} (ref {ref}, "
+              f"{100 * (m / ref - 1):+.5f}%)")
+    n_lt = PPM_W * PPM_H * PPM_SPP
+    lt_splats = _capture_splats(lambda: light_tracer.render_light_trace(caustic, PPM_W, PPM_H,
+                                                                        n_lt, 0))
+    splat_lt = _check_splat("light tracer", *lt_splats[0], dev)
+    reset_counts()
+    dt_lt, img_lt = _timed(lambda: light_tracer.render_light_trace(caustic, PPM_W, PPM_H, n_lt, 7))
+    launch_lt = {"intersect_dense": dict(ops.launches), "packed_gather": dict(sg_ops.launches)}
+    _require(launch_lt["packed_gather"]["gather_bwd_tile"] == 1
+             and launch_lt["intersect_dense"]["any_hit"] > 0,
+             f"the light tracer did not launch its kernels: {launch_lt}")
+    vcm.render_vcm(caustic, PPM_W, PPM_H, PPM_SPP, 0, 1)   # warm
+    reset_counts()
+    dt_vcm, img_vcm = _timed(lambda: vcm.render_vcm(caustic, PPM_W, PPM_H, PPM_SPP, 7, 1))
+    launch_vcm = {"intersect_dense": dict(ops.launches), "packed_gather": dict(sg_ops.launches)}
+    _require(launch_vcm["packed_gather"]["gather_bwd_tile"] == 1
+             and launch_vcm["intersect_dense"]["closest"] > 0,
+             f"VCM did not launch its kernels: {launch_vcm}")
+    # not gated: the same pass with the merge's neighbour cap lifted (JAX's is 32), to show how
+    # much light the cap drops at this size
+    img_vcm_k = vcm.render_vcm(caustic, PPM_W, PPM_H, PPM_SPP, 7, 1,
+                               vcm.VCMConfig(max_gather=VCM_OPEN_CAP))
+    for label, img_b in (("light tracer", img_lt), ("vcm", img_vcm)):
+        _require(bool(torch.isfinite(img_b).all()) and tuple(img_b.shape) == (PPM_H, PPM_W, 3),
+                 f"the bench-size {label} image is not finite or has the wrong shape")
+    print(f"[main path] light tracer {PPM_W}x{PPM_H}, {n_lt} paths, depth "
+          f"{pt.PTConfig().max_depth}, seed 7: {dt_lt:.4f} s, mean {float(img_lt.mean()):.6f}; "
+          f"launches {json.dumps(launch_lt)}")
+    print(f"[main path] vcm {PPM_W}x{PPM_H} spp {PPM_SPP} pass 1 seed 7 (VCMConfig()): "
+          f"{dt_vcm:.4f} s, mean {float(img_vcm.mean()):.6f}; launches {json.dumps(launch_vcm)}; "
+          f"the same pass with max_gather {VCM_OPEN_CAP} (not gated): mean "
+          f"{float(img_vcm_k.mean()):.6f}")
+    print(f"[wall] chip_smoke.py phases 1-17: {time.perf_counter() - t_start:.1f} s after the "
+          f"imports")
+
     print(json.dumps({"kernels": [
         {
             "name": "intersect_dense",
@@ -1130,7 +1502,7 @@ def main():
             "source": "cudatracerlib_tpu_torch/csrc/intersect_dense.cu",
             "replaces": "cudatracerlib_tpu/ops/intersect_pallas.py:89",
             "launches": launches["closest"] + launches["any_hit"],
-            "max_abs_err": dense_err,
+            "max_abs_err": max(dense_err, *(r["err"] for r in bdpt_r.values())),
             "ms": cam["ms"],
             "plain_ms": cam["plain_ms"],
             "bound_ms": cam["bound"][0],
@@ -1143,6 +1515,12 @@ def main():
             "ppm_plain_ms": ppm_r["ppm photon rays"]["plain_ms"],
             "ppm_bound_ms": ppm_r["ppm photon rays"]["bound"][0],
             "ppm_bound_by": ppm_r["ppm photon rays"]["bound"][1],
+            "bdpt_launches": launch5["intersect_dense"]["closest"]
+            + launch5["intersect_dense"]["any_hit"],
+            "bdpt_max_abs_err": max(r["err"] for r in bdpt_r.values()),
+            **{f"bdpt_{k.split()[1]}_{f}": (r[v][0] if v == "bound" else r[v])
+               for k, r in bdpt_r.items()
+               for f, v in (("ms", "ms"), ("plain_ms", "plain_ms"), ("bound_ms", "bound"))},
         },
         {
             "name": "intersect_bvh",
@@ -1150,12 +1528,22 @@ def main():
             "source": "cudatracerlib_tpu_torch/csrc/intersect_bvh.cu",
             "replaces": "cudatracerlib_tpu/ops/cluster_trace.py:411",
             "launches": glaunch["intersect_bvh"]["closest"] + glaunch["intersect_bvh"]["any_hit"],
-            "max_abs_err": max(err_g, err_g1, err_s65),
+            "max_abs_err": max(err_g, err_g1, err_s65, big_cam["err"], big_b1["err"]),
             "ms": ms_bvh,
             "plain_ms": plain_ms_bvh,
             "bound_ms": bvh_bound[0],
             "bound_by": bvh_bound[1],
             "library_ms": None,
+            "bigscene_launches": launch3["intersect_bvh"]["closest"]
+            + launch3["intersect_bvh"]["any_hit"],
+            "bigscene_rows": int(big.bvh.woop.shape[0]),
+            "bigscene_tree_depth": depth_big,
+            "bigscene_stack_overflow_lanes": overflow_big,
+            **{f"bigscene_{k}_{f}": (r[v][0] if v == "bound" else r[v])
+               for k, r in (("camera", big_cam), ("bounce", big_b1))
+               for f, v in (("ms", "ms"), ("wrapper_ms", "wrap_ms"), ("plain_ms", "plain_ms"),
+                            ("bound_ms", "bound"))},
+            "bigscene_bound_by": big_cam["bound"][1],
         },
         {
             "name": "packed_gather",
@@ -1169,6 +1557,11 @@ def main():
             "bound_ms": gather_bound[0],
             "bound_by": gather_bound[1],
             "library_ms": lib_ms_g,
+            "bdpt_launches": launch5["packed_gather"]["gather"],
+            **{f"bdpt_{k}_{f}": (r[v][0] if v == "bound" else r[v])
+               for k, r in (("eye", g_eye), ("vertex", g_lv))
+               for f, v in (("ms", "ms"), ("plain_ms", "plain_ms"), ("library_ms", "lib_ms"),
+                            ("bound_ms", "bound"))},
         },
         {
             "name": "packed_gather_bwd",
@@ -1176,7 +1569,8 @@ def main():
             "source": "cudatracerlib_tpu_torch/csrc/shade_gather_bwd.cu",
             "replaces": "cudatracerlib_tpu/ops/shade_gather.py:127",
             "launches": gl["shade_gather"]["gather_bwd_tile"],
-            "max_abs_err": max(b["err"] for b in bwd.values()),
+            "max_abs_err": max(*(b["err"] for b in bwd.values()), splat_bdpt["err"],
+                               splat_lt["err"]),
             "ms": bwd["pack"]["ms"],
             "plain_ms": bwd["pack"]["plain_ms"],
             "bound_ms": bwd["pack"]["bound"][0],
@@ -1191,6 +1585,14 @@ def main():
                for f, v in (("ms", "ms"), ("wrapper_ms", "wrap_ms"), ("plain_ms", "plain_ms"),
                             ("library_ms", "lib_ms"))},
             **{f"{k}_bound_ms": bwd[k]["bound"][0] for k in ("texture", "woop")},
+            "splat_launches": launch5["packed_gather"]["gather_bwd_tile"],
+            "splat_max_abs_err": max(splat_bdpt["err"], splat_lt["err"]),
+            "splat_max_rel_err": max(splat_bdpt["rel"], splat_lt["rel"]),
+            **{f"{k}_splat_{f}": (r[v][0] if v == "bound" else r[v])
+               for k, r in (("bdpt", splat_bdpt), ("lt", splat_lt))
+               for f, v in (("ms", "ms"), ("wrapper_ms", "wrap_ms"), ("plain_ms", "plain_ms"),
+                            ("library_ms", "lib_ms"), ("bound_ms", "bound"))},
+            "lt_splat_launches": launch_lt["packed_gather"]["gather_bwd_tile"],
         },
         {
             "name": "photon_density",

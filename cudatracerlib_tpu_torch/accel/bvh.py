@@ -155,3 +155,19 @@ def build_bvh(vertices: np.ndarray, with_host: bool = False, device="cuda"):
         return bvh, {"nodes": node_arr, "woop": woop, "root": root,
                      "order": order, "tris": tris[order]}
     return bvh
+
+
+def tree_depth(nodes: np.ndarray, root_code: int) -> int:
+    """Inner nodes on the longest root-to-leaf path of a BVH (host arrays):
+    the most entries a traversal stack can hold, since a walk's pending
+    far children belong to distinct ancestors of its node. 0 for a leaf
+    root."""
+    codes = np.ascontiguousarray(np.asarray(nodes, np.float32)[:, 12:14]).view(np.int32)
+    level, depth = [int(root_code)], 0
+    while level:
+        inner = np.asarray([c for c in level if c >= 0], np.int64)
+        if inner.size == 0:
+            break
+        depth += 1
+        level = codes[inner].reshape(-1).tolist()
+    return depth

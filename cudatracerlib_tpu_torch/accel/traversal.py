@@ -95,7 +95,8 @@ def _slab_test(lo, hi, o, inv_d, t_min, t_max):
 
 
 def intersect(bvh, o, d, t_min=1e-4, t_max=torch.inf, any_hit: bool = False,
-              max_steps: int = 100_000, with_counts: bool = False):
+              max_steps: int = 100_000, with_counts: bool = False,
+              with_overflow: bool = False):
     """The JAX package's lockstep BVH stack walk: every lane keeps a
     STACK_DEPTH stack, descends to the nearer child it hits (the ordering
     rule below), pushes the farther one when both are hit, and tests the
@@ -108,7 +109,10 @@ def intersect(bvh, o, d, t_min=1e-4, t_max=torch.inf, any_hit: bool = False,
     walking; the result is the JAX oracle's lane for lane. With
     `with_counts` it also returns per-ray counts (int64) of the work the
     walk did: inner-node visits, leaf visits, and leaf rows whose t passed
-    the t test (the rows whose u, v the CUDA kernel goes on to compute)."""
+    the t test (the rows whose u, v the CUDA kernel goes on to compute).
+    With `with_overflow` the last element returned is each ray's count
+    (int64) of pushes onto a full stack, each of which loses the subtree
+    in the top entry."""
     B, dev = o.shape[0], o.device
     t_min = torch.as_tensor(t_min, dtype=torch.float32, device=dev).expand(B)
     t_max = torch.as_tensor(t_max, dtype=torch.float32, device=dev).expand(B)
@@ -123,6 +127,7 @@ def intersect(bvh, o, d, t_min=1e-4, t_max=torch.inf, any_hit: bool = False,
     out_inner = torch.zeros(B, dtype=torch.int64, device=dev)
     out_leaf = torch.zeros(B, dtype=torch.int64, device=dev)
     out_tpass = torch.zeros(B, dtype=torch.int64, device=dev)
+    out_over = torch.zeros(B, dtype=torch.int64, device=dev)
 
     lane = torch.arange(B, device=dev)
     node = torch.full((B,), int(bvh.root_code), dtype=torch.int32, device=dev)
@@ -130,12 +135,14 @@ def intersect(bvh, o, d, t_min=1e-4, t_max=torch.inf, any_hit: bool = False,
     sp = torch.zeros(B, dtype=torch.int64, device=dev)
     t_hit, prim, bary = t_max.clone(), out_prim.clone(), out_bary.clone()
     n_inner, n_leaf, n_tpass = out_inner.clone(), out_leaf.clone(), out_tpass.clone()
+    n_over = out_over.clone()
     lo, ld, linv, ltmin = o, d, inv_d, t_min
 
     def store(sel):
         idx = lane[sel]
         out_t[idx], out_prim[idx], out_bary[idx] = t_hit[sel], prim[sel], bary[sel]
         out_inner[idx], out_leaf[idx], out_tpass[idx] = n_inner[sel], n_leaf[sel], n_tpass[sel]
+        out_over[idx] = n_over[sel]
 
     steps = 0
     while lane.numel() > 0 and steps < max_steps:
@@ -156,6 +163,7 @@ def intersect(bvh, o, d, t_min=1e-4, t_max=torch.inf, any_hit: bool = False,
         near_code = torch.where(swap, c[:, 1], c[:, 0])
         far_code = torch.where(swap, c[:, 0], c[:, 1])
         push = is_inner & c0_hit & c1_hit
+        n_over += push & (sp >= STACK_DEPTH)
         r = push.nonzero()[:, 0]
         stack[r, torch.clamp(sp[r], max=STACK_DEPTH - 1)] = far_code[r]
         sp = torch.where(push, torch.clamp(sp + 1, max=STACK_DEPTH), sp)
@@ -192,10 +200,14 @@ def intersect(bvh, o, d, t_min=1e-4, t_max=torch.inf, any_hit: bool = False,
             lane, node, stack, sp = lane[keep], node[keep], stack[keep], sp[keep]
             t_hit, prim, bary = t_hit[keep], prim[keep], bary[keep]
             n_inner, n_leaf, n_tpass = n_inner[keep], n_leaf[keep], n_tpass[keep]
+            n_over = n_over[keep]
             lo, ld, linv, ltmin = lo[keep], ld[keep], linv[keep], ltmin[keep]
     store(torch.ones_like(lane, dtype=torch.bool))  # lanes cut by max_steps
     hit = Hit(t=out_t, prim=out_prim, bary=out_bary, valid=out_prim >= 0)
-    return (hit, out_inner, out_leaf, out_tpass) if with_counts else hit
+    out = (hit, out_inner, out_leaf, out_tpass) if with_counts else (hit,)
+    if with_overflow:
+        out = out + (out_over,)
+    return out if len(out) > 1 else hit
 
 
 def _woop_vjp(rows, o, d, gt, gu, gv, valid):

@@ -1,8 +1,9 @@
-"""The C++ SBVH builder (cudatracerlib_tpu/native/bvh_builder.cpp), loaded with ctypes.
+"""The C++ SBVH builder (native/bvh_builder.cpp, the port's own copy of the
+JAX package's builder source), loaded with ctypes.
 
-The source is compiled by file path with g++ into the port's `_build/`
-directory, with the same flags the JAX package uses; the JAX package's own
-`_native.so` is neither imported nor rebuilt.
+The source beside this module is compiled with g++ into the port's
+`_build/` directory, with the same flags the JAX package uses; nothing of
+the JAX package, its source or its `_native.so`, is read or built.
 """
 from __future__ import annotations
 
@@ -14,8 +15,7 @@ import numpy as np
 
 from .._build_util import build_shared, load
 
-SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__)))), "cudatracerlib_tpu", "native", "bvh_builder.cpp")
+SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "bvh_builder.cpp")
 _FLAGS = ["g++", "-O3", "-march=native", "-shared", "-fPIC", "-std=c++17"]
 _LOCK = threading.Lock()
 _LIB = None

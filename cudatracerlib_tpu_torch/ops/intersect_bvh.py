@@ -54,11 +54,12 @@ def _check(bvh, o, d):
 
 
 def intersect_bvh_plain(bvh, o, d, t_min=1e-4, t_max=torch.inf, any_hit: bool = False,
-                        with_counts: bool = False):
-    """Plain PyTorch version of the kernel's contract (the lockstep oracle)."""
+                        with_counts: bool = False, with_overflow: bool = False):
+    """Plain PyTorch version of the kernel's contract (the lockstep oracle;
+    its optional work and stack-overflow counts as `traversal.intersect`)."""
     _check(bvh, o, d)
     return intersect(bvh, o, d, t_min, t_max, any_hit=any_hit, max_steps=MAX_STEPS,
-                     with_counts=with_counts)
+                     with_counts=with_counts, with_overflow=with_overflow)
 
 
 def launch_args(bvh, o, d, t_min=1e-4, t_max=torch.inf, any_hit: bool = False,

@@ -185,6 +185,25 @@ def cull_sweep(woop, boxes, o, d, t_min=1e-4, t_max=T_MAX_CLAMP, ray_chunk: int 
     return Hit(t=best_t, prim=prim, bary=bary, valid=prim >= 0), n_chunks, n_rows
 
 
+def _on_triangle(rows_a, bary_a, rows_b, t, edge_eps: float):
+    """Whether the hit point of Woop rows `rows_a` at barycentrics `bary_a`
+    lies on the triangles of `rows_b`: within edge_eps * max(1, |t|) of its
+    plane and inside it to edge_eps in barycentrics (float64; the triangles
+    are recovered from the rows, `woop_vertices`)."""
+    from ..accel.bvh import woop_vertices
+
+    va, ok_a = woop_vertices(rows_a)
+    vb, ok_b = woop_vertices(rows_b)
+    u, v = bary_a[:, 0:1].double(), bary_a[:, 1:2].double()
+    p = va[:, 0] + u * (va[:, 1] - va[:, 0]) + v * (va[:, 2] - va[:, 0])
+    r = rows_b.double().reshape(-1, 3, 4)
+    q = (r[:, :, :3] * p[:, None, :]).sum(-1) + r[:, :, 3]   # u, v, w of p in triangle b
+    n_len = torch.linalg.norm(torch.linalg.cross(vb[:, 1] - vb[:, 0], vb[:, 2] - vb[:, 0]), dim=-1)
+    inside = (q[:, 0] >= -edge_eps) & (q[:, 1] >= -edge_eps) & (q[:, 0] + q[:, 1] <= 1 + edge_eps)
+    near = q[:, 2].abs() * n_len <= edge_eps * torch.clamp(t.double().abs(), min=1.0)
+    return ok_a & ok_b & inside & near
+
+
 def compare_hits(a: Hit, b: Hit, woop, t_min, t_max, any_hit: bool = False,
                  edge_eps: float = 1e-4) -> dict:
     """Where two intersectors disagree on the same rays, and whether each
@@ -193,10 +212,15 @@ def compare_hits(a: Hit, b: Hit, woop, t_min, t_max, any_hit: bool = False,
     A ray that one side hits and the other misses is grazing when the hit
     lies within `edge_eps` of a triangle edge in barycentrics, or within
     `edge_eps` (relative) of t_min or t_max. Two hits at distinct Woop rows
-    (equal rows are duplicates from leaf padding) are grazing when their t
-    agree to `edge_eps` and either lies on an edge: a shared edge or a
-    coincident triangle. With `any_hit` only `valid` is compared. Errors in
-    t and the barycentrics are measured on rays both sides hit at equal rows.
+    (equal rows are duplicates from leaf padding or spatial splits) are
+    grazing when their t agree to `edge_eps` and either lies on an edge (a
+    shared edge); they are coincident when their t agree and either hit
+    point lies on the other's triangle (coplanar, overlapping triangles,
+    such as the bigscene's box bottoms at z = 0: a tie that the order of
+    the walk breaks). `prim_mismatch_coincident` counts the coincident
+    ones, and `prim_mismatch_not_grazing` leaves out both kinds. With
+    `any_hit` only `valid` is compared. Errors in t and the barycentrics
+    are measured on rays both sides hit at equal rows.
     """
     B = a.valid.shape[0]
     t_min = torch.as_tensor(t_min, dtype=torch.float32, device=a.t.device).expand(B)
@@ -222,9 +246,16 @@ def compare_hits(a: Hit, b: Hit, woop, t_min, t_max, any_hit: bool = False,
     prim_diff = both & ~same
     t_close = (a.t - b.t).abs() <= torch.clamp(a.t.abs(), min=1.0) * edge_eps
     prim_grazing = t_close & (grazing(a) | grazing(b))
+    coincident = torch.zeros_like(prim_diff)
+    tie = prim_diff & t_close & ~prim_grazing
+    if bool(tie.any()):
+        ra, rb, ba, bb, ta = rows_a[tie], rows_b[tie], a.bary[tie], b.bary[tie], a.t[tie]
+        coincident[tie] = (_on_triangle(ra, ba, rb, ta, edge_eps)
+                           | _on_triangle(rb, bb, ra, ta, edge_eps))
     out.update(
         prim_mismatch=int(prim_diff.sum()),
-        prim_mismatch_not_grazing=int((prim_diff & ~prim_grazing).sum()),
+        prim_mismatch_coincident=int(coincident.sum()),
+        prim_mismatch_not_grazing=int((prim_diff & ~prim_grazing & ~coincident).sum()),
         max_abs_err_t=float((a.t - b.t)[same].abs().max()) if same.any() else 0.0,
         max_abs_err_bary=float((a.bary - b.bary)[same].abs().max()) if same.any() else 0.0,
     )

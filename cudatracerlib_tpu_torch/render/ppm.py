@@ -40,6 +40,7 @@ from ..scene import scene as scene_mod
 from ..scene import sensors
 from ..scene.scene import Scene, gather_mat_params, make_interaction
 from ..scene.shade_pack import build_shade_pack, hit_shading, pack_enabled
+from .light_tracer import emit_particles
 from .path_tracer import PTConfig, _offset_ray, _select_light, specialize_config
 
 PPM_ALPHA = 0.75  # reference PhotonMapHelper.h ALPHA
@@ -77,13 +78,7 @@ def trace_photons(scene: Scene, n_photons: int, seed, config: PTConfig,
     an int64 tensor."""
     B, dev = n_photons, _device(scene)
     smp = Sampler.create(int(seed) & MASK, torch.arange(B, device=dev), 0xF00D)
-    smp, u_sel = smp.next_1d()
-    lsel, lpmf, _ = _select_light(scene, u_sel)
-    smp, u_pos = smp.next_2d()
-    smp, u_dir = smp.next_2d()
-    o, d, w = lights_mod.sample_emitter_ray(scene.lights, lsel, u_pos, u_dir,
-                                            active=config.light_types)
-    w = w / torch.clamp(lpmf, min=1e-9)[..., None]
+    o, d, w, _, _, smp = emit_particles(scene, B, smp, config)
     alive = torch.ones(B, dtype=torch.bool, device=dev)
     spec_chain = torch.ones(B, dtype=torch.bool, device=dev)
     pack = build_shade_pack(scene) if pack_enabled(scene) else None

@@ -1,10 +1,10 @@
-"""Camera (port of cudatracerlib_tpu/scene/sensors.py:30-129, 166-182).
+"""Camera (port of cudatracerlib_tpu/scene/sensors.py:30-182).
 
 Cameras look down +z in camera space; `to_world` is a (4, 4) camera-to-world
 transform. Film coordinates (u, v) in [0,1]^2 have (0,0) at the top-left
-pixel. Ray generation is ported for PERSPECTIVE cameras. The 3x3 transforms
-are written as explicit float32 arithmetic, not matmuls, so no TF32 path
-can touch them.
+pixel. Ray generation and the lens connection (`sample_direct`) are ported
+for PERSPECTIVE cameras. The 3x3 transforms are written as explicit float32
+arithmetic, not matmuls, so no TF32 path can touch them.
 """
 from __future__ import annotations
 
@@ -87,6 +87,32 @@ def sample_ray(cam: Camera, film_uv):
     o = _xform(cam.to_world, torch.zeros_like(d_cam), point=True)
     d = normalize(_xform(cam.to_world, d_cam, point=False))
     return o, d, torch.ones(o.shape[:-1] + (3,), device=o.device)
+
+
+def sample_direct(cam: Camera, ref_p):
+    """Connect scene points (..., 3) to a pinhole camera (the light tracer's
+    and BDPT's lens connection, reference Sensor::sampleDirect). Returns
+    (film_uv (..., 2), unit direction ref -> camera, distance, importance
+    W_e per unit film area, in_frustum)."""
+    m = cam.to_world
+    # world -> camera: the transpose of the rigid rotation
+    q = ref_p - m[:3, 3]
+    p_cam = torch.stack([m[0, i] * q[..., 0] + m[1, i] * q[..., 1] + m[2, i] * q[..., 2]
+                         for i in range(3)], dim=-1)
+    z = torch.clamp(p_cam[..., 2], min=1e-6)
+    x_ndc = p_cam[..., 0] / (z * cam.tan_half_fov)
+    y_ndc = p_cam[..., 1] / (z * cam.tan_half_fov / cam.aspect)
+    u = (x_ndc + 1.0) * 0.5
+    v = (1.0 - y_ndc) * 0.5
+    to_cam = m[:3, 3] - ref_p
+    dist = torch.sqrt(torch.clamp((to_cam * to_cam).sum(-1), min=1e-12))
+    d = to_cam / dist[..., None]
+    # pinhole importance over the film area: 1 / (A_film cos^4)
+    cos_theta = torch.clamp(-(d * m[:3, 2]).sum(-1), min=1e-6)
+    film_area = 4.0 * cam.tan_half_fov * (cam.tan_half_fov / cam.aspect)
+    importance = 1.0 / (film_area * cos_theta ** 4)
+    in_frustum = (u >= 0.0) & (u < 1.0) & (v >= 0.0) & (v < 1.0) & (p_cam[..., 2] > 1e-6)
+    return torch.stack([u, v], dim=-1), d, dist, importance, in_frustum
 
 
 def pixel_spread(cam: Camera, width: int, height: int):

@@ -484,3 +484,76 @@ def test_gradient_render_on_card_matches_cpu(dev):
         for k in paths:
             scale = np.abs(g_cpu[k]).max()
             assert scale > 0 and np.abs(g_gpu[k] - g_cpu[k]).max() <= 1e-2 * scale, k
+
+
+@pytest.mark.parametrize("n,n_px", [(1, 1), (40_000, 256), (5 * 65_536, 128 * 128),
+                                    (1 << 20, 512 * 512)])
+def test_splat_sum_matches_plain(dev, n, n_px):
+    """The splat film's sum on the card (the gather's backward at C = 3):
+    within 1e-5 relative of the float64 plain version on positive splats,
+    0 where no splat lands, two launches bit-equal; the BDPT splat shape
+    (5 x 65,536 onto 128^2) and 2^20 splats onto a 512^2 film, whose
+    scratch the wrapper sizes by `bwd_scratch_floats`."""
+    from cudatracerlib_tpu_torch.image import film
+
+    rng = np.random.default_rng(n)
+    pix = torch.from_numpy(rng.integers(0, n_px, n)).to(dev)
+    val = torch.rand(n, 3, generator=torch.Generator(device=dev).manual_seed(3), device=dev)
+    before = sg_ops.launches["gather_bwd_tile"]
+    got = film.splat_sum(pix, val, n_px)
+    again = film.splat_sum(pix, val, n_px)
+    torch.cuda.synchronize()
+    assert sg_ops.launches["gather_bwd_tile"] == before + 2
+    assert torch.equal(got, again) and got.shape == (n_px, 3)
+    plain = sg_ops.packed_gather_bwd_plain(val, pix.to(torch.int32), n_px)
+    hit = plain > 0
+    assert bool((got[~hit] == 0).all())
+    assert bool(((got - plain).abs()[hit] <= 1e-5 * plain[hit]).all())
+    assert sg_ops.bwd_scratch_floats(3, n, n_px) * 4 < 1 << 30
+
+
+def test_bvh_kernel_on_bigscene(dev):
+    """intersect_bvh on a small bigscene (20,000-triangle target) against
+    its oracle on camera rays, closest and any hit, and the bench-config-3
+    engine on the card against the CPU at 32x32, 2 spp: mean within 1%,
+    rays within 0.1%, both kinds of BVH launches."""
+    from cudatracerlib_tpu_torch.scene.bigscene import build_big_scene
+
+    big = build_big_scene(20_000, device=dev)
+    _, o, d, _ = wf._camera_ray(big, torch.arange(128 * 128 * 4, device=dev), 3, 128, 128)
+    _assert_bvh_agree(big.bvh, o, d, 1e-4, torch.inf)
+    cfg = pt.PTConfig(max_depth=5)
+    ref, ref_rays = wf.render_wavefront_counted(big.to("cpu"), 32, 32, 2, 3, cfg)
+    before = dict(bvh_ops.launches)
+    img, rays = wf.render_wavefront_counted(big, 32, 32, 2, 3, cfg)
+    torch.cuda.synchronize()
+    assert all(bvh_ops.launches[k] > before[k] for k in ("closest", "any_hit"))
+    assert abs(float(img.mean()) - float(ref.mean())) <= 1e-2 * float(ref.mean())
+    assert abs(int(rays) - int(ref_rays)) <= 1e-3 * int(ref_rays)
+
+
+def test_bidirectional_engines_on_card_match_cpu(dev):
+    """The light tracer, BDPT and VCM on the caustic scene at 32x32, 2 spp
+    on the card against the CPU: means within 1%, BDPT's rays within 0.1%;
+    each splats through the segment-sum kernel, and BDPT also launches both
+    kinds of `intersect_dense` and the shade-pack gather (3,160 rows lie in
+    the pack's band)."""
+    from cudatracerlib_tpu_torch.render import bdpt, light_tracer, vcm
+
+    cpu, card = caustic_scene(device="cpu"), caustic_scene()
+    runs = {"lt": lambda s: (light_tracer.render_light_trace(s, 32, 32, 2048, 3), None),
+            "bdpt": lambda s: bdpt.render_bdpt_counted(s, 32, 32, 2, 3),
+            "vcm": lambda s: (vcm.render_vcm(s, 32, 32, 2, 3, 1), None)}
+    for name, run in runs.items():
+        ref, ref_rays = run(cpu)
+        before = dict(sg_ops.launches), dict(ops.launches)
+        img, rays = run(card)
+        torch.cuda.synchronize()
+        assert sg_ops.launches["gather_bwd_tile"] == before[0]["gather_bwd_tile"] + 1, name
+        assert sg_ops.launches["gather"] > before[0]["gather"], name
+        assert ops.launches["closest"] > before[1]["closest"], name
+        assert ops.launches["any_hit"] > before[1]["any_hit"], name
+        assert img.device.type == "cuda" and bool(torch.isfinite(img).all()), name
+        assert abs(float(img.mean()) - float(ref.mean())) <= 1e-2 * float(ref.mean()), name
+        if rays is not None:
+            assert abs(int(rays) - int(ref_rays)) <= 1e-3 * int(ref_rays)

@@ -1,6 +1,8 @@
 """The port imports without JAX, and building its scenes leaves the JAX
 package's native library alone."""
+import ast
 import os
+import re
 import subprocess
 import sys
 
@@ -27,11 +29,15 @@ MODULES = [
     "cudatracerlib_tpu_torch.ops.intersect_dense",
     "cudatracerlib_tpu_torch.ops.photon_gather",
     "cudatracerlib_tpu_torch.ops.shade_gather",
+    "cudatracerlib_tpu_torch.render.bdpt",
+    "cudatracerlib_tpu_torch.render.light_tracer",
     "cudatracerlib_tpu_torch.render.path_tracer",
     "cudatracerlib_tpu_torch.render.ppm",
+    "cudatracerlib_tpu_torch.render.vcm",
     "cudatracerlib_tpu_torch.render.wavefront",
     "cudatracerlib_tpu_torch.sampling.records",
     "cudatracerlib_tpu_torch.sampling.rng",
+    "cudatracerlib_tpu_torch.scene.bigscene",
     "cudatracerlib_tpu_torch.scene.bsdf",
     "cudatracerlib_tpu_torch.scene.lights",
     "cudatracerlib_tpu_torch.scene.scene",
@@ -80,3 +86,82 @@ def test_port_cornell_build_leaves_jax_native_lib_untouched():
         "print('WOOP', tuple(s.bvh.woop.shape), 'jax' in sys.modules)\n")
     assert "WOOP (60, 12) False" in out, out
     assert os.stat(JAX_NATIVE_SO).st_mtime_ns == before
+
+
+def _port_sources():
+    pkg = os.path.join(REPO, "cudatracerlib_tpu_torch")
+    for root, _, files in os.walk(pkg):
+        for f in sorted(files):
+            if f.endswith(".py"):
+                yield os.path.join(root, f)
+    yield os.path.join(REPO, "chip_smoke.py")
+
+
+def _docstrings(tree):
+    """ids of the docstring constants of a module, its classes and functions."""
+    out = set()
+    for node in ast.walk(tree):
+        if isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef, ast.AsyncFunctionDef)):
+            body = node.body
+            if body and isinstance(body[0], ast.Expr) and isinstance(body[0].value, ast.Constant):
+                out.add(id(body[0].value))
+    return out
+
+
+def _reaches_jax_package(path):
+    """The places in one source that import the JAX package or name a path
+    inside it: an import of `cudatracerlib_tpu` (or a module of it), or a
+    string constant with `cudatracerlib_tpu` as a path component. Docstrings
+    are prose, and the values of `"replaces"` name the TPU kernel a port
+    kernel replaces (chip_smoke.py's kernels line): neither opens a file."""
+    with open(path, encoding="utf-8") as f:
+        tree = ast.parse(f.read(), path)
+    skip = _docstrings(tree)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Dict):
+            for k, v in zip(node.keys, node.values):
+                if isinstance(k, ast.Constant) and k.value == "replaces":
+                    skip.add(id(v))
+    bad = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            bad += [(node.lineno, a.name) for a in node.names
+                    if a.name.split(".")[0] == "cudatracerlib_tpu"]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            if (node.module or "").split(".")[0] == "cudatracerlib_tpu":
+                bad.append((node.lineno, node.module))
+        elif (isinstance(node, ast.Constant) and isinstance(node.value, str)
+              and id(node) not in skip
+              and "cudatracerlib_tpu" in re.split(r"[/\\\s\"':]+", node.value)):
+            bad.append((node.lineno, node.value[:60]))
+    return bad
+
+
+def test_port_reaches_nothing_of_the_jax_package():
+    """No module of the port, and not chip_smoke.py, imports the JAX package
+    or builds a path into it; the SBVH builder compiles the port's own
+    copy of the source."""
+    from cudatracerlib_tpu_torch import native
+
+    pkg = os.path.join(REPO, "cudatracerlib_tpu_torch") + os.sep
+    assert os.path.abspath(native.SRC).startswith(pkg), native.SRC
+    assert os.path.isfile(native.SRC), native.SRC
+    found = {os.path.relpath(p, REPO): b for p in _port_sources() if (b := _reaches_jax_package(p))}
+    assert not found, found
+
+
+def test_jax_package_scan_catches_a_path_and_an_import(tmp_path):
+    """The scan above flags a joined path component, a slash path and an
+    import, and leaves docstrings and the port's own name alone."""
+    src = tmp_path / "probe.py"
+    src.write_text(
+        '"""Port of cudatracerlib_tpu/render/ppm.py."""\n'
+        "import os\n"
+        "A = os.path.join(os.path.dirname(__file__), 'cudatracerlib_tpu', 'native')\n"
+        "B = 'cudatracerlib_tpu/native/bvh_builder.cpp'\n"
+        "C = 'cudatracerlib_tpu_torch/native/bvh_builder.cpp'\n"
+        "K = {'replaces': 'cudatracerlib_tpu/ops/shade_gather.py:69'}\n"
+        "def f():\n"
+        "    from cudatracerlib_tpu.scene import bsdf\n"
+        "    return bsdf\n")
+    assert sorted(line for line, _ in _reaches_jax_package(str(src))) == [3, 4, 8]
