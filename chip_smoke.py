@@ -144,7 +144,23 @@ It imports nothing of JAX. Phases, each of which raises on failure:
      plain version as in 16; each timed once at bench config 5's size
      (128x128, 65,536 paths / 4 spp, seed 7), its launch counts reset just
      before and read just after; VCM's pass also with the merge's neighbour
-     cap lifted to 512 (not gated).
+     cap lifted to 512 (not gated);
+  18. the heterogeneous volume, bench config 4: bench.py's smoke plume (a
+     32^3 grid, 6 Gaussians from seed 0) built on the card in the Cornell
+     box; a pinned `render_vol_counted` (64x64, 4 spp, depth 6, seed 3)
+     whose mean must be within 7.5% (three times the mean's spread over
+     seeds 3-5) of the JAX package's CPU value below and its rays within
+     1%, with its delta-tracking trip counts by bounce printed beside
+     JAX's (equal trips mean the card drew every lane's numbers as JAX
+     did; not gated); then `render_vol_stepwise` at 256x256, 8 spp, depth
+     6, 3 passes as bench.py runs it: warm at seed 0 (intersect_dense's
+     arguments captured: the camera rays, the first bounce's rays and the
+     first shadow rays, many from medium scatter points inside the plume,
+     524,288 lanes each, held against the plain version as in 3 and
+     timed), rays counted at seed 3 (with_stats), timed at seed 7 with
+     Mrays/s, the launch counts reset just before it and read just after
+     (both kinds of `intersect_dense`), the first pass's trip counts
+     printed, one pass profiled as in 10.
 
 Before its last line it prints one JSON object describing each kernel; the
 last line is {"ok": true, "device": {...}}. Without a CUDA device, or without
@@ -214,6 +230,22 @@ REF_LT_MEAN, REF_VCM_MEAN = 0.311668307, 0.334288925
 BIDIR_PIN = dict(width=64, height=64, spp=4, seed=3, pass_idx=1)
 BIDIR_TOL = 1e-3
 VCM_OPEN_CAP = 512         # phase 17's VCM pass with the merge's neighbour cap lifted
+# Bench config 4's pinned render, JAX package on the CPU (`JAX_PLATFORMS=cpu python
+# tools/volume_reference_mean.py`): render_vol_counted(cornell_box(), bench.py's plume, 64, 64, 4,
+# seed 3, PTConfig(max_depth=6)) -> mean 0.137044162, 100,872 rays, delta-tracking trips by
+# bounce [9, 8, 9, 8, 9, 10]. Seeds 3-5 spread 2.5005% of that mean (0.135914892-0.139341697), and
+# the gate is three times the spread. The CPU port gives the same mean, rays and trips (`--port`).
+# On the card the transcendentals round otherwise, and a tracking decision of the slowest lane
+# that one ulp flips changes T and with it every later draw of every lane: the card's render is
+# then another sample of the same estimator, which the spread bounds.
+REF_VOL_MEAN = 0.137044162
+REF_VOL_RAYS = 100_872
+REF_VOL_TRIPS = [9, 8, 9, 8, 9, 10]
+VOL_PIN = dict(width=64, height=64, spp=4, seed=3)
+VOL_TOL = 0.075
+VOL_RAYS_TOL = 0.01
+VOL_W = VOL_H = 256        # bench config 4 (bench.py:244-286): 256^2, 8 spp, depth 6, 3 passes
+VOL_SPP, VOL_DEPTH, VOL_PASSES = 8, 6, 3
 PPM_W = PPM_H = 128        # bench config 5 (bench.py:289-340)
 PPM_SPP, PPM_PASS = 4, 1
 DENSITY_RTOL, DENSITY_ATOL = 1e-4, 1e-6
@@ -997,6 +1029,115 @@ def _check_gather_at(label, table, idx):
     return dict(err=0.0, ms=ms, plain_ms=plain_ms, lib_ms=lib_ms, bound=bound)
 
 
+def _capture_volume(fn):
+    """intersect_dense's arguments in one call of `fn` (volume renders):
+    {label: (woop, o, d, t_min, t_max, any_hit, boxes)} of the first
+    closest-hit launch (the camera rays), the second (the first bounce's
+    continuations, medium scatter points among their origins) and the first
+    any-hit launch (the first shadow rays, from the surface hits and from
+    the medium scatter points, inside the plume, away from any surface)."""
+    import torch
+    from cudatracerlib_tpu_torch.ops import intersect_dense as ops
+
+    closest, shadow = [], []
+    real = ops.intersect_dense
+
+    def capture(woop, o, d, t_min=1e-4, t_max=ops.T_MAX_CLAMP, any_hit=False, boxes=None):
+        keep = lambda x: x.clone() if isinstance(x, torch.Tensor) else x  # noqa: E731
+        calls = shadow if any_hit else closest
+        if len(calls) < 2:
+            calls.append((woop, keep(o), keep(d), keep(t_min), keep(t_max), any_hit, boxes))
+        return real(woop, o, d, t_min, t_max, any_hit=any_hit, boxes=boxes)
+
+    ops.intersect_dense = capture
+    try:
+        fn()
+        torch.cuda.synchronize()
+    finally:
+        ops.intersect_dense = real
+    _require(len(closest) == 2 and shadow, "the volume pass made too few intersect_dense launches")
+    return {"volume camera rays": closest[0], "volume bounce-1 rays": closest[1],
+            "volume shadow rays": shadow[0]}
+
+
+def _vol_trips(scene, media, cfg, width, height, spp, seed):
+    """The delta-tracking trip counts, bounce by bounce, of one volume pass
+    (the same draws as the render's), read from lane 0's sampler state."""
+    import torch
+    from cudatracerlib_tpu_torch.render import volpath
+
+    cfg = volpath._specialize(scene, media, cfg)
+    _, o, d, _, smp = volpath._camera_batch(scene, width, height, spp, seed)
+    carry, out = volpath.init_vol_carry(o, d, smp), []
+    with torch.no_grad():
+        for depth in range(cfg.max_depth):
+            s0 = int(carry.sampler.state[0])
+            carry = volpath.vol_bounce(scene, media, cfg, carry, depth)
+            out.append(volpath.tracking_trips(s0, carry.sampler.state[0]))
+    return out
+
+
+def _volume_phase(scene, smi, reset_counts):
+    """Phase 18 on the Cornell box `scene` (module docstring); returns the
+    intersect_dense comparisons, the timed render's launch counts and the
+    profile."""
+    import torch
+    from cudatracerlib_tpu_torch.ops import intersect_dense as ops
+    from cudatracerlib_tpu_torch.render import path_tracer as pt
+    from cudatracerlib_tpu_torch.render import volpath
+    from cudatracerlib_tpu_torch.scene import media as media_mod
+
+    t0 = time.perf_counter()
+    plume = media_mod.Media.build(media_mod.plume_records(scene.bvh.world_min,
+                                                          scene.bvh.world_max))
+    torch.cuda.synchronize()
+    vol_build_s = time.perf_counter() - t0
+    _require(plume.grid_data.device.type == "cuda", "Media.build did not build on the card")
+    vcfg = pt.PTConfig(max_depth=VOL_DEPTH)
+    vp = VOL_PIN
+    v_img, v_rays = volpath.render_vol_counted(scene, plume, vp["width"], vp["height"],
+                                               vp["spp"], vp["seed"], vcfg)
+    v_mean = float(v_img.mean())
+    v_trips = _vol_trips(scene, plume, vcfg, vp["width"], vp["height"], vp["spp"], vp["seed"])
+    _require(bool(torch.isfinite(v_img).all()), "the pinned volume image is not finite")
+    _require(abs(v_mean - REF_VOL_MEAN) <= VOL_TOL * REF_VOL_MEAN,
+             f"pinned volume mean {v_mean} is not within {VOL_TOL:.1%} of {REF_VOL_MEAN}")
+    _require(abs(int(v_rays) - REF_VOL_RAYS) <= VOL_RAYS_TOL * REF_VOL_RAYS,
+             f"pinned volume rays {int(v_rays)} are not within 1% of {REF_VOL_RAYS}")
+    print(f"[main path] volume: plume {tuple(plume.res[0].tolist())} grid, modes {plume.modes}, "
+          f"built in {vol_build_s:.3f} s; pinned {vp}: mean {v_mean:.9f} (ref {REF_VOL_MEAN}, "
+          f"{100 * (v_mean / REF_VOL_MEAN - 1):+.5f}%), rays {int(v_rays)} (ref {REF_VOL_RAYS}); "
+          f"tracking trips by bounce {v_trips} (JAX's CPU {REF_VOL_TRIPS}: "
+          f"{'matched' if v_trips == REF_VOL_TRIPS else 'differ'})")
+    # bench.py's order: warm at seed 0 (intersect_dense's arguments captured), rays counted at
+    # seed 3, the render timed at seed 7, 3 passes each
+    vol_args = _capture_volume(lambda: volpath.render_vol_stepwise(
+        scene, plume, VOL_W, VOL_H, VOL_SPP, VOL_PASSES, 0, vcfg))
+    vol_r = {label: _compare(label, c[0], c[1], c[2], c[3], c[4], 20, c[6])
+             for label, c in vol_args.items()}
+    _, vol_rays = volpath.render_vol_stepwise(scene, plume, VOL_W, VOL_H, VOL_SPP, VOL_PASSES, 3,
+                                              vcfg, with_stats=True)
+    torch.cuda.synchronize()
+    reset_counts()
+    dt_v, img_v = _timed(lambda: volpath.render_vol_stepwise(scene, plume, VOL_W, VOL_H, VOL_SPP,
+                                                              VOL_PASSES, 7, vcfg))
+    launch_v = dict(ops.launches)
+    print(f"[main path] volume launches {json.dumps(launch_v)}")
+    _require(launch_v["closest"] > 0 and launch_v["any_hit"] > 0,
+             f"the volume path did not launch intersect_dense for both ray kinds: {launch_v}")
+    _require(bool(torch.isfinite(img_v).all()) and tuple(img_v.shape) == (VOL_H, VOL_W, 3),
+             "the bench-config-4 image is not finite or has the wrong shape")
+    v_trips7 = _vol_trips(scene, plume, vcfg, VOL_W, VOL_H, VOL_SPP, 7)
+    print(f"[main path] volume {VOL_W}x{VOL_H} spp {VOL_SPP} depth {VOL_DEPTH} x {VOL_PASSES} "
+          f"passes, seed 7: {dt_v:.4f} s ({dt_v / VOL_PASSES:.4f} s a pass), rays {int(vol_rays)} "
+          f"(seed 3, as bench.py counts), {int(vol_rays) / dt_v / 1e6:.3f} Mrays/s, mean "
+          f"{float(img_v.mean()):.6f}; tracking trips by bounce of the first pass {v_trips7}; "
+          f"{smi}")
+    prof_v = _profile("volume bench config 4 pass", lambda: volpath.render_vol_counted(
+        scene, plume, VOL_W, VOL_H, VOL_SPP, 7, vcfg))
+    return dict(compare=vol_r, launches=launch_v, profile=prof_v)
+
+
 def _timed(fn):
     """Host wall in seconds of one call of `fn`, ending in a synchronize,
     and its result."""
@@ -1492,7 +1633,11 @@ def main():
           f"{dt_vcm:.4f} s, mean {float(img_vcm.mean()):.6f}; launches {json.dumps(launch_vcm)}; "
           f"the same pass with max_gather {VCM_OPEN_CAP} (not gated): mean "
           f"{float(img_vcm_k.mean()):.6f}")
-    print(f"[wall] chip_smoke.py phases 1-17: {time.perf_counter() - t_start:.1f} s after the "
+
+    # ---- 18. bench config 4: the heterogeneous volume ----
+    vol = _volume_phase(scene, smi, reset_counts)
+    vol_r, launch_v, prof_v = vol["compare"], vol["launches"], vol["profile"]
+    print(f"[wall] chip_smoke.py phases 1-18: {time.perf_counter() - t_start:.1f} s after the "
           f"imports")
 
     print(json.dumps({"kernels": [
@@ -1502,7 +1647,8 @@ def main():
             "source": "cudatracerlib_tpu_torch/csrc/intersect_dense.cu",
             "replaces": "cudatracerlib_tpu/ops/intersect_pallas.py:89",
             "launches": launches["closest"] + launches["any_hit"],
-            "max_abs_err": max(dense_err, *(r["err"] for r in bdpt_r.values())),
+            "max_abs_err": max(dense_err, *(r["err"] for r in (*bdpt_r.values(),
+                                                                 *vol_r.values()))),
             "ms": cam["ms"],
             "plain_ms": cam["plain_ms"],
             "bound_ms": cam["bound"][0],
@@ -1521,6 +1667,12 @@ def main():
             **{f"bdpt_{k.split()[1]}_{f}": (r[v][0] if v == "bound" else r[v])
                for k, r in bdpt_r.items()
                for f, v in (("ms", "ms"), ("plain_ms", "plain_ms"), ("bound_ms", "bound"))},
+            "volume_launches": launch_v["closest"] + launch_v["any_hit"],
+            "volume_max_abs_err": max(r["err"] for r in vol_r.values()),
+            **{f"volume_{k.split()[1].split('-')[0]}_{f}": (r[v][0] if v == "bound" else r[v])
+               for k, r in vol_r.items()
+               for f, v in (("ms", "ms"), ("plain_ms", "plain_ms"), ("bound_ms", "bound"))},
+            "volume_idle": prof_v["idle"],
         },
         {
             "name": "intersect_bvh",

@@ -3,7 +3,8 @@ way.
 
 The JAX Scene's leaves, flattened to numpy by field path ("bvh.woop",
 "lights.tri_cdf", "camera.to_world", ...), become the port's Scene with the
-same arrays, so both packages can compute on identical scene data.
+same arrays, so both packages can compute on identical scene data;
+`media_from_numpy` does the same for a JAX Media's arrays.
 `flatten` does that flattening for any NamedTuple tree whose leaves numpy
 can read: the JAX Scene, a JAX gradient pytree (`jax.grad` of a function of
 the Scene, whose leaves are the gradients), or a port Scene for the way
@@ -17,6 +18,7 @@ import numpy as np
 import torch
 
 from .accel.bvh import BVH, chunk_boxes_from_woop
+from .scene import media as media_mod
 from .scene.lights import Lights
 from .scene.scene import Materials, Scene, ShadingData
 from .scene.sensors import Camera
@@ -78,6 +80,13 @@ def scene_from_numpy(arrays: dict[str, np.ndarray], device="cuda") -> Scene:
         spec=None,
         **groups,
     )
+
+
+def media_from_numpy(arrays: dict[str, np.ndarray], device="cuda") -> media_mod.Media:
+    """A port Media on `device` (the card unless the caller asks for the
+    CPU) from a JAX Media's arrays flattened by field name (`flatten`); its
+    `modes` are rebuilt from the arrays."""
+    return media_mod.from_arrays(arrays, device)
 
 
 def get_field(tree, path: str):

@@ -53,3 +53,11 @@ class BSDFSample(NamedTuple):
     pdf: torch.Tensor           # (...,)
     sampled_type: torch.Tensor  # lobe flags (...,) int32
     eta: torch.Tensor           # relative IOR change along the sampled path
+
+
+class PhaseSample(NamedTuple):
+    """Result of sampling a phase function (scene/phase.py)."""
+
+    wi: torch.Tensor      # sampled direction, world space (..., 3)
+    weight: torch.Tensor  # phase / pdf (...,); phases are achromatic
+    pdf: torch.Tensor     # (...,)

@@ -67,3 +67,14 @@ class Sampler(NamedTuple):
             dim=-1,
         )
         return Sampler(state=s2), u
+
+    def skip(self, n) -> "Sampler":
+        """The sampler `n` draws on (n an int or an int tensor)."""
+        return Sampler(state=(self.state + n * _GOLDEN) & MASK)
+
+
+def draws_between(state_before, state_after) -> int:
+    """How many draws lead from one lane's state to another (ints or 0-dim
+    tensors): the Weyl step inverted modulo 2^32."""
+    step = (int(state_after) - int(state_before)) & MASK
+    return step * pow(_GOLDEN, -1, MASK + 1) & MASK

@@ -18,6 +18,7 @@ Tolerances:
     means of BDPT within 0.12 and of VCM within 0.15 (relative L1) of the
     path tracer's, the JAX package's bounds.
 """
+import _torch_threads  # noqa: F401  (caps torch's CPU threads under xdist)
 import numpy as np
 import pytest
 import torch

@@ -12,6 +12,7 @@ Tolerances:
 The JAX package caches the built scene in npz files: the tests point its
 cache at a temporary directory.
 """
+import _torch_threads  # noqa: F401  (caps torch's CPU threads under xdist)
 import inspect
 
 import numpy as np

@@ -17,8 +17,10 @@ per-pair weights are bit-equal, the sums run in another order; two
 launches are bit-equal.
 The BVH kernel's t, u, v are bit-equal to its oracle's on every ray whose
 two hits name the same Woop row content.
-Renders on the card: mean within 1% of the CPU render, rays within 0.1%.
+Renders on the card: mean within 1% of the CPU render, rays within 0.1%;
+the volume render within 7.5% and 1% (its test says why).
 """
+import _torch_threads  # noqa: F401  (caps torch's CPU threads under xdist)
 import numpy as np
 import pytest
 import torch
@@ -557,3 +559,32 @@ def test_bidirectional_engines_on_card_match_cpu(dev):
         assert abs(float(img.mean()) - float(ref.mean())) <= 1e-2 * float(ref.mean()), name
         if rays is not None:
             assert abs(int(rays) - int(ref_rays)) <= 1e-3 * int(ref_rays)
+
+
+def test_volume_render_on_card_matches_cpu(dev):
+    """Bench config 4's plume in the Cornell box at 64x64, 4 spp, depth 6,
+    seed 3 on the card against the CPU port: the media build on the card,
+    both kinds of `intersect_dense` launch, and the image mean is within
+    7.5% of the CPU's, the rays within 1%. The card's transcendentals round
+    otherwise, and a tracking decision one ulp flips on the slowest lane
+    moves every later draw (scene/media.py), so the card's render may be
+    another sample of the estimator: the gate is three times the mean's
+    spread over seeds 3-5 (2.5%, tools/volume_reference_mean.py), as
+    chip_smoke.py's phase 18 gates it."""
+    from cudatracerlib_tpu_torch.render import volpath
+    from cudatracerlib_tpu_torch.scene import media
+
+    runs = []
+    for device in ("cpu", "cuda"):
+        scene = cornell_box(device=device)
+        plume = media.Media.build(media.plume_records(scene.bvh.world_min, scene.bvh.world_max),
+                                  device=device)
+        before = dict(ops.launches)
+        runs.append(volpath.render_vol_counted(scene, plume, 64, 64, 4, 3,
+                                               pt.PTConfig(max_depth=6)))
+    (ref, ref_rays), (img, rays) = runs
+    torch.cuda.synchronize()
+    assert ops.launches["closest"] > before["closest"] and ops.launches["any_hit"] > before["any_hit"]
+    assert img.device.type == "cuda" and bool(torch.isfinite(img).all())
+    assert abs(float(img.mean()) - float(ref.mean())) <= 0.075 * float(ref.mean())
+    assert abs(int(rays) - int(ref_rays)) <= 1e-2 * int(ref_rays)

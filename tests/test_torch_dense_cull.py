@@ -15,6 +15,7 @@ test_torch_cuda.py).
   chunks whose box test passes at the final t, as the dense bound charges.
 Inputs are made with numpy from fixed seeds.
 """
+import _torch_threads  # noqa: F401  (caps torch's CPU threads under xdist)
 from types import SimpleNamespace
 
 import jax.numpy as jnp

@@ -17,6 +17,7 @@ Tolerances:
     since a missed lane reads triangle 0's material from the pack and
     material 0 from the gathers, as in the JAX package.
 """
+import _torch_threads  # noqa: F401  (caps torch's CPU threads under xdist)
 import jax.numpy as jnp
 import numpy as np
 import pytest

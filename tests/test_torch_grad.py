@@ -21,6 +21,7 @@ their fields from it. Tolerances, stated once:
     rows exactly at a clip bound (0 or 1), where `jnp.clip` gives half the
     gradient (a tie splits 0.5 / 0.5) and `torch.clamp` all of it.
 """
+import _torch_threads  # noqa: F401  (caps torch's CPU threads under xdist)
 import jax
 import jax.numpy as jnp
 import numpy as np

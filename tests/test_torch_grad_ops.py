@@ -17,6 +17,7 @@ Tolerances, stated once:
     (the JAX pack recomputes t / u / v from the Woop columns, the port keeps
     the intersector's, so the derivatives are taken a few ulps apart).
 """
+import _torch_threads  # noqa: F401  (caps torch's CPU threads under xdist)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -1,5 +1,6 @@
 """The port imports without JAX, and building its scenes leaves the JAX
 package's native library alone."""
+import _torch_threads  # noqa: F401  (caps torch's CPU threads under xdist)
 import ast
 import os
 import re
@@ -34,12 +35,15 @@ MODULES = [
     "cudatracerlib_tpu_torch.render.path_tracer",
     "cudatracerlib_tpu_torch.render.ppm",
     "cudatracerlib_tpu_torch.render.vcm",
+    "cudatracerlib_tpu_torch.render.volpath",
     "cudatracerlib_tpu_torch.render.wavefront",
     "cudatracerlib_tpu_torch.sampling.records",
     "cudatracerlib_tpu_torch.sampling.rng",
     "cudatracerlib_tpu_torch.scene.bigscene",
     "cudatracerlib_tpu_torch.scene.bsdf",
     "cudatracerlib_tpu_torch.scene.lights",
+    "cudatracerlib_tpu_torch.scene.media",
+    "cudatracerlib_tpu_torch.scene.phase",
     "cudatracerlib_tpu_torch.scene.scene",
     "cudatracerlib_tpu_torch.scene.sensors",
     "cudatracerlib_tpu_torch.scene.shade_pack",

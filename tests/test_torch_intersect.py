@@ -10,6 +10,7 @@ kernel evaluates u, v in another order than `intersect_woop`, hence not
 bit-exact; misses are compared only through `valid`, since the dense path
 clamps t_max to 1e30 where the brute force keeps inf.
 """
+import _torch_threads  # noqa: F401  (caps torch's CPU threads under xdist)
 import jax.numpy as jnp
 import numpy as np
 import pytest

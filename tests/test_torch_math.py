@@ -1,6 +1,7 @@
 """Closed-form parity of the port's math and sampling helpers with the JAX
 package: vecmath, frames, warps, Monte-Carlo helpers. Inputs come from numpy
 seeds; tolerances are float32 rounding (1e-6 absolute on unit-scale values)."""
+import _torch_threads  # noqa: F401  (caps torch's CPU threads under xdist)
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -13,6 +13,7 @@ reaches), and a boundary case with photons at exactly the radius from
 queries and on the faces of the warps' boxes, an all-invalid warp, and a
 query count that is no multiple of 32.
 """
+import _torch_threads  # noqa: F401  (caps torch's CPU threads under xdist)
 import numpy as np
 import pytest
 import torch

@@ -13,6 +13,7 @@ Inputs are made with numpy from seeds. Tolerances:
     splits flux and weights into bf16 hi/lo pairs and expands d^2 as
     |p|^2 + |q|^2 - 2 p.q (2.9e-5 measured on a cloud of this size).
 """
+import _torch_threads  # noqa: F401  (caps torch's CPU threads under xdist)
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -21,6 +21,7 @@ Tolerances:
       relative (9.7e-4 and 2.1e-5 measured): the TPU kernel's bf16 hi/lo
       split and its expanded d^2.
 """
+import _torch_threads  # noqa: F401  (caps torch's CPU threads under xdist)
 import inspect
 
 import jax

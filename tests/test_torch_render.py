@@ -11,6 +11,7 @@ Tolerances, stated once:
     float32 rounding difference), and the image means within 0.5%;
   * ray counts within 0.1%.
 """
+import _torch_threads  # noqa: F401  (caps torch's CPU threads under xdist)
 import jax.numpy as jnp
 import numpy as np
 import pytest

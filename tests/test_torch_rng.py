@@ -1,5 +1,6 @@
 """RNG parity: the PyTorch port's counter-based PCG streams against the JAX
 package's, bit for bit (inputs made with numpy from a seed)."""
+import _torch_threads  # noqa: F401  (caps torch's CPU threads under xdist)
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -62,3 +63,16 @@ def test_sampler_streams_bit_exact(seed):
         np.testing.assert_array_equal(tu.numpy().view(np.int32),
                                       np.asarray(ju).view(np.int32))
         np.testing.assert_array_equal(_np_u32(ts.state), np.asarray(js.state))
+
+
+@pytest.mark.parametrize("n", [0, 1, 7, 513])
+def test_skip_and_draws_between_invert_the_stream(n):
+    """`skip(n)` lands where n draws do (a tensor n per lane too), and
+    `draws_between` gives n back: the volume tracker's trip count T."""
+    s0 = trng.Sampler(state=_t(_words(64, 9)))
+    s = s0
+    for _ in range(n):
+        s, _ = s.next_1d()
+    assert torch.equal(s0.skip(n).state, s.state)
+    assert torch.equal(s0.skip(torch.tensor(n)).state, s.state)
+    assert all(trng.draws_between(a, b) == n for a, b in zip(s0.state[:4], s.state[:4]))

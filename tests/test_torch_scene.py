@@ -1,6 +1,7 @@
 """Scene parity: the port's `cornell_box()` against the JAX package's, array
 by array (exactly equal), the `scene_from_numpy` round trip, camera rays
 lane by lane (within 1e-6) and first hits (prim ids equal on every lane)."""
+import _torch_threads  # noqa: F401  (caps torch's CPU threads under xdist)
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -17,6 +17,7 @@ Tolerances:
   * environment tables array-equal (the same numpy construction);
     environment sampling and pdfs rtol 1e-5.
 """
+import _torch_threads  # noqa: F401  (caps torch's CPU threads under xdist)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -9,6 +9,7 @@ streams, so they trace the same paths up to float32 rounding. Tolerances:
     other side after a rounding difference, and the sun of radiance 120
     makes such a path visible), and the image means within 0.5%.
 """
+import _torch_threads  # noqa: F401  (caps torch's CPU threads under xdist)
 import numpy as np
 import pytest
 import torch
