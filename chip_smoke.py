@@ -160,7 +160,53 @@ It imports nothing of JAX. Phases, each of which raises on failure:
      timed), rays counted at seed 3 (with_stats), timed at seed 7 with
      Mrays/s, the launch counts reset just before it and read just after
      (both kinds of `intersect_dense`), the first pass's trip counts
-     printed, one pass profiled as in 10.
+     printed, one pass profiled as in 10;
+  19. bench config 4's transmittance gradients: (a) the card's gradients of
+     three pinned cases against the JAX package's CPU values in
+     tools/volume_grad_reference.npz (TestVolumetric's sigma_a slab and 6^3
+     voxel grid in the furnace, 16x16, 4 spp, depth 3; the plume in the
+     Cornell box at 64x64, 4 spp, depth 6, seed 3, with respect to
+     grid_data, sigma_a and sigma_s): each entry within 1e-3 relative plus
+     1e-3 of the field's largest, the loss within 1e-4, with the tracking
+     trips printed beside JAX's; where the trips differ the render is
+     another sample of the estimator and the gate is JAX's own FD against
+     AD (the sign, 50%; along the grid's gradient for the grids, as
+     JAX's grid test); remat on against off on the plume (the loss equal,
+     gradients within 1e-4 of the largest entry). (b) the gradient of
+     mean(render_vol) at bench config 4 (256x256, 8 spp, depth 6, seed 7)
+     with respect to grid_data, sigma_a and sigma_s: forward and
+     forward+backward walls (medians of 5 alternating pairs, with min, max
+     and their ratio), rays, peak memory with remat on and off, the launch
+     counts over one forward+backward (reset just before, read just after:
+     both kinds of intersect_dense and the three gather-backward kernels),
+     intersect_dense's arguments in it held against the plain version as in
+     3, the profiler's idle share and top kernels, and the directional FD
+     along grid_data's gradient against its norm, printed beside JAX's 50%
+     and not gated (with the noise held the forward moves with the grid
+     only where a tracking decision flips: the weights' values cancel their
+     detached pdfs, so the FD sees the flips, the AD the integrand). (c) the gather
+     backward at the grid shape, on the (g, idx) of the first transmittance
+     lookup that pass's backward sums (B x 32 steps x 8 corners onto the
+     32,769 grid rows): two launches bit-equal, unhit rows 0, each row within
+     1e-5 of its sum of |g| from the float64 plain version; then phase 11's
+     checks at those indices, the times beside the plain version and
+     index_add_, the scratch and its row-mask share; the same at a
+     per-volume table's shape (sigma_a[vid], captured in a gradient of
+     per-channel grids, 64x64, 4 spp);
+  20. SPPM: pinned runs (render_sppm_pass at 64x64 on the Cornell box and
+     the caustic scene, 4 passes of 2^15 photons, within 0.1% of the JAX
+     package's CPU means; the plume with VOL_BEAMBEAM and VOL_POINT, 2
+     passes of 2^13 photons, within three times the mean's spread over
+     seeds 3-5, the first photon bounce's tracking trips beside JAX's),
+     then at full size, warm at seed 0 (intersect_dense's and
+     packed_gather's arguments captured and held against their plain
+     versions as in 3 and 6) and timed at seed 7 with the launch counts
+     reset just before and read just after: the caustic scene at 128x128,
+     `SPPMConfig()` (2^17 photons, max_gather 128), 4 passes (both kinds of
+     intersect_dense and packed_gather), and the plume at 256x256 with
+     VOL_BEAMBEAM, 2 passes; pass time, photons and pixels a second, the
+     profiler's idle share of one pass.
+Each phase's seconds are printed as it ends.
 
 Before its last line it prints one JSON object describing each kernel; the
 last line is {"ok": true, "device": {...}}. Without a CUDA device, or without
@@ -246,6 +292,36 @@ VOL_TOL = 0.075
 VOL_RAYS_TOL = 0.01
 VOL_W = VOL_H = 256        # bench config 4 (bench.py:244-286): 256^2, 8 spp, depth 6, 3 passes
 VOL_SPP, VOL_DEPTH, VOL_PASSES = 8, 6, 3
+# Bench config 4's transmittance gradients, the JAX package on the CPU: `JAX_PLATFORMS=cpu python
+# tools/volume_grad_reference.py` writes them to VGRAD_REF, which phase 19 reads: d mean(render_vol)
+# of TestVolumetric's sigma_a slab and 6^3 voxel grid (furnace, 16x16, 4 spp, seed 0, depth 3, no
+# roulette) and of the plume in the Cornell box (64x64, 4 spp, seed 3, depth 6) with respect to
+# grid_data, sigma_a and sigma_s, each with its tracking trips by bounce. The CPU port equals them
+# within 1.1e-5 of each field's largest entry, with the same trips (`--port`). Where the card's
+# trips equal JAX's the gate is phase 12's; where they differ the render is another sample of the
+# estimator and the gate is JAX's own FD-vs-AD one (tests/test_engines.py:148-152, :213-220).
+VGRAD_REF = os.path.join("tools", "volume_grad_reference.npz")
+VGRAD_PATHS = ["grid_data", "sigma_a", "sigma_s"]
+VGRAD_FD_TOL = 0.5
+VGRAD_PAIRS = 5            # phase 19: alternating forward / forward+backward walls
+VGRAD_SEED = 7
+# SPPM's pinned runs, the JAX package on the CPU (`JAX_PLATFORMS=cpu python
+# tools/sppm_reference_mean.py`): the image mean after `passes` passes of render_sppm_pass at
+# 64x64 with seeds 0, 1, ... on one state. The CPU port (`--port`) gives the surface means within
+# 2.8e-6, VOL_POINT's equal and VOL_BEAMBEAM's 4.7e-4 apart (21 of its 420,016 beam sample points
+# lie in another grid cell after ulps of the photon walk, which moves the subsampled queries
+# there), with the same first-bounce trips. Surface runs within 0.1%; the volume runs within three
+# times their mean's spread over runs started at seeds 3-5 (a tracking decision an ulp flips on
+# the card re-draws every lane, as in phase 18).
+# name: (scene, vol estimator, photons, passes, JAX's mean, tolerance, JAX's first-bounce trips)
+SPPM_PINS = {
+    "cornell": ("cornell", 0, 1 << 15, 4, 0.127222791, 1e-3, None),
+    "caustic": ("caustic", 0, 1 << 15, 4, 0.310399890, 1e-3, None),
+    "beambeam": ("cornell", 3, 1 << 13, 2, 0.121620677, 3 * 0.047088, 10),
+    "point": ("cornell", 1, 1 << 13, 2, 0.122724421, 3 * 0.048505, 10),
+}
+SPPM_PIN_SIZE = 64
+SPPM_CAUSTIC_PASSES, SPPM_VOL_PASSES = 4, 2   # phase 20 at full size (bench config 5's scene)
 PPM_W = PPM_H = 128        # bench config 5 (bench.py:289-340)
 PPM_SPP, PPM_PASS = 4, 1
 DENSITY_RTOL, DENSITY_ATOL = 1e-4, 1e-6
@@ -734,8 +810,10 @@ def _check_gather_bwd(label, idx, n_rows, cols, dev):
              f"packed_gather_bwd {label}: not bit-equal to the emulation of its order")
     counts = torch.bincount(torch.clamp(idx, 0, n_rows - 1).long(), minlength=n_rows)
     T = sg_ops.BWD_TILE
-    rows_in_tiles = sum(int(torch.unique(torch.clamp(idx[t:t + T], 0, n_rows - 1)).numel())
-                        for t in range(0, n, T))
+    tile_of = torch.arange(n, device=dev) // T
+    rows_in_tiles = int(torch.unique(tile_of * n_rows
+                                     + torch.clamp(idx, 0, n_rows - 1).long()).numel())
+    del tile_of
     print(f"[kernel vs plain] packed_gather_bwd {label}: {n} lanes x {cols} onto {n_rows} rows "
           f"({int((counts > 0).sum())} hit, the most hit {int(counts.max())} lanes), tiles of "
           f"{T} lanes hold {rows_in_tiles} (tile, row) partials ({rows_in_tiles * cols * 4} bytes), "
@@ -1138,6 +1216,424 @@ def _volume_phase(scene, smi, reset_counts):
     return dict(compare=vol_r, launches=launch_v, profile=prof_v)
 
 
+def _vgrad_cases():
+    """Phase 19's pinned cases on the card: name: (scene, media records,
+    fields, (width, height, spp, seed, max_depth, rr_start)), as
+    tools/volume_grad_reference.py builds them."""
+    import numpy as np
+    from cudatracerlib_tpu_torch.scene import media as media_mod
+    from cudatracerlib_tpu_torch.scene.shapes import cornell_box, furnace_scene
+
+    slab_box = dict(box_min=[-2, -3, -2], box_max=[2, -1.5, 2])
+    dens = (0.5 + 0.5 * np.random.default_rng(3).random((6, 6, 6))).astype(np.float32)
+    furnace, box = furnace_scene(albedo=0.7), cornell_box()
+    return {
+        "slab": (furnace, [dict(type=media_mod.HOMOGENEOUS, sigma_a=[0.3] * 3, sigma_s=[0.1] * 3,
+                                **slab_box)], ["sigma_a"], (16, 16, 4, 0, 3, 99)),
+        "grid6": (furnace, [dict(type=media_mod.GRID, sigma_a=[0.4] * 3, sigma_s=[0.0] * 3,
+                                 density=dens, **slab_box)], ["grid_data"], (16, 16, 4, 0, 3, 99)),
+        "plume": (box, media_mod.plume_records(box.bvh.world_min, box.bvh.world_max), VGRAD_PATHS,
+                  (64, 64, 4, 3, 6, 5)),
+    }
+
+
+def _vol_loss_and_grads(scene, media, paths, width, height, spp, seed, cfg):
+    """mean(render_vol) and its gradient with respect to the media fields `paths`."""
+    from cudatracerlib_tpu_torch.convert import grads, with_grad
+    from cudatracerlib_tpu_torch.render import volpath
+
+    m = with_grad(media, paths)
+    loss = volpath.render_vol(scene, m, width, height, spp, seed, cfg).mean()
+    loss.backward()
+    return float(loss.detach()), grads(m, paths)
+
+
+def _vol_fd(scene, media, g, width, height, spp, seed, cfg, h, entry=None):
+    """Central differences of mean(render_vol) against AD: along one entry
+    (path, index) of the gradient `g`, or, as the JAX package's grid test
+    does, along the unit direction of g's `grid_data` part, whose
+    directional derivative is that part's norm. Returns (fd, ad)."""
+    import numpy as np
+    import torch
+    from cudatracerlib_tpu_torch.convert import get_field, set_field
+    from cudatracerlib_tpu_torch.render import volpath
+
+    if entry is None:
+        norm = float(np.linalg.norm(g["grid_data"].astype(np.float64)))
+        step, ad = {"grid_data": g["grid_data"] / norm}, norm
+    else:
+        path, i = entry
+        e = np.zeros_like(g[path])
+        e.flat[i] = 1.0
+        step, ad = {path: e}, float(g[path].flat[i])
+    out = []
+    for sign in (1.0, -1.0):
+        m = media
+        for path, e in step.items():
+            base = get_field(media, path)
+            m = set_field(m, path, base + sign * h * torch.from_numpy(e).to(base.device))
+        with torch.no_grad():
+            out.append(float(volpath.render_vol(scene, m, width, height, spp, seed, cfg).mean()))
+    return (out[0] - out[1]) / (2 * h), ad
+
+
+def _vgrad_gates():
+    """Phase 19 (a): the card's gradients of the three pinned cases against
+    the JAX package's CPU values (or JAX's FD-vs-AD gate where the trips
+    differ), and remat on against off on the plume."""
+    import numpy as np
+    from cudatracerlib_tpu_torch.render import path_tracer as pt
+    from cudatracerlib_tpu_torch.scene import media as media_mod
+
+    ref = np.load(VGRAD_REF)
+    out = {}
+    for name, (scene, records, paths, (w, h, spp, seed, depth, rr)) in _vgrad_cases().items():
+        media = media_mod.Media.build(records)
+        cfg = pt.PTConfig(max_depth=depth, rr_start=rr)
+        loss, g = _vol_loss_and_grads(scene, media, paths, w, h, spp, seed, cfg)
+        trips = _vol_trips(scene, media, cfg, w, h, spp, seed)
+        ref_trips = [int(x) for x in ref[f"{name}/trips"]]
+        ref_loss = float(ref[f"{name}/loss"])
+        worst = max(float(np.abs(g[p] - ref[f"{name}/{p}"]).max() / np.abs(ref[f"{name}/{p}"]).max())
+                    for p in paths)
+        if trips == ref_trips:
+            for p in paths:
+                r = ref[f"{name}/{p}"]
+                err = np.abs(g[p] - r)
+                _require(bool((err <= REF_GRAD_RTOL * (np.abs(r) + np.abs(r).max())).all()),
+                         f"volume gradient {name} d/d{p}: the largest difference from JAX's is "
+                         f"{float(err.max())} (largest entry {float(np.abs(r).max())})")
+            _require(abs(loss - ref_loss) <= REF_LOSS_RTOL * abs(ref_loss),
+                     f"volume gradient {name}: loss {loss} against JAX's {ref_loss}")
+            gate = (f"pinned: every entry within {REF_GRAD_RTOL} relative + {REF_GRAD_RTOL} of the "
+                    f"largest, loss within {REF_LOSS_RTOL}")
+        else:
+            # another sample of the estimator: JAX's own FD-vs-AD gate
+            if name == "slab":
+                fd, ad = _vol_fd(scene, media, g, w, h, spp, seed, cfg, 1e-2, ("sigma_a", 0))
+                ok = fd < 0 and ad < 0 and abs(fd - ad) < VGRAD_FD_TOL * abs(fd)
+            else:
+                fd, ad = _vol_fd(scene, media, g, w, h, spp, seed, cfg, 5e-2)
+                ok = fd > 0 and abs(fd - ad) < VGRAD_FD_TOL * abs(fd)
+            _require(ok, f"volume gradient {name}: trips {trips} differ from JAX's {ref_trips}, "
+                         f"and FD {fd} vs AD {ad} fails JAX's {VGRAD_FD_TOL:.0%} gate")
+            gate = f"trips differ: FD {fd:.6g} vs AD {ad:.6g} within JAX's {VGRAD_FD_TOL:.0%}"
+        print(f"[vol grad] {name} {w}x{h} spp {spp} seed {seed} depth {depth} d/d{paths}: loss "
+              f"{loss:.9g} (JAX {ref_loss:.9g}), tracking trips by bounce {trips} (JAX's CPU "
+              f"{ref_trips}: {'matched' if trips == ref_trips else 'differ'}), largest difference "
+              f"from JAX's {worst:.3g} of the field's largest entry; gate: {gate}")
+        out[name] = dict(loss=loss, trips=trips, matched=trips == ref_trips, worst=worst)
+        if name == "plume":
+            loss_r, g_r = _vol_loss_and_grads(scene, media, paths, w, h, spp, seed,
+                                              cfg._replace(remat=True))
+            gap = max(float(np.abs(g_r[k] - g[k]).max() / np.abs(g[k]).max()) for k in paths)
+            _require(abs(loss_r - loss) <= 1e-7 * abs(loss) and gap <= REMAT_TOL,
+                     f"volume remat changes the loss ({loss_r} vs {loss}) or the gradients ({gap})")
+            print(f"[vol grad] plume remat on vs off: loss {loss_r:.9g} vs {loss:.9g} "
+                  f"({'bit-equal' if loss_r == loss else 'differs'}), gradients within {gap:.3g} "
+                  f"of the largest entry")
+    return out
+
+
+def _capture_bwd(fn, want):
+    """packed_gather_bwd's (g, idx, n_rows) of the first call in one call of
+    `fn` for which want(g, idx, n_rows) holds (clones), and fn's result."""
+    from cudatracerlib_tpu_torch.ops import shade_gather as sg_ops
+
+    seen, real = [], sg_ops.packed_gather_bwd
+
+    def record(g, idx, n_rows):
+        if not seen and want(g, idx, n_rows):
+            seen.append((g.clone(), idx.clone(), n_rows))
+        return real(g, idx, n_rows)
+
+    sg_ops.packed_gather_bwd = record
+    try:
+        out = fn()
+    finally:
+        sg_ops.packed_gather_bwd = real
+    _require(bool(seen), "no packed_gather_bwd call of the wanted shape was made")
+    return seen[0], out
+
+
+def _check_bwd_captured(label, g, idx, n_rows, dev):
+    """The gather backward on a captured (g, idx): two launches bit-equal,
+    rows no lane hit 0, and each row within 1e-5 of its sum of |g| from the
+    float64 plain version (a captured cotangent has both signs, so a row's
+    sum may cancel: Σ|g| is the scale its float32 rounding errs on). Then
+    phase 11's checks and times at the captured indices (a seeded uniform
+    cotangent, within 1e-5 relative), the scratch and its row-mask share."""
+    import torch
+    from cudatracerlib_tpu_torch.ops import shade_gather as sg_ops
+
+    n, cols = g.shape
+    k1 = sg_ops.packed_gather_bwd(g, idx, n_rows)
+    k2 = sg_ops.packed_gather_bwd(g, idx, n_rows)
+    plain = sg_ops.packed_gather_bwd_plain(g, idx, n_rows)
+    scale = sg_ops.packed_gather_bwd_plain(g.abs(), idx, n_rows)
+    torch.cuda.synchronize()
+    _require(torch.equal(k1, k2), f"packed_gather_bwd {label}: two launches differ")
+    hit = torch.bincount(torch.clamp(idx, 0, n_rows - 1).long(), minlength=n_rows) > 0
+    _require(bool((k1[~hit] == 0).all()), f"packed_gather_bwd {label}: an unhit row is not 0")
+    live = scale > 0
+    rel = float(((k1 - plain).abs()[live] / scale[live]).max()) if bool(live.any()) else 0.0
+    _require(rel <= BWD_RTOL, f"packed_gather_bwd {label}: {rel} of a row's sum of |g| > {BWD_RTOL}")
+    print(f"[kernel vs plain] packed_gather_bwd {label}, captured cotangent: {n} lanes x {cols} "
+          f"onto {n_rows} rows ({int(hit.sum())} hit), max error {rel:.3g} of the row's sum of "
+          f"|g|, max abs err {float((k1 - plain).abs().max()):.3g}, two launches bit-equal")
+    del k1, k2, plain, scale
+    r = _check_gather_bwd(label, idx, n_rows, cols, dev)
+    n_tiles, n_words = -(-n // sg_ops.BWD_TILE), -(-n_rows // 32)
+    scratch = sg_ops.bwd_scratch_floats(cols, n, n_rows) * 4
+    masks = 2 * n_tiles * n_words * 4
+    print(f"[scratch] packed_gather_bwd {label}: {scratch} bytes, of which the tiles' row masks "
+          f"{masks} ({100 * masks / scratch:.1f}%); g and idx {n * cols * 4 + n * 4} bytes")
+    return dict(r, captured_rel=rel, scratch=scratch, masks=masks, lanes=n, rows=n_rows)
+
+
+def _volume_grad_phase(scene, smi, reset_counts):
+    """Phase 19 (module docstring) on the Cornell box `scene`: the gates,
+    the bench-config-4 gradient pass and the gather backward at its shapes."""
+    import numpy as np
+    import torch
+    from cudatracerlib_tpu_torch.ops import intersect_dense as ops
+    from cudatracerlib_tpu_torch.ops import shade_gather as sg_ops
+    from cudatracerlib_tpu_torch.render import path_tracer as pt
+    from cudatracerlib_tpu_torch.render import volpath
+    from cudatracerlib_tpu_torch.scene import media as media_mod
+    from cudatracerlib_tpu_torch.scene.shapes import furnace_scene
+
+    gates = _vgrad_gates()
+    plume = media_mod.Media.build(media_mod.plume_records(scene.bvh.world_min,
+                                                          scene.bvh.world_max))
+    cfg = pt.PTConfig(max_depth=VOL_DEPTH)
+    args = (VOL_W, VOL_H, VOL_SPP, VGRAD_SEED)
+    n_grid = plume.grid_data.shape[0]
+
+    def fwd():
+        with torch.no_grad():
+            return volpath.render_vol(scene, plume, *args, cfg)
+
+    def fwd_bwd(remat=False):
+        return _vol_loss_and_grads(scene, plume, VGRAD_PATHS, *args, cfg._replace(remat=remat))
+
+    _, rays = volpath.render_vol_counted(scene, plume, *args, cfg)
+    mem = {}
+    for remat in (True, False):
+        fwd_bwd(remat)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        fwd_bwd(remat)
+        torch.cuda.synchronize()
+        mem[remat] = (torch.cuda.max_memory_allocated() - base) / 1e9
+    fwd_walls, fb_walls = _paired_walls_ms(fwd, fwd_bwd, VGRAD_PAIRS)
+    ratios = [b / a for a, b in zip(fwd_walls, fb_walls)]
+    fwd_ms, fb_ms, ratio = _median(fwd_walls), _median(fb_walls), _median(ratios)
+
+    # one forward+backward with the launches counted; intersect_dense's arguments and the
+    # first transmittance lookup's backward (the last bounce's shadow-ray Tr, the first the
+    # backward runs: B x TAU_STEPS x 8 corner lanes onto the grid) captured
+    lanes = VOL_W * VOL_H * VOL_SPP * media_mod.TAU_STEPS * 8
+    torch.cuda.synchronize()
+    reset_counts()
+    captured = {}
+
+    def counted():
+        captured["grid"], captured["result"] = _capture_bwd(
+            fwd_bwd, lambda g, i, r: r == n_grid and g.shape == (lanes, 1))
+
+    dense_args = _capture_volume(counted)
+    loss, g = captured.pop("result")
+    torch.cuda.synchronize()
+    launches = {"intersect_dense": dict(ops.launches), "shade_gather": dict(sg_ops.launches)}
+    print(f"[vol grad pass] launches over one forward+backward: {json.dumps(launches)}")
+    lv = launches
+    _require(lv["intersect_dense"]["closest"] > 0 and lv["intersect_dense"]["any_hit"] > 0
+             and all(lv["shade_gather"][k] > 0 for k in ("gather_bwd_tile", "gather_bwd_range",
+                                                          "gather_bwd_final")),
+             f"the volume gradient pass did not launch its kernels: {lv}")
+    for k, v in g.items():
+        _require(bool(np.isfinite(v).all()) and np.abs(v).max() > 0,
+                 f"the volume gradient of {k} is not finite or is all zero")
+    prof = _profile("volume gradient pass forward+backward", fwd_bwd)
+    # reported, not gated: with the noise held, the weights' values cancel their detached pdfs,
+    # so the forward moves with the grid only where a tracking decision flips (PERF.md, PR 10)
+    fd, ad = _vol_fd(scene, plume, g, *args, cfg, 5e-2)
+    fd_ok = fd > 0 and abs(fd - ad) < VGRAD_FD_TOL * abs(fd)
+    print(f"[vol grad pass] {VOL_W}x{VOL_H} spp {VOL_SPP} depth {VOL_DEPTH} seed {VGRAD_SEED} "
+          f"d/d{VGRAD_PATHS}: loss {loss:.6g}, rays {int(rays)} (the forward's, as "
+          f"render_vol_counted counts), forward {fwd_ms:.3f} ms (min {min(fwd_walls):.3f}, max "
+          f"{max(fwd_walls):.3f}), forward+backward {fb_ms:.3f} ms (min {min(fb_walls):.3f}, max "
+          f"{max(fb_walls):.3f}), ratio {ratio:.3f} (min {min(ratios):.3f}, max {max(ratios):.3f}; "
+          f"medians of {VGRAD_PAIRS} alternating pairs); peak device memory above the scene: remat "
+          f"on {mem[True]:.3f} GB, off {mem[False]:.3f} GB; idle {prof['idle']:.3f} under the "
+          f"profiler; directional FD along grid_data's gradient {fd:.6g} against its norm {ad:.6g} "
+          f"({100 * abs(fd - ad) / max(abs(fd), 1e-30):.2f}% apart; within JAX's "
+          f"{VGRAD_FD_TOL:.0%}: {'yes' if fd_ok else 'no'}, not gated)")
+    dense_r = {f"vgrad {label.split(' ', 1)[1]}": _compare(f"vgrad {label.split(' ', 1)[1]}",
+                                                            c[0], c[1], c[2], c[3], c[4], 20, c[6])
+               for label, c in dense_args.items()}
+
+    # (c) the gather backward at the grid shape, then at a per-volume table's
+    g_cap, idx_cap, rows_cap = captured.pop("grid")
+    grid_r = _check_bwd_captured("grid", g_cap, idx_cap, rows_cap, scene.bvh.woop.device)
+    del g_cap, idx_cap
+    torch.cuda.empty_cache()
+    ga = np.zeros((8, 8, 8, 3), np.float32)
+    ga[..., 0], ga[..., 2] = 1.0, 0.2
+    gs = (0.5 * np.random.default_rng(5).random((8, 8, 8))).astype(np.float32)
+    gen = media_mod.Media.build([dict(type=media_mod.GRID, sigma_a=[0.8] * 3, sigma_s=[0.3] * 3,
+                                      sigma_a_grid=ga, sigma_s_grid=gs, box_min=[-2, -3, -2],
+                                      box_max=[2, -1.5, 2])])
+    furnace = furnace_scene(albedo=0.7)
+    (g_t, idx_t, rows_t), _ = _capture_bwd(
+        lambda: _vol_loss_and_grads(furnace, gen, VGRAD_PATHS, 64, 64, 4, 0,
+                                    pt.PTConfig(max_depth=3, rr_start=99)),
+        lambda g_, i, r: r == gen.sigma_a.shape[0] and g_.shape[1] == 3)
+    table_r = _check_bwd_captured("per-volume table", g_t, idx_t, rows_t, scene.bvh.woop.device)
+    return dict(gates=gates, loss=loss, rays=int(rays), fwd_ms=fwd_ms, fb_ms=fb_ms, ratio=ratio,
+                mem=mem, launches=launches, idle=prof["idle"], fd=fd, ad=ad, fd_ok=fd_ok,
+                dense=dense_r,
+                grid=grid_r, table=table_r)
+
+
+def _sppm_runs(scene, media, size, passes, seed0, cfg):
+    """`passes` SPPM passes on one fresh state, seeds seed0, seed0 + 1, ...:
+    (last image, state)."""
+    from cudatracerlib_tpu_torch.render import sppm
+
+    img, state = None, None
+    for i in range(passes):
+        img, state = sppm.render_sppm_pass(scene, size, size, seed0 + i, state, cfg, media=media)
+    return img, state
+
+
+def _sppm_first_trips(scene, media, n_photons, seed):
+    """The tracking trips of the photon walk's first bounce (lane 0's
+    sampler around sample_distance), as tools/sppm_reference_mean.py counts."""
+    import torch
+    from cudatracerlib_tpu_torch.render import path_tracer as pt
+    from cudatracerlib_tpu_torch.render import sppm
+    from cudatracerlib_tpu_torch.render.light_tracer import emit_particles
+    from cudatracerlib_tpu_torch.sampling.rng import Sampler, draws_between
+    from cudatracerlib_tpu_torch.scene import media as media_mod
+    from cudatracerlib_tpu_torch.scene import scene as scene_mod
+
+    with torch.no_grad():
+        cfg = pt.specialize_config(scene, sppm.SPPMConfig().base)
+        smp = Sampler.create(seed, torch.arange(n_photons, device=scene.light_cdf.device), 0xF00D)
+        o, d, _, _, _, smp = emit_particles(scene, n_photons, smp, cfg)
+        hit = scene_mod.scene_intersect(scene, o, d)
+        s = media_mod.sample_distance(media, o, d, cfg.ray_eps,
+                                      torch.where(hit.valid, hit.t, 1e8), smp)[0]
+    return (draws_between(smp.state[0], s.state[0]) - 1) // 2
+
+
+def _capture_sppm(fn):
+    """intersect_dense's and packed_gather's arguments in one call of `fn`
+    (SPPM passes): the first closest-hit launch (the photon walk's), the
+    first closest-hit launch with the eye batch's lane count, the first
+    any-hit launch, and the first gather."""
+    import torch
+    from cudatracerlib_tpu_torch.ops import intersect_dense as ops
+    from cudatracerlib_tpu_torch.ops import shade_gather as sg_ops
+
+    dense, gathers = [], []
+    real_dense, real_gather = ops.intersect_dense, sg_ops._gather
+
+    def capture_dense(woop, o, d, t_min=1e-4, t_max=ops.T_MAX_CLAMP, any_hit=False, boxes=None):
+        keep = lambda x: x.clone() if isinstance(x, torch.Tensor) else x  # noqa: E731
+        if len(dense) < 64:
+            dense.append((woop, keep(o), keep(d), keep(t_min), keep(t_max), any_hit, boxes))
+        return real_dense(woop, o, d, t_min, t_max, any_hit=any_hit, boxes=boxes)
+
+    def capture_gather(table, idx):
+        if not gathers:
+            gathers.append((table, idx.clone()))
+        return real_gather(table, idx)
+
+    ops.intersect_dense, sg_ops._gather = capture_dense, capture_gather
+    try:
+        fn()
+        torch.cuda.synchronize()
+    finally:
+        ops.intersect_dense, sg_ops._gather = real_dense, real_gather
+    closest = [c for c in dense if not c[5]]
+    photon = closest[0]
+    eye = next(c for c in closest if c[1].shape[0] != photon[1].shape[0])
+    shadow = next(c for c in dense if c[5])
+    return {"photon rays": photon, "eye rays": eye, "shadow rays": shadow}, gathers
+
+
+def _sppm_phase(cornell, caustic, smi, reset_counts):
+    """Phase 20 (module docstring): the pinned SPPM runs, then the caustic
+    scene and the plume at full size."""
+    import torch
+    from cudatracerlib_tpu_torch.ops import intersect_dense as ops
+    from cudatracerlib_tpu_torch.ops import shade_gather as sg_ops
+    from cudatracerlib_tpu_torch.render import sppm
+    from cudatracerlib_tpu_torch.scene import media as media_mod
+
+    plume = media_mod.Media.build(media_mod.plume_records(cornell.bvh.world_min,
+                                                          cornell.bvh.world_max))
+    scenes = {"cornell": cornell, "caustic": caustic}
+    pins = {}
+    for name, (scene_name, vol, photons, passes, ref, tol, ref_trips) in SPPM_PINS.items():
+        cfg = sppm.SPPMConfig(n_photons=photons, vol_estimator=vol)
+        img, state = _sppm_runs(scenes[scene_name], plume if vol else None, SPPM_PIN_SIZE, passes,
+                                0, cfg)
+        mean = float(img.mean())
+        r2 = float(state.r2.mean())
+        share = float((state.n_acc > 0).float().mean())
+        _require(bool(torch.isfinite(img).all()), f"the pinned SPPM {name} image is not finite")
+        _require(abs(mean - ref) <= tol * ref,
+                 f"pinned SPPM {name} mean {mean} is not within {tol:.2%} of JAX's {ref}")
+        trips = _sppm_first_trips(scenes[scene_name], plume, photons, 0) if vol else None
+        print(f"[main path] sppm pinned {name} ({SPPM_PIN_SIZE}x{SPPM_PIN_SIZE}, {photons} photons, "
+              f"{passes} passes): mean {mean:.9f} (JAX {ref}, {100 * (mean / ref - 1):+.5f}%, "
+              f"tolerance {tol:.3%}), mean r2 {r2:.9g}, gathered share {share:.6f}"
+              + (f", first photon bounce's tracking trips {trips} (JAX's CPU {ref_trips}: "
+                 f"{'matched' if trips == ref_trips else 'differ'})" if vol else ""))
+        pins[name] = dict(mean=mean, rel=mean / ref - 1, trips=trips)
+
+    runs = {}
+    for label, scene, media, vol, passes, size in (
+            ("caustic", caustic, None, sppm.VOL_NONE, SPPM_CAUSTIC_PASSES, PPM_W),
+            ("plume beambeam", cornell, plume, sppm.VOL_BEAMBEAM, SPPM_VOL_PASSES, VOL_W)):
+        cfg = sppm.SPPMConfig(vol_estimator=vol)
+        dense_args, gathers = _capture_sppm(
+            lambda: _sppm_runs(scene, media, size, passes, 0, cfg))  # noqa: B023 (warm, seed 0)
+        dense_r = {f"sppm {label} {k}": _compare(f"sppm {label} {k}", c[0], c[1], c[2], c[3],
+                                                 c[4], 10, c[6])
+                   for k, c in dense_args.items()}
+        gather_r = _check_gather_at(f"sppm {label}", *gathers[0]) if gathers else None
+        torch.cuda.synchronize()
+        reset_counts()
+        dt, (img, _) = _timed(lambda: _sppm_runs(scene, media, size, passes, 7, cfg))  # noqa: B023
+        launches = {"intersect_dense": dict(ops.launches), "packed_gather": dict(sg_ops.launches)}
+        print(f"[main path] sppm {label} launches {json.dumps(launches)}")
+        _require(launches["intersect_dense"]["closest"] > 0
+                 and launches["intersect_dense"]["any_hit"] > 0,
+                 f"SPPM {label} did not launch intersect_dense for both ray kinds: {launches}")
+        if label == "caustic":
+            _require(launches["packed_gather"]["gather"] > 0,
+                     f"SPPM {label} did not launch packed_gather: {launches}")
+        _require(bool(torch.isfinite(img).all()) and tuple(img.shape) == (size, size, 3),
+                 f"the SPPM {label} image is not finite or has the wrong shape")
+        prof = _profile(f"sppm {label} pass", lambda: _sppm_runs(  # noqa: B023
+            scene, media, size, 1, 7, cfg))
+        pass_s = dt / passes
+        print(f"[main path] sppm {label} {size}x{size}, {cfg.n_photons} photons, max_gather "
+              f"{cfg.max_gather}, {passes} passes from seed 7: {dt:.4f} s ({pass_s:.4f} s a pass), "
+              f"{cfg.n_photons / pass_s / 1e6:.4f} M photons/s, {size * size / pass_s / 1e6:.4f} "
+              f"M pixels/s, mean {float(img.mean()):.6f}; idle {prof['idle']:.3f} of one pass; "
+              f"{smi}")
+        runs[label] = dict(dt=dt, pass_s=pass_s, launches=launches, idle=prof["idle"],
+                           dense=dense_r, gather=gather_r)
+    return dict(pins=pins, runs=runs)
+
+
 def _timed(fn):
     """Host wall in seconds of one call of `fn`, ending in a synchronize,
     and its result."""
@@ -1186,6 +1682,11 @@ def main():
     from cudatracerlib_tpu_torch.scene.shapes import caustic_scene, cornell_box, glossy_scene
 
     t_start = time.perf_counter()
+    marks = [t_start]
+
+    def lap(phase):
+        marks.append(time.perf_counter())
+        print(f"[wall] phase {phase}: {marks[-1] - marks[-2]:.1f} s")
 
     counters = (ops.launches, bvh_ops.launches, sg_ops.launches, pg_ops.launches)
 
@@ -1202,6 +1703,7 @@ def main():
     print(f"[device] {name}, {count} device(s), torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}")
 
+    lap(1)
     # ---- 2. build, every source at once ----
     def timed(get):
         t0 = time.perf_counter()
@@ -1217,6 +1719,7 @@ def main():
     print(f"[build] {', '.join(f'{k} {v:.2f} s' for k, v in secs.items())}; "
           f"all in {time.perf_counter() - t0:.2f} s (nvcc sm_90a, in parallel)")
 
+    lap(2)
     # ---- 3. intersect_dense vs plain at the Cornell and PPM paths' shapes and at the band top ----
     scene = cornell_box()
     _require(scene.bvh.woop.device.type == "cuda", "cornell_box() did not build on the card")
@@ -1247,6 +1750,7 @@ def main():
               f"{ppm_r[label]['ms']:.4f} ms")
     dense_err = max(r["err"] for r in [cam, bounce, soup_r, *ppm_r.values()])
 
+    lap(3)
     # ---- 4. the Cornell path at bench config 1 ----
     img1, rays = pt.render_counted(scene, W, H, SPP, 3, cfg)
     mean1 = float(img1.mean())
@@ -1275,6 +1779,7 @@ def main():
           f"{ppm_r['ppm photon rays']['bound'][0]:.5f}), soup4096 {soup_r['ms']:.4f} ms; "
           f"max abs err {dense_err:.3g}")
 
+    lap(4)
     # ---- 5. intersect_bvh vs its plain version on glossy rays and a deep soup ----
     glossy = glossy_scene()
     gcfg = pt.specialize_config(glossy, pt.PTConfig(max_depth=DEPTH))
@@ -1297,6 +1802,7 @@ def main():
     print(f"[bound] intersect_bvh glossy camera rays {bvh_bound[0]:.5f} ms ({bvh_bound[1]}), "
           f"soup65536 {s65_bound[0]:.5f} ms ({s65_bound[1]})")
 
+    lap(5)
     # ---- 6. packed_gather vs its plain version ----
     pack = shade_pack.build_shade_pack(glossy)
     first = scene_mod.scene_intersect(glossy, go, gd)
@@ -1322,6 +1828,7 @@ def main():
           f"{plain_ms_g:.4f} ms, index_select {lib_ms_g:.4f} ms, bound "
           f"{gather_bound[0]:.5f} ms ({gather_bound[1]})")
 
+    lap(6)
     # ---- 7. the glossy path: bench config 2 ----
     gimg, grays = wf.render_wavefront_counted(glossy, GLOSSY_PIN["width"], GLOSSY_PIN["height"],
                                               GLOSSY_PIN["spp"], GLOSSY_PIN["seed"], gcfg)
@@ -1351,6 +1858,7 @@ def main():
     print(f"[main path] glossy {W}x{H} spp {spp2} depth {DEPTH} seed 7: rays {int(brays)}, "
           f"{gdt:.4f} s, {int(brays) / gdt / 1e6:.3f} Mrays/s, mean {float(bimg.mean()):.6f}")
 
+    lap(7)
     # ---- 8. photon_density vs its plain version, on bench-config-5 inputs (captured in 3) ----
     dens_err, work = 0.0, {}
     for label, args in zip(("global map", "caustic map"), captured):
@@ -1379,6 +1887,7 @@ def main():
               f"{100 * work[label]['old_bound'][0] / t['ms']:.1f}%)")
     print(f"[time] photon_density global map: plain {plain_ms_pd:.4f} ms")
 
+    lap(8)
     # ---- 9. the PPM path: pinned pass, then bench config 5's PPM half ----
     pin = PPM_PIN
     pin_img = ppm.render_ppm_pass(caustic, pin["width"], pin["height"], pin["spp"], pin["seed"],
@@ -1414,6 +1923,7 @@ def main():
           f"{PPM_W * PPM_H * PPM_SPP} camera), {pdt:.4f} s, {rays5 / pdt / 1e6:.3f} Mrays/s, "
           f"mean {float(pimg.mean()):.6f}")
 
+    lap(9)
     # ---- 10. profile ----
     _profile("cornell pass", lambda: pt.render(scene, W, H, SPP, 7, cfg))
     _profile("glossy bench config 2",
@@ -1421,6 +1931,7 @@ def main():
     _profile("ppm bench config 5 pass",
              lambda: ppm.render_ppm_pass(caustic, PPM_W, PPM_H, PPM_SPP, 7, PPM_PASS, pcfg))
 
+    lap(10)
     # ---- 11. packed_gather's backward vs its plain version, at three shapes ----
     tex_ids = _capture_texture_ids(scene, cfg)
     bwd = {"pack": _check_gather_bwd("pack", idx_main, pack.shape[0], pack.shape[1], dev),
@@ -1428,9 +1939,11 @@ def main():
                                         dev),
            "woop": _check_gather_bwd("woop", idx_main, glossy.bvh.woop.shape[0], 12, dev)}
 
+    lap(11)
     # ---- 12. gradient gates: pinned JAX gradients, FD vs AD, remat ----
     _grad_gates(scene)
 
+    lap(12)
     # ---- 13. the full-size gradient passes ----
     named = {"intersect_dense": ops.launches, "intersect_bvh": bvh_ops.launches,
              "shade_gather": sg_ops.launches}
@@ -1463,6 +1976,7 @@ def main():
     print(f"[grad pass] glossy d/dcolor_a[{i}, {c}] (the largest): FD {fd:.6g}, AD {ad:.6g}, "
           f"{100 * abs(fd - ad) / abs(fd):.3f}% apart (gate {FD_TOL_GLOSSY:.0%})")
 
+    lap(13)
     # ---- 14. inverse rendering: three steps at bench config 1 ----
     with torch.no_grad():
         target = pt.render(cornell_box(), W, H, SPP, 0, cfg)
@@ -1481,6 +1995,7 @@ def main():
           f"{steps}, after the three at the first step's seed {after:.6g}; radiance "
           f"{p0[1].tolist()} -> {params[1].tolist()}")
 
+    lap(14)
     # ---- 15. bigscene, bench config 3 ----
     sbvh_s = []
     real_native = bvh_mod.build_bvh_native
@@ -1546,6 +2061,7 @@ def main():
                      lambda: wf.render_wavefront_counted(big, BIG_W, BIG_H, BIG_SPP, 7, cfg3))
     del bo, bd_, bstate, b1o, b1d
 
+    lap(15)
     # ---- 16. BDPT, bench config 5's other half ----
     bcfg = bdpt.BDPTConfig()
     bp = BIDIR_PIN
@@ -1589,6 +2105,7 @@ def main():
           f"bytes; 2^18 light paths x 6 vertices onto 512^2 "
           f"{sg_ops.bwd_scratch_floats(3, 6 << 18, 512 * 512) * 4} bytes")
 
+    lap(16)
     # ---- 17. the light tracer and VCM: pinned renders, then bench size ----
     n_lt_pin = bp["width"] * bp["height"] * bp["spp"]
     lt_pin = light_tracer.render_light_trace(caustic, bp["width"], bp["height"], n_lt_pin,
@@ -1634,11 +2151,23 @@ def main():
           f"the same pass with max_gather {VCM_OPEN_CAP} (not gated): mean "
           f"{float(img_vcm_k.mean()):.6f}")
 
+    lap(17)
     # ---- 18. bench config 4: the heterogeneous volume ----
     vol = _volume_phase(scene, smi, reset_counts)
     vol_r, launch_v, prof_v = vol["compare"], vol["launches"], vol["profile"]
-    print(f"[wall] chip_smoke.py phases 1-18: {time.perf_counter() - t_start:.1f} s after the "
+    lap(18)
+
+    # ---- 19. bench config 4's transmittance gradients ----
+    vg = _volume_grad_phase(scene, smi, reset_counts)
+    lap(19)
+
+    # ---- 20. SPPM: pinned runs, the caustic scene and the plume at full size ----
+    sp = _sppm_phase(scene, caustic, smi, reset_counts)
+    lap(20)
+    print(f"[wall] chip_smoke.py phases 1-20: {time.perf_counter() - t_start:.1f} s after the "
           f"imports")
+    sp_c, sp_v = sp["runs"]["caustic"], sp["runs"]["plume beambeam"]
+    vgl = vg["launches"]
 
     print(json.dumps({"kernels": [
         {
@@ -1647,8 +2176,9 @@ def main():
             "source": "cudatracerlib_tpu_torch/csrc/intersect_dense.cu",
             "replaces": "cudatracerlib_tpu/ops/intersect_pallas.py:89",
             "launches": launches["closest"] + launches["any_hit"],
-            "max_abs_err": max(dense_err, *(r["err"] for r in (*bdpt_r.values(),
-                                                                 *vol_r.values()))),
+            "max_abs_err": max(dense_err, *(r["err"] for r in (
+                *bdpt_r.values(), *vol_r.values(), *vg["dense"].values(),
+                *sp_c["dense"].values(), *sp_v["dense"].values()))),
             "ms": cam["ms"],
             "plain_ms": cam["plain_ms"],
             "bound_ms": cam["bound"][0],
@@ -1673,6 +2203,19 @@ def main():
                for k, r in vol_r.items()
                for f, v in (("ms", "ms"), ("plain_ms", "plain_ms"), ("bound_ms", "bound"))},
             "volume_idle": prof_v["idle"],
+            "vgrad_launches": vgl["intersect_dense"]["closest"] + vgl["intersect_dense"]["any_hit"],
+            "vgrad_max_abs_err": max(r["err"] for r in vg["dense"].values()),
+            **{f"vgrad_{k.split()[1].split('-')[0]}_{f}": (r[v][0] if v == "bound" else r[v])
+               for k, r in vg["dense"].items()
+               for f, v in (("ms", "ms"), ("plain_ms", "plain_ms"), ("bound_ms", "bound"))},
+            "sppm_caustic_launches": sp_c["launches"]["intersect_dense"]["closest"]
+            + sp_c["launches"]["intersect_dense"]["any_hit"],
+            "sppm_plume_launches": sp_v["launches"]["intersect_dense"]["closest"]
+            + sp_v["launches"]["intersect_dense"]["any_hit"],
+            "sppm_max_abs_err": max(r["err"] for run in (sp_c, sp_v) for r in run["dense"].values()),
+            **{f"sppm_{label.split()[0]}_{k.split()[-2]}_{f}": (r[v][0] if v == "bound" else r[v])
+               for label, run in sp["runs"].items() for k, r in run["dense"].items()
+               for f, v in (("ms", "ms"), ("plain_ms", "plain_ms"), ("bound_ms", "bound"))},
         },
         {
             "name": "intersect_bvh",
@@ -1703,7 +2246,7 @@ def main():
             "source": "cudatracerlib_tpu_torch/csrc/shade_gather.cu",
             "replaces": "cudatracerlib_tpu/ops/shade_gather.py:69",
             "launches": glaunch["packed_gather"]["gather"],
-            "max_abs_err": gather_err,
+            "max_abs_err": max(gather_err, sp_c["gather"]["err"]),
             "ms": ms_g,
             "plain_ms": plain_ms_g,
             "bound_ms": gather_bound[0],
@@ -1714,6 +2257,10 @@ def main():
                for k, r in (("eye", g_eye), ("vertex", g_lv))
                for f, v in (("ms", "ms"), ("plain_ms", "plain_ms"), ("library_ms", "lib_ms"),
                             ("bound_ms", "bound"))},
+            "sppm_launches": sp_c["launches"]["packed_gather"]["gather"],
+            **{f"sppm_{f}": (sp_c["gather"][v][0] if v == "bound" else sp_c["gather"][v])
+               for f, v in (("ms", "ms"), ("plain_ms", "plain_ms"), ("library_ms", "lib_ms"),
+                            ("bound_ms", "bound"))},
         },
         {
             "name": "packed_gather_bwd",
@@ -1722,14 +2269,15 @@ def main():
             "replaces": "cudatracerlib_tpu/ops/shade_gather.py:127",
             "launches": gl["shade_gather"]["gather_bwd_tile"],
             "max_abs_err": max(*(b["err"] for b in bwd.values()), splat_bdpt["err"],
-                               splat_lt["err"]),
+                               splat_lt["err"], vg["grid"]["err"], vg["table"]["err"]),
             "ms": bwd["pack"]["ms"],
             "plain_ms": bwd["pack"]["plain_ms"],
             "bound_ms": bwd["pack"]["bound"][0],
             "bound_by": bwd["pack"]["bound"][1],
             "library_ms": bwd["pack"]["lib_ms"],
             "wrapper_ms": bwd["pack"]["wrap_ms"],
-            "max_rel_err": max(b["rel"] for b in bwd.values()),
+            "max_rel_err": max(*(b["rel"] for b in bwd.values()), vg["grid"]["rel"],
+                               vg["table"]["rel"]),
             "range_launches": gl["shade_gather"]["gather_bwd_range"],
             "final_launches": gl["shade_gather"]["gather_bwd_final"],
             "cornell_launches": cgrad["launches"]["shade_gather"]["gather_bwd_tile"],
@@ -1745,6 +2293,15 @@ def main():
                for f, v in (("ms", "ms"), ("wrapper_ms", "wrap_ms"), ("plain_ms", "plain_ms"),
                             ("library_ms", "lib_ms"), ("bound_ms", "bound"))},
             "lt_splat_launches": launch_lt["packed_gather"]["gather_bwd_tile"],
+            "grid_launches": vgl["shade_gather"]["gather_bwd_tile"],
+            **{f"{k}_{f}": (vg[k][v][0] if v == "bound" else vg[k][v])
+               for k in ("grid", "table")
+               for f, v in (("lanes", "lanes"), ("rows", "rows"), ("ms", "ms"),
+                            ("wrapper_ms", "wrap_ms"), ("plain_ms", "plain_ms"),
+                            ("library_ms", "lib_ms"), ("bound_ms", "bound"),
+                            ("max_abs_err", "err"), ("max_rel_err", "rel"),
+                            ("captured_rel_err", "captured_rel"), ("scratch_bytes", "scratch"),
+                            ("mask_bytes", "masks"))},
         },
         {
             "name": "photon_density",

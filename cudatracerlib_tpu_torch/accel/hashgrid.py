@@ -1,11 +1,14 @@
 """Spatial hash grid as sorted cell-id arrays and segment queries
-(port of cudatracerlib_tpu/accel/hashgrid.py:33-102).
+(port of cudatracerlib_tpu/accel/hashgrid.py:33-147; `query_reduce` :150,
+which no engine calls, is not ported).
 
 Points are quantized to cell ids and sorted by cell (a stable sort, as JAX's
 argsort is: under a neighbour cap the order decides which points a query
 keeps); per-cell [start, end) ranges come from searchsorted. This is the
-query-major photon lookup of render/ppm.py: the CPU reference, and on the
-card the path of scenes whose gather surfaces are not all DIFFUSE.
+query-major photon lookup of render/ppm.py (the CPU reference, and on the
+card the path of scenes whose gather surfaces are not all DIFFUSE), of
+render/vcm.py's merge and of render/sppm.py, whose volume estimators take
+the systematically subsampled query.
 """
 from __future__ import annotations
 
@@ -55,31 +58,58 @@ def build_grid(points, box_min, box_max, res: int, valid=None) -> HashGrid:
 _OFFSETS = [[dx, dy, dz] for dx in (-1, 0, 1) for dy in (-1, 0, 1) for dz in (-1, 0, 1)]
 
 
+def _candidates(grid: HashGrid, centers):
+    """(start, count) (B, 27) of the 3x3x3 cells around each center in the
+    sorted order; a neighbour cell clamped onto another at the domain
+    boundary counts no points."""
+    res, dev = grid.res, centers.device
+    q = torch.floor((centers - grid.box_min) * grid.inv_cell).to(torch.int64)
+    offs = torch.tensor(_OFFSETS, dtype=torch.int64, device=dev)      # (27, 3)
+    qq_raw = q[:, None, :] + offs[None]                                 # (B, 27, 3)
+    qq = torch.clamp(qq_raw, 0, res - 1)
+    is_center = (offs == 0).all(-1)[None, :]
+    is_dup = (qq != qq_raw).any(-1) & ~is_center
+    cid = (qq[..., 0] * res + qq[..., 1]) * res + qq[..., 2]
+    start = grid.cell_start[cid]
+    end = grid.cell_start[cid + 1]
+    return start, torch.where(is_dup, 0, end - start)
+
+
+def _pick(grid: HashGrid, start, count, k):
+    """The point index of each query's k-th candidate (k (B | 1, K), in
+    cell order): slot k belongs to the cell whose cumulative count first
+    exceeds k."""
+    cum = torch.cumsum(count, dim=1)
+    cell_sel = (cum[:, :, None] <= k[:, None, :]).sum(1)
+    cell_sel = torch.clamp(cell_sel, max=26)                            # (B, K)
+    cum_before = cum.gather(1, cell_sel) - count.gather(1, cell_sel)
+    src = start.gather(1, cell_sel) + (k - cum_before)
+    return grid.order[torch.clamp(src, 0, grid.order.shape[0] - 1)], cum[:, -1]
+
+
 def query_sphere(grid: HashGrid, centers, radius, max_neighbors: int):
     """Up to `max_neighbors` point indices in the 3x3x3 cells around each
     center (cell size >= radius). Returns (idx (B, K) int64 into the
     original points, valid (B, K)). Candidates beyond K are dropped in
     cell order, as in the JAX package (and the reference's fixed-capacity
     grids)."""
-    res, K, dev = grid.res, max_neighbors, centers.device
-    q = torch.floor((centers - grid.box_min) * grid.inv_cell).to(torch.int64)
-    offs = torch.tensor(_OFFSETS, dtype=torch.int64, device=dev)      # (27, 3)
-    qq_raw = q[:, None, :] + offs[None]                                 # (B, 27, 3)
-    qq = torch.clamp(qq_raw, 0, res - 1)
-    is_center = (offs == 0).all(-1)[None, :]
-    is_dup = (qq != qq_raw).any(-1) & ~is_center       # clamped at the domain boundary
-    cid = (qq[..., 0] * res + qq[..., 1]) * res + qq[..., 2]
-    start = grid.cell_start[cid]
-    end = grid.cell_start[cid + 1]
-    count = torch.where(is_dup, 0, end - start)                         # (B, 27)
+    start, count = _candidates(grid, centers)
+    k = torch.arange(max_neighbors, device=centers.device)[None, :]
+    idx, n_total = _pick(grid, start, count, k)
+    return idx, k < n_total[:, None]
 
-    # slot k belongs to the cell whose cumulative count first exceeds k
-    cum = torch.cumsum(count, dim=1)
-    k = torch.arange(K, device=dev)[None, :]
-    cell_sel = (cum[:, :, None] <= k[:, None, :]).sum(1)
-    cell_sel = torch.clamp(cell_sel, max=26)                            # (B, K)
-    cum_before = cum.gather(1, cell_sel) - count.gather(1, cell_sel)
-    src = start.gather(1, cell_sel) + (k - cum_before)
-    valid = k < cum[:, -1:]
-    src_c = torch.clamp(src, 0, grid.order.shape[0] - 1)
-    return grid.order[src_c], valid
+
+def query_sphere_sampled(grid: HashGrid, centers, max_neighbors: int):
+    """The 3x3x3-cell neighbourhood subsampled systematically (JAX
+    accel/hashgrid.py:105-147): of a query's N candidates it returns those
+    at floor(k * stride), k < K, stride = max(N / K, 1) in float32, and the
+    per-query weight stride (N / K above K candidates, else 1), which makes
+    a weighted sum over the returned set unbiased where a first-K cut is
+    biased low. Returns (idx (B, K) int64, valid (B, K), weight (B,) f32)."""
+    start, count = _candidates(grid, centers)
+    n_total = count.sum(1)
+    stride = torch.clamp(n_total.to(torch.float32) / max_neighbors, min=1.0)
+    k = torch.arange(max_neighbors, dtype=torch.float32, device=centers.device)[None, :]
+    g = torch.floor(k * stride[:, None]).to(count.dtype)                # (B, K)
+    idx, _ = _pick(grid, start, count, g)
+    return idx, g < n_total[:, None], stride

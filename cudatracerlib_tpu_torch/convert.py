@@ -10,7 +10,9 @@ can read: the JAX Scene, a JAX gradient pytree (`jax.grad` of a function of
 the Scene, whose leaves are the gradients), or a port Scene for the way
 back. `with_grad` makes chosen leaves of a port Scene require grad, and
 `grads` reads their `.grad` by the same field paths, so a JAX gradient and
-the port's compare field by field.
+the port's compare field by field. Both take a port Media as they take a
+Scene (fields `grid_data`, `sigma_a`, `sigma_s`, `le`, ...); its host-side
+`modes` tuple is carried along unchanged.
 """
 from __future__ import annotations
 

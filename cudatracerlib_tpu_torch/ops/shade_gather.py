@@ -118,20 +118,22 @@ def packed_gather(table, idx):
 
 class _GatherRows(torch.autograd.Function):
     """table[idx] for a (T, ...) table and indices in range; the table's
-    cotangent is summed by `packed_gather_bwd`."""
+    cotangent is summed by `packed_gather_bwd`, a row of C = prod(...)
+    columns (a 1-D table, a volume's grid, is a (T, 1) one)."""
 
     @staticmethod
     def forward(ctx, table, idx):
-        ctx.save_for_backward(idx)
+        # the flat int32 rows the backward reads, kept instead of idx: half
+        # the bytes of an int64 index (a volume's grid lookups save 2^27 of them)
+        ctx.save_for_backward(idx.reshape(-1).to(torch.int32))
         ctx.shape = table.shape
         return table[idx]
 
     @staticmethod
     def backward(ctx, g):
-        (idx,) = ctx.saved_tensors
+        (rows,) = ctx.saved_tensors
         shape = ctx.shape
-        g = g.reshape(idx.numel(), math.prod(shape[1:])).contiguous()
-        rows = idx.reshape(-1).to(torch.int32)
+        g = g.reshape(rows.numel(), math.prod(shape[1:])).contiguous()
         return packed_gather_bwd(g, rows, shape[0]).reshape(shape), None
 
 

@@ -19,7 +19,12 @@ pass's film is the reshape-sum over spp of `tile(arange(n_px), spp)`, which
 equals the JAX package's `film.add_samples` and needs no atomics on the
 card.
 
-`render_vol` is differentiable like `render`; `render_vol_counted`,
+`render_vol` is the differentiable entry point, like `render`: in every
+float tensor of the scene and of the media (`grid_data`, `sigma_a`,
+`sigma_s`, `le`, `phase_g`; convert.with_grad / convert.grads name them by
+field), with `PTConfig.remat` checkpointing each bounce. The media's table
+lookups and the volume's phase_g go through ops/shade_gather.gather_rows
+(the deterministic gather-backward kernel on the card). `render_vol_counted`,
 `render_vol_stepwise` and `render_vol_progressive` run without gradients.
 The JAX module's `stop_gradient`s are `.detach()`s here at the same sites
 in `vol_bounce`: the light selection pmf and the NEE light pdf (JAX
@@ -34,6 +39,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..math import montecarlo as mc
+from ..ops.shade_gather import gather_rows
 from ..sampling.records import DISCRETE
 from ..sampling.rng import MASK, Sampler, draws_between
 from ..scene import bsdf as bsdf_mod
@@ -114,7 +120,7 @@ def vol_bounce(scene: Scene, media: media_mod.Media, config: PTConfig, carry: Vo
     wo_world = -carry.d
     wo_local = it.frame.to_local(wo_world)
     nee_p = torch.where(medium_event[..., None], p_scat, it.p)
-    ptype, pg = media.phase_type[vid], media.phase_g[vid]
+    ptype, pg = media.phase_type[vid], gather_rows(media.phase_g, vid)
     me3 = medium_event[..., None]
 
     s, u_sel = s.next_1d()

@@ -29,12 +29,18 @@ a lane still tracking are counted on the device, and the sampler is set to
 its start plus 2 * T draws. A trip leaves stopped lanes as they are, so the
 trips past T change nothing else.
 
-Gradients: the JAX module stops gradients at these sites, each a `.detach()`
-here at the same place in `sample_distance`: the majorant (JAX :609), the
-tracking ray and its start (:625-627), the far end of the union extent
-(:637), the accept ratio (:640), the collision distance and point (:672-674),
-the log-transmittance of the marginal pdf (:685), the mean sigma_t of the
-pdf (:698) and the per-volume sigma_s of the volume choice (:724).
+Gradients: every differentiable table lookup (the grid's 8 corners, a
+volume's sigma_a / sigma_s / Le by a lane's volume id) goes through
+ops/shade_gather.gather_rows, so on the card the table's cotangent is summed
+by the deterministic gather-backward kernel, not by PyTorch's index
+backward. The JAX module stops gradients at these sites: the majorant (JAX
+:609) is a `.detach()` here; the tracking ray and its start (:625-627), the
+far end of the union extent (:637) and the accept ratio (:640) feed only the
+tracking loop, which `delta_track` runs under `torch.no_grad()`; the
+collision distance and point (:672-674), the log-transmittance of the
+marginal pdf (:685), the mean sigma_t of the pdf (:698) and the per-volume
+sigma_s of the volume choice (:724) are `.detach()`s at the same places in
+`sample_distance`.
 """
 from __future__ import annotations
 
@@ -43,6 +49,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..ops.shade_gather import gather_rows
 from ..sampling.rng import Sampler
 
 HOMOGENEOUS = 0
@@ -274,7 +281,7 @@ def _grid_lookup(media: Media, vid, p, off, nch):
 
     def corner(ax, ay, az):
         sp = (ax * ry + ay) * rz + az
-        return media.grid_data[(base + sp)[..., None] + cstride[..., None] * chan]
+        return gather_rows(media.grid_data, (base + sp)[..., None] + cstride[..., None] * chan)
 
     val = _trilinear(q, r.float(), r, corner)
     return torch.where(has[..., None], val, 1.0)
@@ -301,7 +308,7 @@ def _grid_lookup1(media: Media, v: int, off: int, p):
     ry, rz = r[1], r[2]
 
     def corner(ax, ay, az):
-        return media.grid_data[off + (ax * ry + ay) * rz + az]
+        return gather_rows(media.grid_data, off + (ax * ry + ay) * rz + az)
 
     return _trilinear(q, rf, r, corner)
 
@@ -349,14 +356,14 @@ def density_at(media: Media, vid, p):
 
 def sigma_a_at(media: Media, vid, p):
     ins = _inside(media, vid, p)[..., None]
-    return torch.where(ins, media.sigma_a[vid.long()] * _mult(media, vid, p, media.off_a,
-                                                               media.ch_a), 0.0)
+    return torch.where(ins, gather_rows(media.sigma_a, vid.long())
+                       * _mult(media, vid, p, media.off_a, media.ch_a), 0.0)
 
 
 def sigma_s_at(media: Media, vid, p):
     ins = _inside(media, vid, p)[..., None]
-    return torch.where(ins, media.sigma_s[vid.long()] * _mult(media, vid, p, media.off_s,
-                                                               media.ch_s), 0.0)
+    return torch.where(ins, gather_rows(media.sigma_s, vid.long())
+                       * _mult(media, vid, p, media.off_s, media.ch_s), 0.0)
 
 
 def sigma_t_at(media: Media, vid, p):
@@ -366,8 +373,8 @@ def sigma_t_at(media: Media, vid, p):
 def le_at(media: Media, vid, p):
     """Volume emission Lve (reference VolumeRegion::Lve)."""
     ins = _inside(media, vid, p)[..., None]
-    return torch.where(ins, media.le[vid.long()] * _mult(media, vid, p, media.off_le,
-                                                          media.ch_le), 0.0)
+    return torch.where(ins, gather_rows(media.le, vid.long())
+                       * _mult(media, vid, p, media.off_le, media.ch_le), 0.0)
 
 
 def _steps(o, d, t0, dt):
@@ -378,10 +385,11 @@ def _steps(o, d, t0, dt):
 
 
 def _scan_sum(vals):
-    """Sum over dim 1 from left to right: the JAX scan's order, bit for bit."""
+    """Sum over dim 1 from left to right: the JAX scan's order, bit for bit
+    (`unbind`: one backward node for the columns, not one per column)."""
     acc = torch.zeros(vals.shape[:1] + vals.shape[2:], device=vals.device)
-    for i in range(vals.shape[1]):
-        acc = acc + vals[:, i]
+    for col in vals.unbind(1):
+        acc = acc + col
     return acc
 
 
@@ -390,13 +398,13 @@ def tau_segment(media: Media, vid, o, d, t0, t1):
     volumes, TAU_STEPS midpoint steps for grids (reference VolumeRegion::tau)."""
     vid = vid.long()
     seg = torch.clamp(t1 - t0, min=0.0)
-    st = media.sigma_a[vid] + media.sigma_s[vid]
+    st = gather_rows(media.sigma_a, vid) + gather_rows(media.sigma_s, vid)
     tau_h = st * seg[..., None]
     dt = seg / TAU_STEPS
     pts = _steps(o, d, t0, dt)
     vs = vid[..., None].expand(pts.shape[:-1])
-    st_p = (media.sigma_a[vs] * _mult(media, vs, pts, media.off_a, media.ch_a)
-            + media.sigma_s[vs] * _mult(media, vs, pts, media.off_s, media.ch_s))
+    st_p = (gather_rows(media.sigma_a, vs) * _mult(media, vs, pts, media.off_a, media.ch_a)
+            + gather_rows(media.sigma_s, vs) * _mult(media, vs, pts, media.off_s, media.ch_s))
     tau_g = _scan_sum(st_p) * dt[..., None]
     return torch.where((media.vtype[vid] == GRID)[..., None], tau_g, tau_h)
 
@@ -459,19 +467,38 @@ class _Track(NamedTuple):
 
 
 def _track(media, modes, o, d, maj, u_far, c: _Track) -> _Track:
-    """One delta-tracking trip for every lane (JAX media.py:633-651)."""
+    """One delta-tracking trip for every lane (JAX media.py:633-651); the
+    caller records no graph."""
     s, u = Sampler(state=c.state).next_1d()
     dt = -torch.log(torch.clamp(1.0 - u, min=1e-12)) / maj
     t_new = c.t + dt
     esc_now = c.tracking & (t_new >= u_far)
     p = o + d * torch.where(c.tracking, t_new, c.t)[..., None]
     _, st = sigma_at(media, p, modes)
-    ratio = torch.clamp(st.mean(-1) / maj, 0.0, 1.0).detach()
+    ratio = torch.clamp(st.mean(-1) / maj, 0.0, 1.0)
     s, u2 = s.next_1d()
     go_on = c.tracking & ~esc_now
     real_now = go_on & (u2 < ratio)
     return _Track(t=torch.where(go_on, t_new, c.t), tracking=go_on & ~real_now,
                   real=c.real | real_now, state=s.state)
+
+
+@torch.no_grad()
+def delta_track(media: Media, modes, o, d, u_near, u_far, maj, in_vol, state):
+    """The tracking loop of `sample_distance`: blocks of TRACK_BLOCK trips,
+    T counted on the device. Returns (the final _Track, T). It records no
+    graph: JAX's while loop carries no tangent (its inputs are stop-gradient
+    values, media.py:625-651), and a graph here would save every trip's
+    lookups for a backward that never reads them."""
+    c = _Track(t=u_near, tracking=in_vol, real=torch.zeros_like(in_vol), state=state)
+    trips = torch.zeros((), dtype=torch.int64, device=o.device)
+    done = 0
+    while done < HARD_TRACK_CAP and bool(c.tracking.any()):
+        for _ in range(min(TRACK_BLOCK, HARD_TRACK_CAP - done)):
+            trips = trips + c.tracking.any()
+            c = _track(media, modes, o, d, maj, u_far, c)
+        done += TRACK_BLOCK
+    return c, trips
 
 
 def sample_distance(media: Media, o, d, t_min, t_max, sampler: Sampler, modes=None):
@@ -508,18 +535,7 @@ def sample_distance(media: Media, o, d, t_min, t_max, sampler: Sampler, modes=No
     u_far = torch.where(in_vol, u_far, 0.0)
     maj = torch.clamp(maj, min=1e-6).detach()
 
-    # ---- the tracking loop: blocks of TRACK_BLOCK trips, T counted on the device ----
-    o_det, d_det, u_far_det = o.detach(), d.detach(), u_far.detach()
-    c = _Track(t=u_near.detach(), tracking=in_vol, real=torch.zeros(B, dtype=torch.bool,
-                                                                    device=dev),
-               state=sampler.state)
-    trips = torch.zeros((), dtype=torch.int64, device=dev)
-    done = 0
-    while done < HARD_TRACK_CAP and bool(c.tracking.any()):
-        for _ in range(min(TRACK_BLOCK, HARD_TRACK_CAP - done)):
-            trips = trips + c.tracking.any()
-            c = _track(media, modes, o_det, d_det, maj, u_far_det, c)
-        done += TRACK_BLOCK
+    c, trips = delta_track(media, modes, o, d, u_near, u_far, maj, in_vol, sampler.state)
     sampler = sampler.skip(2 * trips)
 
     scatter = in_vol & c.real

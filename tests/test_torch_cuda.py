@@ -588,3 +588,121 @@ def test_volume_render_on_card_matches_cpu(dev):
     assert img.device.type == "cuda" and bool(torch.isfinite(img).all())
     assert abs(float(img.mean()) - float(ref.mean())) <= 0.075 * float(ref.mean())
     assert abs(int(rays) - int(ref_rays)) <= 1e-2 * int(ref_rays)
+
+
+def _grid_corner_rows(dev, n_rays, steps=32, res=32, seed=3):
+    """The rows a scalar grid's transmittance lookups read, as scene/media.py
+    flattens them: 8 corners of `steps` points along each of `n_rays` random
+    rays through a res^3 grid stored from row 1 (row 0: the dummy slot)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    o = torch.rand(n_rays, 1, 3, generator=gen, device=dev) * (res - 1)
+    d = torch.nn.functional.normalize(torch.randn(n_rays, 1, 3, generator=gen, device=dev), dim=-1)
+    t = (torch.arange(steps, device=dev) + 0.5)[None, :, None]
+    q = torch.clamp(o + d * t, 0.0, (res - 1) * (1 - 1e-6))
+    i0 = q.floor().long()
+    ii = torch.stack([i0, torch.clamp(i0 + 1, max=res - 1)], -1)       # (rays, steps, 3, 2)
+    rows = 1 + (ii[..., 0, :, None, None] * res + ii[..., 1, None, :, None]) * res \
+        + ii[..., 2, None, None, :]
+    return rows.reshape(-1).to(torch.int32), 1 + res ** 3
+
+
+def test_shade_gather_bwd_grid_shape(dev):
+    """The gather backward at a volume grid's shape, reduced: the corner rows
+    of 32 steps along 8,192 rays (2^21 lanes x 1 onto 32,769 rows, runs of
+    nearby lanes on nearby rows). Signed cotangent: two launches bit-equal,
+    rows no lane hit 0, each row within 1e-5 of its sum of |g| from the
+    float64 plain version; bit-equal to the emulation of its order on two
+    4,096-lane slices; a positive cotangent within 1e-5 relative."""
+    idx, n_rows = _grid_corner_rows(dev, 8192)
+    n = idx.shape[0]
+    g = torch.randn(n, 1, generator=torch.Generator(device=dev).manual_seed(4), device=dev)
+    got = sg_ops.packed_gather_bwd(g, idx, n_rows)
+    assert torch.equal(got, sg_ops.packed_gather_bwd(g, idx, n_rows))
+    plain = sg_ops.packed_gather_bwd_plain(g, idx, n_rows)
+    scale = sg_ops.packed_gather_bwd_plain(g.abs(), idx, n_rows)
+    hit = torch.bincount(idx.long(), minlength=n_rows) > 0
+    assert bool((got[~hit] == 0).all()) and int(hit.sum()) > 10_000
+    assert bool(((got - plain).abs() <= 1e-5 * scale).all())
+    for a in (0, n // 2 + 77):
+        gs, ids = g[a:a + 4096].contiguous(), idx[a:a + 4096]
+        assert torch.equal(sg_ops.packed_gather_bwd(gs, ids, n_rows).cpu(),
+                           sg_ops.packed_gather_bwd_emulated(gs.cpu(), ids.cpu(), n_rows))
+    pos = g.abs()
+    got_p = sg_ops.packed_gather_bwd(pos, idx, n_rows)
+    plain_p = sg_ops.packed_gather_bwd_plain(pos, idx, n_rows)
+    assert bool(((got_p - plain_p).abs() <= 1e-5 * plain_p).all())
+
+
+def test_volume_gradient_on_card_matches_cpu(dev):
+    """d mean(render_vol) with respect to the plume's grid_data, sigma_a and
+    sigma_s (Cornell, 32x32, 2 spp, depth 4, seed 3) on the card against the
+    CPU port: the grid's cotangent summed by the backward kernels (their
+    launch counts rise), the loss within 1e-4 and every entry within 1e-3
+    relative + 1e-3 of the field's largest where the tracking trips agree
+    (phase 19's gate), else finite with the CPU's sign on sigma_a."""
+    from cudatracerlib_tpu_torch.render import volpath
+    from cudatracerlib_tpu_torch.scene import media
+
+    paths = ["grid_data", "sigma_a", "sigma_s"]
+    cfg = pt.PTConfig(max_depth=4)
+    runs = []
+    for device in ("cpu", "cuda"):
+        scene = cornell_box(device=device)
+        plume = with_grad(media.Media.build(
+            media.plume_records(scene.bvh.world_min, scene.bvh.world_max), device=device), paths)
+        before = dict(sg_ops.launches)
+        loss = volpath.render_vol(scene, plume, 32, 32, 2, 3, cfg).mean()
+        loss.backward()
+        c = volpath._specialize(scene, plume, cfg)
+        _, o, d, _, smp = volpath._camera_batch(scene, 32, 32, 2, 3)
+        carry, trips = volpath.init_vol_carry(o, d, smp), []
+        with torch.no_grad():
+            for k in range(cfg.max_depth):
+                s0 = int(carry.sampler.state[0])
+                carry = volpath.vol_bounce(scene, plume, c, carry, k)
+                trips.append(volpath.tracking_trips(s0, carry.sampler.state[0]))
+        runs.append((float(loss.detach()), grads(plume, paths), trips))
+    torch.cuda.synchronize()
+    assert sg_ops.launches["gather_bwd_tile"] > before["gather_bwd_tile"]
+    (ref_loss, ref, ref_trips), (loss, got, trips) = runs
+    assert all(np.isfinite(v).all() for v in got.values())
+    if trips == ref_trips:
+        assert abs(loss - ref_loss) <= 1e-4 * ref_loss
+        for p in paths:
+            np.testing.assert_allclose(got[p], ref[p], rtol=1e-3, atol=1e-3 * np.abs(ref[p]).max())
+    else:
+        assert (np.sign(got["sigma_a"]) == np.sign(ref["sigma_a"])).all()
+
+
+def test_sppm_on_card_matches_cpu(dev):
+    """An SPPM pass on the card against the CPU port: the caustic scene
+    (32x32, 2^12 photons; its mean within 1e-3, launching intersect_dense
+    and packed_gather) and the plume with VOL_BEAMBEAM (32x32, 2^11 photons;
+    within 15%, three times the pinned run's spread over seeds, as a flipped
+    tracking decision re-draws every lane)."""
+    from cudatracerlib_tpu_torch.render import sppm
+    from cudatracerlib_tpu_torch.scene import media
+
+    for name, tol in (("caustic", 1e-3), ("plume", 0.15)):
+        out = []
+        for device in ("cpu", "cuda"):
+            if name == "caustic":
+                scene, med, vol = caustic_scene(device=device), None, sppm.VOL_NONE
+                photons = 1 << 12
+            else:
+                scene = cornell_box(device=device)
+                med = media.Media.build(media.plume_records(scene.bvh.world_min,
+                                                            scene.bvh.world_max), device=device)
+                vol, photons = sppm.VOL_BEAMBEAM, 1 << 11
+            before = (dict(ops.launches), dict(sg_ops.launches))
+            img, state = sppm.render_sppm_pass(scene, 32, 32, 3, None,
+                                               sppm.SPPMConfig(n_photons=photons,
+                                                               vol_estimator=vol), media=med)
+            out.append(float(img.mean()))
+        torch.cuda.synchronize()
+        assert img.device.type == "cuda" and bool(torch.isfinite(img).all())
+        assert ops.launches["closest"] > before[0]["closest"]
+        assert ops.launches["any_hit"] > before[0]["any_hit"]
+        if name == "caustic":
+            assert sg_ops.launches["gather"] > before[1]["gather"]
+        assert abs(out[1] - out[0]) <= tol * out[0], (name, out)

@@ -34,6 +34,7 @@ MODULES = [
     "cudatracerlib_tpu_torch.render.light_tracer",
     "cudatracerlib_tpu_torch.render.path_tracer",
     "cudatracerlib_tpu_torch.render.ppm",
+    "cudatracerlib_tpu_torch.render.sppm",
     "cudatracerlib_tpu_torch.render.vcm",
     "cudatracerlib_tpu_torch.render.volpath",
     "cudatracerlib_tpu_torch.render.wavefront",
