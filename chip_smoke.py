@@ -205,7 +205,32 @@ It imports nothing of JAX. Phases, each of which raises on failure:
      `SPPMConfig()` (2^17 photons, max_gather 128), 4 passes (both kinds of
      intersect_dense and packed_gather), and the plume at 256x256 with
      VOL_BEAMBEAM, 2 passes; pass time, photons and pixels a second, the
-     profiler's idle share of one pass.
+     profiler's idle share of one pass;
+  21. closed-form surface shading: each case pinned at 64x64, 4 spp (the
+     light tracer 16,384 paths), seed 3, within 0.5% of the JAX package's
+     CPU mean (tools/shading_reference_mean.py), then at full size, warm at
+     seed 0 and one pass timed at seed 7 with the launch counts reset just
+     before and read just after, and the profiler's idle share: (a) the
+     furnace sphere (2,208 triangles) at bench config 1's size (256x256, 16
+     spp, depth 5) through render_counted for each BSDF this slice ports
+     (ROUGHDIFFUSE, THINDIELECTRIC, PLASTIC, PHONG, WARD, HK, NULL_BSDF) and
+     for COATING, ROUGHCOATING and BLEND over DIFFUSE, each mean below 1.1
+     (no type gains energy), both kinds of intersect_dense and the
+     shade-pack gather launched; intersect_dense's camera, first-bounce and
+     shadow rays and the pack gather of the PLASTIC pass held to their plain
+     versions as in 3 and 6; (b) the Cornell box through THINLENS,
+     ORTHOGRAPHIC, SPHERICAL and TELECENTRIC cameras; (c) the Gaussian film
+     (rec_radius 1.5) beside the box film, its taps (9 x 2^20 lanes x
+     (rgb w, w) onto 65,537 rows, the last the dropped out-of-image row)
+     summed in one splat call and held to the float64 plain version as the
+     splat sums of 16-17, timed beside index_add_; the same film at
+     1024x1024, 16 spp (seeded samples in the path tracer's order), which
+     goes in runs of at most 1 GiB of the kernel's scratch, held to the
+     float64 plain sum of every tap at once, and one Gaussian Cornell pass
+     at 1024x1024; (d) the caustic scene
+     with regularization 0.1; (e) the light tracer (65,536 paths), BDPT and
+     VCM at 128x128, 4 spp on the Cornell box lit by a point and a spot
+     light, and the light tracer on the constant-environment furnace.
 Each phase's seconds are printed as it ends.
 
 Before its last line it prints one JSON object describing each kernel; the
@@ -322,6 +347,27 @@ SPPM_PINS = {
 }
 SPPM_PIN_SIZE = 64
 SPPM_CAUSTIC_PASSES, SPPM_VOL_PASSES = 4, 2   # phase 20 at full size (bench config 5's scene)
+# Phase 21's pins, the JAX package on the CPU (`JAX_PLATFORMS=cpu python
+# tools/shading_reference_mean.py`): each case at 64x64, 4 spp (the light tracer 16,384 paths),
+# seed 3, depth 5 -- the furnace through render_counted with each BSDF this slice ports (and the
+# nested ones over DIFFUSE), the Cornell box through the other cameras, with the Gaussian film,
+# the caustic scene regularized, the light tracer, BDPT and VCM on the point- and spot-lit
+# Cornell box and the light tracer on the furnace. The CPU port gives the same means (`--port`);
+# 0.5% leaves the card's rounding room.
+SHADING_PINS = {
+    "furnace_roughdiffuse": 0.871637046, "furnace_thindielectric": 0.996276855,
+    "furnace_plastic": 0.905668020, "furnace_phong": 0.964307606, "furnace_ward": 0.951584518,
+    "furnace_hk": 0.496545523, "furnace_null": 0.475524902, "furnace_coating": 0.870351791,
+    "furnace_roughcoating": 0.872076213, "furnace_blend": 0.895575047,
+    "cornell_thinlens": 0.133199692, "cornell_orthographic": 0.080959074,
+    "cornell_spherical": 1.066703439, "cornell_telecentric": 0.081005581,
+    "gaussian": 0.132881090, "caustic_reg": 0.316012979,
+    "lt_ps": 0.248347595, "bdpt_ps": 0.423273593, "vcm_ps": 0.392754227,
+    "lt_furnace": 0.385445118,
+}
+SHADING_TOL = 0.005
+SHADING_PAIRS = 7          # phase 21: alternating box / Gaussian film passes
+SHADING_PIN_SIZE, SHADING_PIN_SPP, SHADING_PIN_SEED = 64, 4, 3
 PPM_W = PPM_H = 128        # bench config 5 (bench.py:289-340)
 PPM_SPP, PPM_PASS = 4, 1
 DENSITY_RTOL, DENSITY_ATOL = 1e-4, 1e-6
@@ -691,9 +737,10 @@ def _density_work(label, args):
     return dict(c, bound=bound, chunk_bound=chunk_bound, old_bound=old_bound)
 
 
-def _profile(label, fn):
-    """Device kernel time, busy share and launches of one call of `fn`;
-    returns the idle share and the port kernels' launches."""
+def _profile(label, fn, top_n=8):
+    """Device kernel time, busy share and launches of one call of `fn`,
+    with its `top_n` kernels by time; returns the idle share and the port
+    kernels' launches."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -714,7 +761,7 @@ def _profile(label, fn):
     by_name = {}
     for e in kernels:
         by_name[e.name] = by_name.get(e.name, 0.0) + (e.time_range.end - e.time_range.start)
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:top_n]
     print(f"[profile] {label}: wall {wall * 1e3:.3f} ms (profiled), device kernel time "
           f"{busy / 1e3:.3f} ms, busy {busy / 1e6 / wall:.3f}, idle {1 - busy / 1e6 / wall:.3f}, "
           f"{len(kernels)} kernel launches")
@@ -728,6 +775,8 @@ def _profile(label, fn):
                                       f"(anonymous namespace)::{kernel}<"))]
         us = sum(e.time_range.end - e.time_range.start for e in mine)
         n = port[kernel] = len(mine)
+        if n == 0:
+            continue
         print(f"[profile] {label}: port kernel {kernel}: {n} launches, {us / 1e3:.3f} ms, "
               f"{100 * us / max(busy, 1e-9):.2f}% of device time, "
               f"{100 * us / 1e6 / wall:.2f}% of wall")
@@ -1043,8 +1092,9 @@ def _capture_splats(fn):
 
 
 def _check_splat(label, pix, val, n_px, dev):
-    """The splat film's sum (packed_gather's backward kernels at C = 3) on
-    captured splats: within 1e-5 relative of the float64 plain version
+    """The splat film's sum (packed_gather's backward kernels at C = 3, or
+    4 for the filtered film's (rgb w, w) rows) on captured splats: within
+    1e-5 relative of the float64 plain version
     where the sum is positive, 0 where it is 0, two launches bit-equal; the
     kernels alone, the whole call, the plain version and `index_add_`
     (float32, atomics) timed against the bytes the inputs need."""
@@ -1069,11 +1119,11 @@ def _check_splat(label, pix, val, n_px, dev):
     ms = _time_kernel_ms([prepared] * 21, sg_ops.bwd_launch)
     wrap_ms = _time_ms(lambda: film_mod.splat_sum(pix, val, n_px), 20)
     plain_ms = _time_ms(lambda: sg_ops.packed_gather_bwd_plain(val, idx, n_px), 3)
-    rows = pix.long()
-    lib_ms = _time_ms(lambda: torch.zeros(n_px, 3, device=dev).index_add_(0, rows, val), 20)
-    nbytes = n * 3 * 4 + n * 4 + n_px * 3 * 4
-    bound = _bound(n * 3, nbytes)
-    scratch = sg_ops.bwd_scratch_floats(3, n, n_px) * 4
+    rows, C = pix.long(), val.shape[1]
+    lib_ms = _time_ms(lambda: torch.zeros(n_px, C, device=dev).index_add_(0, rows, val), 20)
+    nbytes = n * C * 4 + n * 4 + n_px * C * 4
+    bound = _bound(n * C, nbytes)
+    scratch = sg_ops.bwd_scratch_floats(C, n, n_px) * 4
     print(f"[kernel vs plain] splat sum {label}: {n} splats onto {n_px} pixels "
           f"({int(pos.any(-1).sum())} lit, {int((val > 0).any(-1).sum())} nonzero splats), max rel "
           f"err {rel:.3g}, max abs err {err:.3g}, two launches bit-equal; scratch {scratch} bytes")
@@ -1081,7 +1131,69 @@ def _check_splat(label, pix, val, n_px, dev):
           f"(float64 index_add_) {plain_ms:.4f} ms, index_add_ (float32, atomics) {lib_ms:.4f} ms, "
           f"bound {bound[0]:.5f} ms ({bound[1]}: {nbytes} bytes)")
     return dict(err=err, rel=rel, ms=ms, wrap_ms=wrap_ms, plain_ms=plain_ms, lib_ms=lib_ms,
-                bound=bound)
+                bound=bound, scratch=scratch)
+
+
+def _check_film_runs(width, height, spp):
+    """The filtered film (Gaussian, radius 1.5, 3x3 taps) at width x height
+    x spp samples in the path tracer's order (32x32 screen tiles, repeated
+    per sample), with seeded positions and values: the runs it splits into
+    and the largest call's scratch against SPLAT_SCRATCH_FLOATS, rgb and
+    weight within BWD_RTOL of the float64 plain sum of every tap at once,
+    two calls bit-equal; the call, the plain sum and `index_add_` of the same
+    taps timed, and the call's peak memory."""
+    import torch
+    from cudatracerlib_tpu_torch.image import film as film_mod
+    from cudatracerlib_tpu_torch.image import pipeline
+    from cudatracerlib_tpu_torch.ops import shade_gather as sg_ops
+    from cudatracerlib_tpu_torch.render import path_tracer as pt
+
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    pix = torch.from_numpy(pt.block_order_pixels_np(width, height)).cuda().repeat(spp)
+    n = pix.shape[0]
+    sx = (pix % width).float() + torch.rand(n, generator=gen, device="cuda")
+    sy = (pix // width).float() + torch.rand(n, generator=gen, device="cuda")
+    val = torch.rand(n, 3, generator=gen, device="cuda")
+    del pix
+
+    def call():
+        f = film_mod.add_samples_filtered(film_mod.Film.create(height, width), sx, sy, val,
+                                          pipeline.GAUSSIAN, 1.5, 1)
+        return torch.cat([f.rgb.reshape(-1, 3), f.weight.reshape(-1, 1)], 1)
+
+    runs = list(film_mod.splat_runs(sy, 9, 1, height, width))
+    scratch = max(sg_ops.bwd_scratch_floats(4, 9 * (b1 - b0), (y1 + 1 - y0) * width + 1)
+                  for b0, b1, y0, y1 in runs) * 4
+    _require(scratch <= film_mod.SPLAT_SCRATCH_FLOATS * 4,
+             f"filtered film {width}x{height}: a call takes {scratch} bytes of scratch")
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    got = call()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    _require(torch.equal(got, call()), f"filtered film {width}x{height}: two calls differ")
+    ms = _time_ms(call, 3)
+    pid, taps = film_mod.filter_taps(sx, sy, val, pipeline.GAUSSIAN, 1.5, 1, height, width)
+    n_px = width * height
+    plain = sg_ops.packed_gather_bwd_plain(taps, pid, n_px + 1)[:n_px]
+    pos = plain > 0
+    rel = float(((got - plain).abs()[pos] / plain[pos]).max())
+    _require(bool((got[~pos] == 0).all()) and rel <= BWD_RTOL,
+             f"filtered film {width}x{height}: max relative error {rel} > {BWD_RTOL}")
+    plain_ms = _time_ms(lambda: sg_ops.packed_gather_bwd_plain(taps, pid, n_px + 1), 1)
+    rows = pid.long()
+    lib_ms = _time_ms(lambda: torch.zeros(n_px + 1, 4, device="cuda").index_add_(0, rows, taps), 3)
+    one_call = sg_ops.bwd_scratch_floats(4, taps.shape[0], n_px + 1) * 4
+    print(f"[kernel vs plain] filtered film {width}x{height} at {spp} spp ({n} samples, "
+          f"{taps.shape[0]} taps): {len(runs)} runs, the largest call's scratch {scratch} bytes "
+          f"(one call would take {one_call}), peak memory {peak} bytes; max rel err {rel:.3g}, "
+          f"two calls bit-equal")
+    print(f"[time] filtered film {width}x{height}: whole call (taps, runs, sums) {ms:.4f} ms, "
+          f"plain (taps at once, float64 index_add_) {plain_ms:.4f} ms, index_add_ (float32, "
+          f"atomics) of the taps {lib_ms:.4f} ms")
+    return dict(runs=len(runs), scratch=scratch, one_call=one_call, peak=peak, rel=rel, ms=ms,
+                plain_ms=plain_ms, lib_ms=lib_ms)
 
 
 def _check_gather_at(label, table, idx):
@@ -1634,6 +1746,215 @@ def _sppm_phase(cornell, caustic, smi, reset_counts):
     return dict(pins=pins, runs=runs)
 
 
+def _capture_render(fn):
+    """intersect_dense's, packed_gather's and the splat sum's arguments in
+    one call of `fn` (a render): the first two closest-hit launches (the
+    camera rays and the first bounce's), the first any-hit launch, the first
+    gather and the first splat sum."""
+    import torch
+    from cudatracerlib_tpu_torch.image import film as film_mod
+    from cudatracerlib_tpu_torch.ops import intersect_dense as ops
+    from cudatracerlib_tpu_torch.ops import shade_gather as sg_ops
+
+    dense, gathers = [], []
+    real_dense, real_gather = ops.intersect_dense, sg_ops._gather
+
+    def capture_dense(woop, o, d, t_min=1e-4, t_max=ops.T_MAX_CLAMP, any_hit=False, boxes=None):
+        keep = lambda x: x.clone() if isinstance(x, torch.Tensor) else x  # noqa: E731
+        if len(dense) < 3:
+            dense.append((woop, keep(o), keep(d), keep(t_min), keep(t_max), any_hit, boxes))
+        return real_dense(woop, o, d, t_min, t_max, any_hit=any_hit, boxes=boxes)
+
+    def capture_gather(table, idx):
+        if not gathers:
+            gathers.append((table, idx.clone()))
+        return real_gather(table, idx)
+
+    ops.intersect_dense, sg_ops._gather = capture_dense, capture_gather
+    try:
+        splats = _capture_splats(fn)
+        torch.cuda.synchronize()
+    finally:
+        ops.intersect_dense, sg_ops._gather = real_dense, real_gather
+    closest = [c for c in dense if not c[5]]
+    shadow = [c for c in dense if c[5]]
+    out = {"camera rays": closest[0], "first-bounce rays": closest[1]}
+    if shadow:
+        out["shadow rays"] = shadow[0]
+    return out, gathers, splats
+
+
+def _shading_phase(cornell, caustic, smi, reset_counts):
+    """Phase 21 (module docstring): the closed-form surface shading at full
+    size, its pins, and intersect_dense, packed_gather and the filtered
+    film's splat sum held to their plain versions at their new shapes."""
+    import torch
+    from cudatracerlib_tpu_torch.image import film as film_mod
+    from cudatracerlib_tpu_torch.ops import intersect_dense as ops
+    from cudatracerlib_tpu_torch.ops import shade_gather as sg_ops
+    from cudatracerlib_tpu_torch.render import bdpt, light_tracer, vcm
+    from cudatracerlib_tpu_torch.render import path_tracer as pt
+    from cudatracerlib_tpu_torch.scene import shapes
+    from cudatracerlib_tpu_torch.scene.sensors import Camera
+
+    def counts():
+        return {"intersect_dense": dict(ops.launches), "shade_gather": dict(sg_ops.launches)}
+
+    def pin(name, img, rays=None):
+        m, ref = float(img.mean()), SHADING_PINS[name]
+        _require(bool(torch.isfinite(img).all()), f"the pinned {name} image is not finite")
+        _require(abs(m - ref) <= SHADING_TOL * ref,
+                 f"pinned {name} mean {m} is not within {SHADING_TOL:.1%} of JAX's {ref}")
+        print(f"[pin] {name} ({SHADING_PIN_SIZE}x{SHADING_PIN_SIZE}, {SHADING_PIN_SPP} spp, seed "
+              f"{SHADING_PIN_SEED}): mean {m:.9f} (JAX {ref}, {100 * (m / ref - 1):+.5f}%)"
+              + ("" if rays is None else f", rays {int(rays)}"))
+        return m / ref - 1
+
+    ps, cfg = SHADING_PIN_SIZE, pt.PTConfig(max_depth=DEPTH)
+    pins, runs = {}, {}
+
+    def pinned(name, scene, config=cfg):
+        img, rays = pt.render_counted(scene, ps, ps, SHADING_PIN_SPP, SHADING_PIN_SEED, config)
+        pins[name] = pin(name, img, rays)
+
+    def bench(label, scene, config=cfg, require_pack=False, energy=False):
+        """Warm at seed 0, then one counted pass at seed 7 with the counts
+        reset just before and read just after, and its profile."""
+        pt.render_counted(scene, W, H, SPP, 0, config)
+        torch.cuda.synchronize()
+        reset_counts()
+        dt, (img, rays) = _timed(lambda: pt.render_counted(scene, W, H, SPP, 7, config))
+        launch = counts()
+        _require(launch["intersect_dense"]["closest"] > 0
+                 and launch["intersect_dense"]["any_hit"] > 0,
+                 f"{label} did not launch intersect_dense for both ray kinds: {launch}")
+        if require_pack:
+            _require(launch["shade_gather"]["gather"] > 0,
+                     f"{label} did not launch packed_gather: {launch}")
+        if config.rec_filter:
+            _require(launch["shade_gather"]["gather_bwd_tile"] == 1,
+                     f"{label} did not sum its taps in one splat call: {launch}")
+        _require(bool(torch.isfinite(img).all()) and tuple(img.shape) == (H, W, 3),
+                 f"the {label} image is not finite or has the wrong shape")
+        mean = float(img.mean())
+        if energy:
+            _require(mean < 1.1, f"{label} gains energy in the furnace: mean {mean}")
+        prof = _profile(label, lambda: pt.render_counted(scene, W, H, SPP, 7, config), top_n=3)
+        print(f"[main path] {label} {W}x{H} spp {SPP} depth {DEPTH} seed 7: rays {int(rays)}, "
+              f"{dt:.4f} s, {int(rays) / dt / 1e6:.3f} Mrays/s, mean {mean:.6f}, idle "
+              f"{prof['idle']:.3f}; launches {json.dumps(launch)}; {smi}")
+        runs[label] = dict(dt=dt, mrays=int(rays) / dt / 1e6, mean=mean, idle=prof["idle"],
+                           launches=launch)
+        return img
+
+    # (a) the furnace: every closed-form type, then the nested types over DIFFUSE
+    furnaces = {name: (lambda kw=kw: shapes.furnace_scene(**kw))
+                for name, kw in shapes.FURNACE_CASES.items()}
+    furnaces.update({name: (lambda tag=tag: shapes.nested_furnace(tag, **shapes.NESTED_KW))
+                     for name, tag in shapes.NESTED_CASES.items()})
+    checks = {}
+    for name, make in furnaces.items():
+        scene = make()
+        pinned(f"furnace_{name}", scene)
+        if name == "plastic":   # the kernels at the furnace's shapes, from a warm pass
+            dense, gathers, _ = _capture_render(
+                lambda: pt.render_counted(scene, W, H, SPP, 0, cfg))  # noqa: B023
+            checks["dense"] = {f"furnace {k}": _compare(f"furnace {k}", c[0], c[1], c[2], c[3],
+                                                        c[4], 10, c[6])
+                               for k, c in dense.items()}
+            checks["gather"] = _check_gather_at("furnace pack", *gathers[0])
+        bench(f"furnace {name}", scene, require_pack=True, energy=True)
+
+    # (b) the Cornell box through the other cameras
+    for name, view in shapes.CORNELL_CAMERAS.items():
+        scene = cornell._replace(camera=Camera.look_at(**view).to("cuda"))
+        pinned(f"cornell_{name}", scene)
+        bench(f"cornell {name}", scene)
+
+    # (c) the Gaussian-filtered film beside the box film
+    fcfg = pt.PTConfig(max_depth=DEPTH, rec_filter=1, rec_radius=1.5)
+    pins["gaussian"] = pin("gaussian", pt.render(cornell, ps, ps, SHADING_PIN_SPP,
+                                                 SHADING_PIN_SEED, fcfg))
+    _, _, splats = _capture_render(lambda: pt.render_counted(cornell, W, H, SPP, 0, fcfg))
+    pix, val, n_rows = splats[0]
+    print(f"[splat] filtered film: {val.shape[0]} taps x {val.shape[1]} columns onto {n_rows} "
+          f"rows; scratch {sg_ops.bwd_scratch_floats(val.shape[1], val.shape[0], n_rows) * 4} "
+          f"bytes, of which row masks "
+          f"{2 * -(-val.shape[0] // sg_ops.BWD_TILE) * -(-n_rows // 32) * 4} bytes")
+    checks["splat"] = _check_splat("filtered film (gaussian, 3x3 taps)", pix, val, n_rows,
+                                   val.device)
+    # the alternative design, one call a tap: the same rows' sums from 9 calls of 2^20 lanes
+    lanes = W * H * SPP   # the taps lie tap after tap (film.filter_taps)
+    taps = [(pix[k * lanes:(k + 1) * lanes], val[k * lanes:(k + 1) * lanes])
+            for k in range(pix.shape[0] // lanes)]
+    per_tap_ms = _time_ms(lambda: [film_mod.splat_sum(p_, v_, n_rows) for p_, v_ in taps], 10)
+    checks["splat"]["per_tap_ms"] = per_tap_ms
+    print(f"[time] splat sum filtered film, one call a tap ({len(taps)} calls of "
+          f"{taps[0][1].shape[0]} lanes, the sum of the taps' images left out): {per_tap_ms:.4f} ms "
+          f"against one call's {checks['splat']['wrap_ms']:.4f} ms")
+    checks["film_runs"] = _check_film_runs(1024, 1024, SPP)
+    bench("cornell gaussian", cornell, fcfg)
+    bench("cornell box film", cornell)
+    # a filtered pass at 1024x1024 (the splat sum in runs), once
+    reset_counts()
+    dt, (img, rays) = _timed(lambda: pt.render_counted(cornell, 1024, 1024, SPP, 7, fcfg))
+    launch = counts()
+    n_runs = checks["film_runs"]["runs"]
+    _require(bool(torch.isfinite(img).all()) and tuple(img.shape) == (1024, 1024, 3)
+             and launch["shade_gather"]["gather_bwd_tile"] >= 2,
+             f"the 1024x1024 Gaussian pass failed: {launch}")
+    print(f"[main path] cornell gaussian 1024x1024 spp {SPP} depth {DEPTH} seed 7: rays "
+          f"{int(rays)}, {dt:.4f} s, {int(rays) / dt / 1e6:.3f} Mrays/s, mean "
+          f"{float(img.mean()):.6f}, splat calls {launch['shade_gather']['gather_bwd_tile']} "
+          f"(the seeded film: {n_runs}); launches {json.dumps(launch)}; {smi}")
+    runs["cornell gaussian 1024"] = dict(dt=dt, mrays=int(rays) / dt / 1e6,
+                                         mean=float(img.mean()), launches=launch)
+    box_w, gauss_w = _paired_walls_ms(lambda: pt.render_counted(cornell, W, H, SPP, 7, cfg),
+                                      lambda: pt.render_counted(cornell, W, H, SPP, 7, fcfg),
+                                      SHADING_PAIRS)
+    checks["film_walls"] = dict(box_ms=_median(box_w), gaussian_ms=_median(gauss_w))
+    print(f"[main path] cornell pass walls, medians of {SHADING_PAIRS} alternating pairs: box "
+          f"film {_median(box_w):.3f} ms, Gaussian film {_median(gauss_w):.3f} ms "
+          f"(+{_median(gauss_w) - _median(box_w):.3f} ms); {smi}")
+
+    # (d) the caustic scene with regularization
+    rcfg = pt.PTConfig(max_depth=DEPTH, regularization=0.1)
+    pins["caustic_reg"] = pin("caustic_reg", pt.render(caustic, ps, ps, SHADING_PIN_SPP,
+                                                       SHADING_PIN_SEED, rcfg))
+    bench("caustic regularized", caustic, rcfg, require_pack=True)
+
+    # (e) the bidirectional engines on the point- and spot-lit Cornell box and the furnace
+    point_spot = shapes.cornell_point_spot()
+    furnace = shapes.furnace_scene()
+    n_pin, n_lt = ps * ps * SHADING_PIN_SPP, PPM_W * PPM_H * PPM_SPP
+    bidir = {
+        "lt_ps": (point_spot, lambda s, w, n, seed: light_tracer.render_light_trace(s, w, w, n, seed)),
+        "bdpt_ps": (point_spot, lambda s, w, n, seed: bdpt.render_bdpt(s, w, w, n, seed)),
+        "vcm_ps": (point_spot, lambda s, w, n, seed: vcm.render_vcm(s, w, w, n, seed, 1)),
+        "lt_furnace": (furnace, lambda s, w, n, seed: light_tracer.render_light_trace(
+            s, w, w, n, seed)),
+    }
+    for name, (scene, run) in bidir.items():
+        lt = name.startswith("lt")
+        pins[name] = pin(name, run(scene, ps, n_pin if lt else SHADING_PIN_SPP, SHADING_PIN_SEED))
+        n = n_lt if lt else PPM_SPP
+        run(scene, PPM_W, n, 0)   # warm
+        torch.cuda.synchronize()
+        reset_counts()
+        dt, img = _timed(lambda: run(scene, PPM_W, n, 7))  # noqa: B023
+        launch = counts()
+        _require(launch["intersect_dense"]["any_hit"] > 0
+                 and launch["shade_gather"]["gather_bwd_tile"] == 1,
+                 f"{name} did not launch intersect_dense and the splat sum: {launch}")
+        _require(bool(torch.isfinite(img).all()) and tuple(img.shape) == (PPM_H, PPM_W, 3),
+                 f"the {name} image is not finite or has the wrong shape")
+        print(f"[main path] {name} {PPM_W}x{PPM_H}, {f'{n} paths' if lt else f'{n} spp'}, "
+              f"seed 7: {dt:.4f} s a pass, mean {float(img.mean()):.6f}; launches "
+              f"{json.dumps(launch)}; {smi}")
+        runs[name] = dict(dt=dt, mean=float(img.mean()), launches=launch)
+    return dict(pins=pins, runs=runs, **checks)
+
+
 def _timed(fn):
     """Host wall in seconds of one call of `fn`, ending in a synchronize,
     and its result."""
@@ -2164,8 +2485,15 @@ def main():
     # ---- 20. SPPM: pinned runs, the caustic scene and the plume at full size ----
     sp = _sppm_phase(scene, caustic, smi, reset_counts)
     lap(20)
-    print(f"[wall] chip_smoke.py phases 1-20: {time.perf_counter() - t_start:.1f} s after the "
+
+    # ---- 21. closed-form surface shading: BSDFs, cameras, filters, regularization, lights ----
+    sh = _shading_phase(scene, caustic, smi, reset_counts)
+    lap(21)
+    print(f"[wall] chip_smoke.py phases 1-21: {time.perf_counter() - t_start:.1f} s after the "
           f"imports")
+    sh_launch = {k: r["launches"] for k, r in sh["runs"].items()}
+    sh_dense = sum(v["intersect_dense"]["closest"] + v["intersect_dense"]["any_hit"]
+                   for v in sh_launch.values())
     sp_c, sp_v = sp["runs"]["caustic"], sp["runs"]["plume beambeam"]
     vgl = vg["launches"]
 
@@ -2178,7 +2506,7 @@ def main():
             "launches": launches["closest"] + launches["any_hit"],
             "max_abs_err": max(dense_err, *(r["err"] for r in (
                 *bdpt_r.values(), *vol_r.values(), *vg["dense"].values(),
-                *sp_c["dense"].values(), *sp_v["dense"].values()))),
+                *sp_c["dense"].values(), *sp_v["dense"].values(), *sh["dense"].values()))),
             "ms": cam["ms"],
             "plain_ms": cam["plain_ms"],
             "bound_ms": cam["bound"][0],
@@ -2216,6 +2544,10 @@ def main():
             **{f"sppm_{label.split()[0]}_{k.split()[-2]}_{f}": (r[v][0] if v == "bound" else r[v])
                for label, run in sp["runs"].items() for k, r in run["dense"].items()
                for f, v in (("ms", "ms"), ("plain_ms", "plain_ms"), ("bound_ms", "bound"))},
+            "shading_launches": sh_dense,
+            **{f"furnace_{k.split()[1].split('-')[0]}_{f}": (r[v][0] if v == "bound" else r[v])
+               for k, r in sh["dense"].items()
+               for f, v in (("ms", "ms"), ("plain_ms", "plain_ms"), ("bound_ms", "bound"))},
         },
         {
             "name": "intersect_bvh",
@@ -2246,7 +2578,7 @@ def main():
             "source": "cudatracerlib_tpu_torch/csrc/shade_gather.cu",
             "replaces": "cudatracerlib_tpu/ops/shade_gather.py:69",
             "launches": glaunch["packed_gather"]["gather"],
-            "max_abs_err": max(gather_err, sp_c["gather"]["err"]),
+            "max_abs_err": max(gather_err, sp_c["gather"]["err"], sh["gather"]["err"]),
             "ms": ms_g,
             "plain_ms": plain_ms_g,
             "bound_ms": gather_bound[0],
@@ -2255,6 +2587,11 @@ def main():
             "bdpt_launches": launch5["packed_gather"]["gather"],
             **{f"bdpt_{k}_{f}": (r[v][0] if v == "bound" else r[v])
                for k, r in (("eye", g_eye), ("vertex", g_lv))
+               for f, v in (("ms", "ms"), ("plain_ms", "plain_ms"), ("library_ms", "lib_ms"),
+                            ("bound_ms", "bound"))},
+            "furnace_max_abs_err": sh["gather"]["err"],
+            "shading_launches": sum(v["shade_gather"]["gather"] for v in sh_launch.values()),
+            **{f"furnace_{f}": (sh["gather"][v][0] if v == "bound" else sh["gather"][v])
                for f, v in (("ms", "ms"), ("plain_ms", "plain_ms"), ("library_ms", "lib_ms"),
                             ("bound_ms", "bound"))},
             "sppm_launches": sp_c["launches"]["packed_gather"]["gather"],
@@ -2269,7 +2606,8 @@ def main():
             "replaces": "cudatracerlib_tpu/ops/shade_gather.py:127",
             "launches": gl["shade_gather"]["gather_bwd_tile"],
             "max_abs_err": max(*(b["err"] for b in bwd.values()), splat_bdpt["err"],
-                               splat_lt["err"], vg["grid"]["err"], vg["table"]["err"]),
+                               splat_lt["err"], vg["grid"]["err"], vg["table"]["err"],
+                               sh["splat"]["err"]),
             "ms": bwd["pack"]["ms"],
             "plain_ms": bwd["pack"]["plain_ms"],
             "bound_ms": bwd["pack"]["bound"][0],
@@ -2293,6 +2631,14 @@ def main():
                for f, v in (("ms", "ms"), ("wrapper_ms", "wrap_ms"), ("plain_ms", "plain_ms"),
                             ("library_ms", "lib_ms"), ("bound_ms", "bound"))},
             "lt_splat_launches": launch_lt["packed_gather"]["gather_bwd_tile"],
+            "filter_splat_launches": sh_launch["cornell gaussian"]["shade_gather"]["gather_bwd_tile"],
+            "shading_splat_launches": sum(v["shade_gather"]["gather_bwd_tile"]
+                                          for v in sh_launch.values()),
+            **{f"filter_splat_{f}": (sh["splat"][v][0] if v == "bound" else sh["splat"][v])
+               for f, v in (("ms", "ms"), ("wrapper_ms", "wrap_ms"), ("plain_ms", "plain_ms"),
+                            ("library_ms", "lib_ms"), ("bound_ms", "bound"),
+                            ("max_abs_err", "err"), ("max_rel_err", "rel"),
+                            ("scratch_bytes", "scratch"), ("per_tap_calls_ms", "per_tap_ms"))},
             "grid_launches": vgl["shade_gather"]["gather_bwd_tile"],
             **{f"{k}_{f}": (vg[k][v][0] if v == "bound" else vg[k][v])
                for k in ("grid", "table")

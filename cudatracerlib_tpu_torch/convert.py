@@ -36,6 +36,9 @@ _TENSOR_GROUPS = {
 # port-only leaves derived from others: left out of `flatten`, rebuilt by
 # `scene_from_numpy` (the dense intersector's boxes, from the Woop rows)
 _DERIVED = {"bvh.chunk_boxes"}
+# leaves the port keeps on the host as ints (scene-static: the camera
+# model), int32 arrays in `flatten` as in the JAX Scene
+_HOST_INTS = {"camera.ctype"}
 
 
 def flatten(tree, prefix: str = "") -> dict[str, np.ndarray]:
@@ -50,14 +53,19 @@ def flatten(tree, prefix: str = "") -> dict[str, np.ndarray]:
             out.update(flatten(v, key + "."))
         elif isinstance(v, torch.Tensor):
             out[key] = v.detach().cpu().numpy()
+        elif key in _HOST_INTS and isinstance(v, int):   # the port's; JAX's are arrays
+            out[key] = np.asarray(v, np.int32)
         elif v is not None and not isinstance(v, (tuple, dict)):
             out[key] = np.asarray(v)
     return out
 
 
 def _group(cls, arrays, prefix, device):
-    return cls(**{f: torch.from_numpy(np.array(arrays[f"{prefix}.{f}"])).to(device)
-                  for f in cls._fields})
+    def leaf(path):
+        if path in _HOST_INTS:
+            return int(arrays[path])
+        return torch.from_numpy(np.array(arrays[path])).to(device)
+    return cls(**{f: leaf(f"{prefix}.{f}") for f in cls._fields})
 
 
 def scene_from_numpy(arrays: dict[str, np.ndarray], device="cuda") -> Scene:

@@ -39,6 +39,20 @@ def sin_theta2(v):
     return torch.clamp(1.0 - v[..., 2] * v[..., 2], min=0.0)
 
 
+def sin_theta(v):
+    return torch.sqrt(sin_theta2(v))
+
+
+def sin_phi(v):
+    st = sin_theta(v)
+    return torch.where(st < 1e-9, 0.0, torch.clamp(v[..., 1] / torch.clamp(st, min=1e-9), -1.0, 1.0))
+
+
+def cos_phi(v):
+    st = sin_theta(v)
+    return torch.where(st < 1e-9, 1.0, torch.clamp(v[..., 0] / torch.clamp(st, min=1e-9), -1.0, 1.0))
+
+
 def tan_theta2(v):
     c2 = v[..., 2] * v[..., 2]
     return torch.clamp(1.0 - c2, min=0.0) / torch.clamp(c2, min=1e-12)

@@ -22,6 +22,11 @@ def _norm(v):
     return torch.sqrt(dot(v, v, keepdims=True))
 
 
+def roughness_to_alpha(roughness):
+    """Perceptual roughness -> alpha, clamped away from 0 for stability."""
+    return torch.clamp(torch.as_tensor(roughness, dtype=torch.float32), min=1e-4)
+
+
 def phong_exponent_from_alpha(alpha):
     return torch.div(2.0, torch.clamp(alpha * alpha, min=1e-8)) - 2.0
 

@@ -1,11 +1,11 @@
 """Square -> distribution warps (port of the cudatracerlib_tpu/math/warp.py
 warps the path tracer uses: cosine hemisphere, concentric disk, triangle,
-uniform sphere)."""
+uniform sphere, uniform cone)."""
 from __future__ import annotations
 
 import torch
 
-from .vecmath import INV_PI, PI, safe_sqrt
+from .vecmath import INV_PI, INV_TWOPI, PI, safe_sqrt
 
 
 def square_to_uniform_sphere(u):
@@ -46,3 +46,15 @@ def square_to_uniform_triangle(u):
     """Barycentric warp (sqrt parameterization)."""
     a = safe_sqrt(1.0 - u[..., 0])
     return torch.stack([1.0 - a, a * u[..., 1]], dim=-1)
+
+
+def square_to_uniform_cone(u, cos_cutoff):
+    """Uniform direction in the cone about +z with cos(angle) >= cos_cutoff."""
+    z = cos_cutoff + u[..., 0] * (1.0 - cos_cutoff)
+    r = safe_sqrt(1.0 - z * z)
+    phi = 2.0 * PI * u[..., 1]
+    return torch.stack([r * torch.cos(phi), r * torch.sin(phi), z], dim=-1)
+
+
+def square_to_uniform_cone_pdf(cos_cutoff):
+    return INV_TWOPI / torch.clamp(1.0 - cos_cutoff, min=1e-12)

@@ -21,8 +21,10 @@ The streams (seed ^ 0x1117 for the light paths, the seed for the eye
 paths), the draw order and the flat=False frames are the JAX package's, so
 the CPU port traces the JAX package's paths lane for lane and counts the
 same rays. Forward only: the entry points run under `torch.no_grad()`.
-Emitted rays are ported for area and environment-map lights (POINT and
-CONSTANT_ENV raise NotImplementedError, as in `sample_emitter_ray`).
+The light paths start from `sample_emitter_ray` for every light type, and
+the lens connection is the pinhole's for every camera model, as in JAX.
+`eval_bsdf` / `sample_bsdf` run without the nested dispatch, as in the JAX
+module, so COATING / ROUGHCOATING / BLEND lanes carry no weight here.
 """
 from __future__ import annotations
 
@@ -208,8 +210,8 @@ def eye_rays(scene: Scene, width: int, height: int, spp: int, seed):
     px = (pixel_id % width).to(torch.float32)
     py = (pixel_id // width).to(torch.float32)
     film_uv = torch.stack([(px + jitter[:, 0]) / width, (py + jitter[:, 1]) / height], -1)
-    smp, _ = smp.next_2d()  # the aperture draw (thin lens, not ported)
-    o, d, w_cam = sensors.sample_ray(scene.camera, film_uv)
+    smp, u_ap = smp.next_2d()
+    o, d, w_cam = sensors.sample_ray(scene.camera, film_uv, u_ap)
     return o, d, w_cam, smp
 
 

@@ -17,11 +17,15 @@ the sampler is counter-based, so the recompute is exact. With no tensor that
 requires grad nothing is recorded; `render_counted` and
 `render_progressive` run without gradients.
 
-Ported: the BSDF, light and texture types of scene/bsdf.py, lights.py and
-textures.py `PORTED`, PERSPECTIVE cameras, with or without NEE, and the
-fused shade-pack path on the card. Every other type tag or PTConfig feature
-(`regularization`, `rec_filter != 0`, `sss`, `alpha_test`,
-normal/height/parallax maps, media) raises NotImplementedError.
+Ported: every BSDF tag (the nested COATING / ROUGHCOATING / BLEND through
+`bsdf.eval_bsdf_nested` / `sample_bsdf_nested`) and light type, the texture
+types of scene/textures.py `PORTED`, all five camera models, with or
+without NEE, path-space regularization (`_regularize`), filter-importance
+splatting (`rec_filter` 1-4, `image/film.add_samples_filtered`) and the
+fused shade-pack path on the card. What stays unported raises
+NotImplementedError: media in `render` (`media_modes`; render/volpath.py
+renders media), `sss`, `alpha_test`, normal/height/parallax maps and the
+texture types scene/textures.py does not port.
 """
 from __future__ import annotations
 
@@ -31,6 +35,7 @@ import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from ..image import film as film_mod
 from ..math import montecarlo as mc
 from ..math.vecmath import dot
 from ..sampling.records import DISCRETE
@@ -40,7 +45,7 @@ from ..scene import lights as lights_mod
 from ..scene import sensors
 from ..scene import textures as tex_mod
 from ..scene import scene as scene_mod
-from ..scene.scene import Scene
+from ..scene.scene import Scene, gather_nested_params
 from ..scene.shade_pack import build_shade_pack, hit_shading, pack_enabled
 
 RAY_EPS = 1e-3
@@ -51,7 +56,9 @@ class PTConfig(NamedTuple):
     rr_start: int = 5
     direct: bool = True          # NEE on/off
     ray_eps: float = RAY_EPS
-    regularization: float = 0.0  # path-space regularization (not ported)
+    # path-space regularization: after the first bounce, delta BSDFs are
+    # mollified into rough lobes of this alpha (0 = off)
+    regularization: float = 0.0
     # scene-static specialization (filled by specialize_config)
     bsdf_types: tuple | None = None
     light_types: tuple | None = None
@@ -62,15 +69,16 @@ class PTConfig(NamedTuple):
     parallax: bool = False
     alpha_test: bool = False
     remat: bool = False          # recompute each bounce in the backward
-    rec_filter: int = 0          # 0 = box filter; the others are not ported
+    # reconstruction filter at accumulation: 0 = box (the reshape-sum film),
+    # 1 gaussian, 2 mitchell, 3 lanczos, 4 triangle (filter-importance splats)
+    rec_filter: int = 0
+    rec_radius: float = 1.5
     media_modes: tuple | None = None
     sss: bool = False
 
 
-def _check_ported(scene: Scene, config: PTConfig) -> None:
+def _check_ported(config: PTConfig) -> None:
     unported = [name for name, on in (
-        ("regularization", config.regularization > 0.0),
-        ("rec_filter", config.rec_filter != 0),
         ("media_modes", config.media_modes is not None),
         ("sss", config.sss),
         ("alpha_test", config.alpha_test),
@@ -80,17 +88,31 @@ def _check_ported(scene: Scene, config: PTConfig) -> None:
     ) if on]
     if unported:
         raise NotImplementedError(f"PTConfig features not ported: {unported}")
+    if config.rec_filter not in range(5):
+        raise NotImplementedError(f"rec_filter {config.rec_filter}: the filters are 0 (box) "
+                                  f"to 4 (triangle)")
     bsdf_mod.check_ported(config.bsdf_types)
     lights_mod.check_ported(config.light_types)
     tex_mod.check_ported(config.tex_types)
-    if int(scene.camera.ctype) != sensors.PERSPECTIVE:
-        raise NotImplementedError("only PERSPECTIVE cameras are ported")
+
+
+def _regularized_types(bsdf_types: tuple) -> tuple:
+    """The type set under regularization: mollified delta lobes add the
+    rough families they become."""
+    mapped = set(bsdf_types)
+    if bsdf_mod.CONDUCTOR in mapped:
+        mapped.add(bsdf_mod.ROUGHCONDUCTOR)
+    if bsdf_mod.DIELECTRIC in mapped or bsdf_mod.THINDIELECTRIC in mapped:
+        mapped.add(bsdf_mod.ROUGHDIELECTRIC)
+    return tuple(sorted(mapped))
 
 
 def specialize_config(scene: Scene, config: PTConfig) -> PTConfig:
     """Fill the static type sets and flags from the scene (host side): from
     the specialization `build_scene` kept on the scene, or else from the
-    scene's arrays. Raises NotImplementedError for what is not ported."""
+    scene's arrays; with `regularization`, the rough families the delta
+    lobes become join the BSDF set. Raises NotImplementedError for what is
+    not ported."""
     if config.bsdf_types is None:
         spec = scene.spec
         if spec is None:
@@ -101,7 +123,9 @@ def specialize_config(scene: Scene, config: PTConfig) -> PTConfig:
                 host(scene.textures.ttype), np.unique(host(scene.lights.ltype)),
                 host(sh.normals), host(sh.n_face), host(sh.uvs))
         config = config._replace(**spec)
-    _check_ported(scene, config)
+        if config.regularization > 0.0:
+            config = config._replace(bsdf_types=_regularized_types(config.bsdf_types))
+    _check_ported(config)
     return config
 
 
@@ -120,6 +144,21 @@ def _light_select_pmf(scene: Scene, lid, like):
     hi = cdf[lid]
     lo = torch.where(lid > 0, cdf[torch.clamp(lid - 1, min=0)], 0.0)
     return torch.clamp(hi - lo, min=0.0)
+
+
+def _regularize(mp: bsdf_mod.MatParams, depth, alpha: float) -> bsdf_mod.MatParams:
+    """Mollify delta lobes into rough microfacet lobes of roughness `alpha`
+    after the first bounce (path-space regularization): CONDUCTOR becomes
+    ROUGHCONDUCTOR, DIELECTRIC and THINDIELECTRIC ROUGHDIELECTRIC. `depth`
+    is an int or a per-lane tensor."""
+    t = mp.bsdf_type
+    mollify = depth > 0
+    new_t = torch.where(mollify & (t == bsdf_mod.CONDUCTOR), bsdf_mod.ROUGHCONDUCTOR, t)
+    new_t = torch.where(mollify & ((t == bsdf_mod.DIELECTRIC) | (t == bsdf_mod.THINDIELECTRIC)),
+                        bsdf_mod.ROUGHDIELECTRIC, new_t).to(t.dtype)
+    was_delta = new_t != t
+    return mp._replace(bsdf_type=new_t, alpha_u=torch.where(was_delta, alpha, mp.alpha_u),
+                       alpha_v=torch.where(was_delta, alpha, mp.alpha_v))
 
 
 def _offset_ray(p, n_geo, w, eps):
@@ -160,6 +199,10 @@ def surface_bounce(scene: Scene, config: PTConfig, *, o, d, active, throughput,
     s = sampler
     hit = scene_mod.scene_intersect(scene, o, d)
     it, mp = hit_shading(scene, o, d, hit, pack, config.tex_types, flat=config.flat_shading)
+    nested = any(x in config.bsdf_types for x in bsdf_mod.NESTED)
+    mp_in = gather_nested_params(scene, it, config.tex_types) if nested else None
+    if config.regularization > 0.0:
+        mp = _regularize(mp, depth, config.regularization)
     found = hit.valid & active
     L = torch.zeros(B, 3, device=o.device)
     no_mis = prev_delta if config.direct else torch.ones_like(prev_delta)
@@ -195,8 +238,12 @@ def surface_bounce(scene: Scene, config: PTConfig, *, o, d, active, throughput,
         lsel, lpmf, _ = _select_light(scene, u_sel)
         ds, Lrad = lights_mod.sample_direct(scene.lights, lsel, it.p, u_l2,
                                             active=config.light_types)
-        f_l, pdf_b_l = bsdf_mod.eval_bsdf(mp, wo_local, it.frame.to_local(ds.d),
-                                          active=config.bsdf_types)
+        wi_l = it.frame.to_local(ds.d)
+        if nested:
+            f_l, pdf_b_l = bsdf_mod.eval_bsdf_nested(mp, mp_in, wo_local, wi_l,
+                                                     active=config.bsdf_types)
+        else:
+            f_l, pdf_b_l = bsdf_mod.eval_bsdf(mp, wo_local, wi_l, active=config.bsdf_types)
         sh_o = _offset_ray(it.p, it.n_geo, ds.d, config.ray_eps)
         blocked = scene_mod.scene_occluded(scene, sh_o, ds.d, t_min=config.ray_eps,
                                            t_max=ds.dist - 2.0 * config.ray_eps)
@@ -220,7 +267,11 @@ def surface_bounce(scene: Scene, config: PTConfig, *, o, d, active, throughput,
     # ---- BSDF sampling ----
     s, u_b2 = s.next_2d()
     s, u_b1 = s.next_1d()
-    bs = bsdf_mod.sample_bsdf(mp, wo_local, u_b2, u_b1, active=config.bsdf_types)
+    if nested:
+        bs = bsdf_mod.sample_bsdf_nested(mp, mp_in, wo_local, u_b2, u_b1,
+                                         active=config.bsdf_types)
+    else:
+        bs = bsdf_mod.sample_bsdf(mp, wo_local, u_b2, u_b1, active=config.bsdf_types)
     wi_world = it.frame.to_world(bs.wi)
     new_o = _offset_ray(it.p, it.n_geo, wi_world, config.ray_eps)
     new_tp = throughput * bs.weight
@@ -306,10 +357,11 @@ def block_order_pixels_np(width: int, height: int, block: int = 32) -> np.ndarra
     return np.concatenate(ids).astype(np.int64)
 
 
-def camera_rays(scene: Scene, width: int, height: int, spp: int, seed):
+def _camera_samples(scene: Scene, width: int, height: int, spp: int, seed):
     """The pass prologue: block-ordered pixel ids repeated spp times, the
-    per-lane sampler, jittered film positions and the camera rays.
-    Returns (o, d, w_cam, sampler)."""
+    per-lane sampler, jittered film positions, the aperture sample and the
+    camera rays. Returns (o, d, w_cam, sampler, sx, sy), (sx, sy) the
+    samples' continuous film positions in pixels."""
     dev = scene.light_cdf.device
     pixel_id = torch.from_numpy(block_order_pixels_np(width, height)).to(dev).repeat(spp)
     sample_idx = torch.arange(spp, device=dev).repeat_interleave(width * height)
@@ -317,26 +369,41 @@ def camera_rays(scene: Scene, width: int, height: int, spp: int, seed):
     px = (pixel_id % width).to(torch.float32)
     py = (pixel_id // width).to(torch.float32)
     sampler, jitter = sampler.next_2d()
-    film_uv = torch.stack([(px + jitter[:, 0]) / width, (py + jitter[:, 1]) / height], -1)
-    sampler, _ = sampler.next_2d()  # the aperture draw (thin lens, not ported)
-    o, d, w_cam = sensors.sample_ray(scene.camera, film_uv)
-    return o, d, w_cam, sampler
+    sx, sy = px + jitter[:, 0], py + jitter[:, 1]
+    film_uv = torch.stack([sx / width, sy / height], -1)
+    sampler, u_ap = sampler.next_2d()
+    o, d, w_cam = sensors.sample_ray(scene.camera, film_uv, u_ap)
+    return o, d, w_cam, sampler, sx, sy
+
+
+def camera_rays(scene: Scene, width: int, height: int, spp: int, seed):
+    """The camera rays of a pass (see `_camera_samples`): (o, d, w_cam,
+    sampler)."""
+    return _camera_samples(scene, width, height, spp, seed)[:4]
 
 
 def _render_body(scene: Scene, width: int, height: int, spp: int, seed,
                  config: PTConfig, with_stats: bool):
-    o, d, w_cam, sampler = camera_rays(scene, width, height, spp, seed)
+    o, d, w_cam, sampler, sx, sy = _camera_samples(scene, width, height, spp, seed)
     out = trace_radiance(scene, o, d, sampler, config, with_stats=with_stats)
     L = torch.nan_to_num(out[0] * w_cam, nan=0.0, posinf=0.0, neginf=0.0)
+    stats = (out[2], out[3]) if with_stats else None
+    if config.rec_filter != 0:
+        # filter-importance splatting: each sample lands in the pixels of its
+        # filter support with continuous weights
+        film = film_mod.add_samples_filtered(
+            film_mod.Film.create(height, width, device=o.device), sx, sy, L,
+            config.rec_filter, config.rec_radius,
+            support=max(1, int(np.ceil(config.rec_radius - 0.5))))
+        img = film.rgb / torch.clamp(film.weight, min=1e-8)[..., None]
+        return (img, stats) if with_stats else img
     # the sample -> pixel map is a fixed permutation repeated spp times, so
     # the film is a reshape-sum plus a static inverse-permutation gather
     n_px = width * height
     slot_sum = L.reshape(spp, n_px, 3).sum(0) / spp
     inv_perm = torch.from_numpy(np.argsort(block_order_pixels_np(width, height))).to(o.device)
     img = slot_sum[inv_perm].reshape(height, width, 3)
-    if with_stats:
-        return img, (out[2], out[3])
-    return img
+    return (img, stats) if with_stats else img
 
 
 def render(scene: Scene, width: int, height: int, spp: int, seed,

@@ -174,8 +174,8 @@ def ppm_eye_pass(scene: Scene, pm: PhotonMap, grids, pixel_id, sample_idx, seed,
     px = (pixel_id % width).to(torch.float32)
     py = (pixel_id // width).to(torch.float32)
     uv = torch.stack([(px + jitter[:, 0]) / width, (py + jitter[:, 1]) / height], -1)
-    smp, _ = smp.next_2d()  # the aperture draw (thin lens, not ported)
-    o, d, w_cam = sensors.sample_ray(scene.camera, uv)
+    smp, u_ap = smp.next_2d()
+    o, d, w_cam = sensors.sample_ray(scene.camera, uv, u_ap)
 
     w = torch.ones(B, 3, device=dev)
     L = torch.zeros(B, 3, device=dev)

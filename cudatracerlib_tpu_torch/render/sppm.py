@@ -429,8 +429,8 @@ def _sppm_pass(scene: Scene, media, width: int, height: int, seed, state: SPPMSt
     px = (pixel_id % width).to(torch.float32)
     py = (pixel_id // width).to(torch.float32)
     uv = torch.stack([(px + jitter[:, 0]) / width, (py + jitter[:, 1]) / height], -1)
-    smp, _ = smp.next_2d()  # the aperture draw (thin lens, not ported)
-    o_cam, d_cam, w_cam = sensors.sample_ray(scene.camera, uv)
+    smp, u_ap = smp.next_2d()
+    o_cam, d_cam, w_cam = sensors.sample_ray(scene.camera, uv, u_ap)
 
     o, d = o_cam, d_cam
     w = torch.ones(B, 3, device=dev)

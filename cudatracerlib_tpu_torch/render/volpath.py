@@ -228,8 +228,8 @@ def _camera_batch(scene: Scene, width: int, height: int, spp: int, seed):
     py = (pixel_id // width).to(torch.float32)
     sampler, jitter = sampler.next_2d()
     film_uv = torch.stack([(px + jitter[:, 0]) / width, (py + jitter[:, 1]) / height], -1)
-    sampler, _ = sampler.next_2d()  # the aperture draw (thin lens, not ported)
-    o, d, w_cam = sensors.sample_ray(scene.camera, film_uv)
+    sampler, u_ap = sampler.next_2d()
+    o, d, w_cam = sensors.sample_ray(scene.camera, film_uv, u_ap)
     return pixel_id, o, d, w_cam, sampler
 
 

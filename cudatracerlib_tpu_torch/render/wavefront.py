@@ -35,8 +35,8 @@ def _camera_ray(scene: Scene, ray_id, seed: int, width: int, height: int):
     px = (pixel % width).to(torch.float32)
     py = (pixel // width).to(torch.float32)
     uv = torch.stack([(px + jitter[:, 0]) / width, (py + jitter[:, 1]) / height], -1)
-    smp, _ = smp.next_2d()  # the aperture draw (thin lens, not ported)
-    o, d, _ = sensors.sample_ray(scene.camera, uv)
+    smp, u_ap = smp.next_2d()
+    o, d, _ = sensors.sample_ray(scene.camera, uv, u_ap)
     return pixel, o, d, smp.state
 
 

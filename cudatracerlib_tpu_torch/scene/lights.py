@@ -1,11 +1,12 @@
 """Light sources (port of cudatracerlib_tpu/scene/lights.py:105-535).
 
 `build_lights` assembles the same SoA table as the JAX package for every
-light type (environment importance tables included). Direct sampling and
-emission are ported for POINT, AREA_LIGHT, INFINITE (the equirectangular
-environment map) and CONSTANT_ENV; emitted-ray sampling (the photon entry
-point) for AREA_LIGHT and INFINITE. A static light-type set with any other
-type raises NotImplementedError. `lid` may be an int or a per-lane tensor.
+light type (environment importance tables included). Every light type is
+ported: direct sampling and emission for POINT, SPOT (with its smooth
+falloff), DISTANT, AREA_LIGHT, INFINITE (the equirectangular environment
+map) and CONSTANT_ENV, and emitted-ray sampling (the photon and light-tracing
+entry point) for all six. The static light-type set is required (None
+raises NotImplementedError). `lid` may be an int or a per-lane tensor.
 Every emission quantity is differentiable in the light table.
 """
 from __future__ import annotations
@@ -30,8 +31,7 @@ AREA_LIGHT = 3
 INFINITE = 4     # environment map
 CONSTANT_ENV = 5
 
-PORTED = (POINT, AREA_LIGHT, INFINITE, CONSTANT_ENV)
-EMITTER_PORTED = (AREA_LIGHT, INFINITE)   # sample_emitter_ray
+PORTED = (POINT, SPOT, DISTANT, AREA_LIGHT, INFINITE, CONSTANT_ENV)
 DELTA = (POINT, SPOT, DISTANT)            # sampled with a discrete measure
 MAX_LIGHT_TRIS = 64   # per-light CDF padding
 
@@ -65,9 +65,12 @@ class Lights(NamedTuple):
         return tree_to(self, device)
 
 
-def check_ported(light_types, ported=PORTED):
-    if light_types is None or not set(light_types) <= set(ported):
-        raise NotImplementedError(f"light types {light_types}: only {ported} are ported")
+def check_ported(light_types):
+    """The port always passes the static type set; None and unknown types
+    are refused."""
+    if light_types is None or not set(light_types) <= set(PORTED):
+        raise NotImplementedError(f"light types {light_types}: pass the static tuple of "
+                                  f"types in {PORTED}")
 
 
 def build_lights(records: list[dict], world_center, world_radius,
@@ -192,6 +195,31 @@ def _sample_point(lights: Lights, lid, ref_p, u2):
     return ref_p + d * dist[..., None], -d, d, dist, torch.ones_like(dist), rad
 
 
+def _spot_falloff(lights: Lights, lid, w):
+    """Smooth spot falloff: 0 outside the cone of cos_width, 1 inside the
+    cone of cos_falloff, a smoothstep between. `w` points from the light
+    toward the shaded point, negated (cd = -w . direction)."""
+    cd = -dot(w, gather_rows(lights.direction, lid))
+    cw = gather_rows(lights.spot_cos_width, lid)
+    cf = gather_rows(lights.spot_cos_falloff, lid)
+    t = torch.clamp((cd - cw) / torch.clamp(cf - cw, min=1e-6), 0.0, 1.0)
+    return torch.where(cd < cw, 0.0, torch.where(cd > cf, 1.0, t * t * (3.0 - 2.0 * t)))
+
+
+def _sample_spot(lights: Lights, lid, ref_p, u2):
+    """Toward spot light `lid`: the point light's sample times the falloff."""
+    p, n, d, dist, pdf, rad = _sample_point(lights, lid, ref_p, u2)
+    return p, n, d, dist, pdf, rad * _spot_falloff(lights, lid, d)[..., None]
+
+
+def _sample_distant(lights: Lights, lid, ref_p, u2):
+    """Toward distant light `lid`: against its direction, the point placed
+    at twice the scene's radius, the irradiance as radiance, pdf 1."""
+    d = (-gather_rows(lights.direction, lid)).expand(ref_p.shape)
+    rad = gather_rows(lights.radiance, lid).expand(ref_p.shape)
+    return _env_point(lights, ref_p, d, torch.ones(ref_p.shape[:-1], device=ref_p.device), rad)
+
+
 def _sample_area(lights: Lights, lid, ref_p, u2):
     """A point on area light `lid`: (p, n, d, dist, pdf, radiance)."""
     p, n = _area_point(lights, lid, u2)
@@ -225,17 +253,19 @@ def _sample_const_env_direct(lights: Lights, lid, ref_p, u2):
     return _env_point(lights, ref_p, d, pdf, gather_rows(lights.radiance, lid).expand(d.shape))
 
 
-_DIRECT = ((POINT, _sample_point), (AREA_LIGHT, _sample_area),
+_DIRECT = ((POINT, _sample_point), (SPOT, _sample_spot), (DISTANT, _sample_distant),
+           (AREA_LIGHT, _sample_area),
            (INFINITE, _sample_env_direct), (CONSTANT_ENV, _sample_const_env_direct))
 
 
 def sample_direct(lights: Lights, lid, ref_p, u2, active=None):
-    """Sample a direction from `ref_p` toward light `lid`: a point light, a
-    point on an area light, an importance-sampled direction of the
+    """Sample a direction from `ref_p` toward light `lid`: a point or spot
+    light, against a distant light's direction, a point on an area light, an importance-sampled direction of the
     environment map or a uniform one of the constant environment.
 
     Returns (DirectSample, radiance (..., 3)); the pdf is w.r.t. solid angle
-    at ref_p, except for a point light, whose measure is DISCRETE with pdf 1
+    at ref_p, except for the delta lights (point, spot, distant), whose
+    measure is DISCRETE with pdf 1
     (the reference convention; MIS treats it as unmatchable). `active`: the
     static tuple of light types in the scene; only their branches are
     computed, and with one type its branch is the result (every light of the
@@ -356,12 +386,11 @@ def _emit_area(lights: Lights, lid, u_pos, u_dir):
     return p + n * 1e-4, d, w.expand(d.shape)
 
 
-def _emit_env(lights: Lights, lid, u_pos, u_dir):
-    """Emitted ray of the environment map: an importance-sampled direction,
-    its origin on the world-sphere disk facing it."""
+def _emit_from_env(lights: Lights, u_pos, d_env, pdf_env, rad_env):
+    """Emitted ray of an environment direction d_env: toward the scene,
+    from the world-sphere disk facing it, weight Le pi r^2 / pdf."""
     wr = torch.clamp(lights.world_radius, min=1e-6)
-    d_env, pdf_env, rad_env = _sample_env(lights, lid, u_dir)
-    d = -d_env  # emitted toward the scene
+    d = -d_env
     disk = warp.square_to_uniform_disk_concentric(u_pos) * wr
     on_disk = torch.stack([disk[..., 0], disk[..., 1], torch.zeros_like(disk[..., 0])], dim=-1)
     o = lights.world_center + Frame.from_normal(d).to_world(on_disk) - d * wr
@@ -369,17 +398,61 @@ def _emit_env(lights: Lights, lid, u_pos, u_dir):
     return o, d, w
 
 
+def _emit_env(lights: Lights, lid, u_pos, u_dir):
+    """Emitted ray of the environment map: an importance-sampled direction."""
+    return _emit_from_env(lights, u_pos, *_sample_env(lights, lid, u_dir))
+
+
+def _emit_const_env(lights: Lights, lid, u_pos, u_dir):
+    """Emitted ray of the constant environment: a uniform direction."""
+    d = warp.square_to_uniform_sphere(u_dir)
+    pdf = torch.full(d.shape[:-1], INV_FOURPI, device=d.device)
+    return _emit_from_env(lights, u_pos, d, pdf, gather_rows(lights.radiance, lid).expand(d.shape))
+
+
+def _emit_point(lights: Lights, lid, u_pos, u_dir):
+    """Emitted ray of a point light: a uniform direction, weight I 4 pi."""
+    d = warp.square_to_uniform_sphere(u_dir)
+    o = gather_rows(lights.position, lid).expand(d.shape)
+    return o, d, (gather_rows(lights.radiance, lid) * (4.0 * PI)).expand(d.shape)
+
+
+def _emit_spot(lights: Lights, lid, u_pos, u_dir):
+    """Emitted ray of a spot light: uniform in its cone of cos_width about
+    its direction, weight I falloff / pdf_cone."""
+    cw = gather_rows(lights.spot_cos_width, lid)
+    d = Frame.from_normal(gather_rows(lights.direction, lid)).to_world(
+        warp.square_to_uniform_cone(u_dir, cw))
+    fall = _spot_falloff(lights, lid, -d)
+    w = (gather_rows(lights.radiance, lid) * fall[..., None]
+         / torch.clamp(warp.square_to_uniform_cone_pdf(cw), min=1e-12)[..., None])
+    return gather_rows(lights.position, lid).expand(d.shape), d, w
+
+
+def _emit_distant(lights: Lights, lid, u_pos, u_dir):
+    """Emitted ray of a distant light: along its direction, from the disk
+    of the world sphere's radius facing it, weight E pi r^2."""
+    wr = torch.clamp(lights.world_radius, min=1e-6)
+    dirn = gather_rows(lights.direction, lid)
+    disk = warp.square_to_uniform_disk_concentric(u_pos) * wr
+    on_disk = torch.stack([disk[..., 0], disk[..., 1], torch.zeros_like(disk[..., 0])], dim=-1)
+    o = lights.world_center + Frame.from_normal(dirn).to_world(on_disk) - dirn * wr
+    w = gather_rows(lights.radiance, lid) * (PI * wr * wr)
+    return o, dirn.expand(o.shape), w.expand(o.shape)
+
+
+_EMIT = ((POINT, _emit_point), (SPOT, _emit_spot), (DISTANT, _emit_distant),
+         (AREA_LIGHT, _emit_area), (INFINITE, _emit_env), (CONSTANT_ENV, _emit_const_env))
+
+
 def sample_emitter_ray(lights: Lights, lid, u_pos, u_dir, active=None):
     """Sample an emitted ray of light `lid` (the photon and light-tracing
     entry point, reference sampleEmitterRay). Returns (origin, direction,
     power weight (..., 3)), the weight being Le cos / (pdf_pos pdf_dir) so a
     particle walk just multiplies. `active`: the static tuple of light types
-    in the scene; only their branches are computed, as in sample_direct.
-    POINT and CONSTANT_ENV emitters are not ported here and raise."""
-    check_ported(active, EMITTER_PORTED)
-    branches = [(tag, fn(lights, lid, u_pos, u_dir))
-                for tag, fn in ((AREA_LIGHT, _emit_area), (INFINITE, _emit_env))
-                if tag in active]
+    in the scene; only their branches are computed, as in sample_direct."""
+    check_ported(active)
+    branches = [(tag, fn(lights, lid, u_pos, u_dir)) for tag, fn in _EMIT if tag in active]
     o, d, w = branches[0][1]
     for tag, (o_i, d_i, w_i) in branches[1:]:
         m = (lights.ltype[lid] == tag)[..., None]

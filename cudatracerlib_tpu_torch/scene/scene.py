@@ -233,6 +233,14 @@ def gather_mat_params(scene: Scene, it: Interaction, tex_types=None) -> bsdf_mod
     )
 
 
+def gather_nested_params(scene: Scene, it: Interaction, tex_types=None) -> bsdf_mod.MatParams:
+    """MatParams of each lane's nested material (the inner BSDF of a
+    coating or blend, one level): `gather_mat_params` at the material's
+    `nested_id`."""
+    inner = gather_rows(scene.materials.nested_id, it.mat_id.long())
+    return gather_mat_params(scene, it._replace(mat_id=inner), tex_types)
+
+
 def specialization(mat_id: np.ndarray, materials: dict, tex_ttype: np.ndarray,
                    light_types, normals: np.ndarray, n_face: np.ndarray,
                    uvs: np.ndarray) -> dict:

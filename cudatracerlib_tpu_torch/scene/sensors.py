@@ -2,9 +2,14 @@
 
 Cameras look down +z in camera space; `to_world` is a (4, 4) camera-to-world
 transform. Film coordinates (u, v) in [0,1]^2 have (0,0) at the top-left
-pixel. Ray generation and the lens connection (`sample_direct`) are ported
-for PERSPECTIVE cameras. The 3x3 transforms are written as explicit float32
-arithmetic, not matmuls, so no TF32 path can touch them.
+pixel. Ray generation is ported for all five camera models (PERSPECTIVE,
+THINLENS, ORTHOGRAPHIC, SPHERICAL, TELECENTRIC); the lens connection
+(`sample_direct`) is the pinhole's for every model, as in the JAX package.
+The model is scene-static, so `Camera.ctype` is a host int (the JAX
+package's is an int32 array that every model's rays are selected by) and
+`sample_ray` computes only that model's rays.
+The 3x3 transforms are written as explicit float32 arithmetic, not matmuls,
+so no TF32 path can touch them.
 """
 from __future__ import annotations
 
@@ -15,7 +20,8 @@ import numpy as np
 import torch
 
 from .._tree import tree_to
-from ..math.vecmath import normalize
+from ..math import warp
+from ..math.vecmath import PI, normalize
 
 PERSPECTIVE = 0
 THINLENS = 1
@@ -25,7 +31,7 @@ TELECENTRIC = 4
 
 
 class Camera(NamedTuple):
-    ctype: torch.Tensor            # () int32
+    ctype: int                     # camera model, on the host
     to_world: torch.Tensor         # (4, 4) camera-to-world
     tan_half_fov: torch.Tensor     # () tan(fov_x / 2)
     aspect: torch.Tensor           # () width / height
@@ -58,7 +64,7 @@ class Camera(NamedTuple):
         m[:3, 3] = origin
         f32 = lambda x: torch.tensor(np.float32(x))  # noqa: E731
         return Camera(
-            ctype=torch.tensor(np.int32(ctype)),
+            ctype=int(ctype),
             to_world=torch.from_numpy(m.astype(np.float32)),
             tan_half_fov=f32(np.tan(np.radians(fov_deg) / 2)),
             aspect=f32(aspect),
@@ -77,14 +83,44 @@ def _xform(m, v, point: bool):
     return torch.stack(rows, dim=-1)
 
 
-def sample_ray(cam: Camera, film_uv):
-    """Primary rays for film positions (..., 2) in [0,1]^2 of a PERSPECTIVE
-    camera. Returns (origin, direction, importance_weight). The caller checks
-    the camera type once per render (render/path_tracer.specialize_config)."""
-    x = (film_uv[..., 0] * 2.0 - 1.0) * cam.tan_half_fov
-    y = (1.0 - film_uv[..., 1] * 2.0) * cam.tan_half_fov / cam.aspect
-    d_cam = normalize(torch.stack([x, y, torch.ones_like(x)], dim=-1))
-    o = _xform(cam.to_world, torch.zeros_like(d_cam), point=True)
+def sample_ray(cam: Camera, film_uv, u_aperture):
+    """Primary rays for film positions (..., 2) in [0,1]^2. Returns
+    (origin, direction, importance_weight). `u_aperture` (..., 2) drives the
+    lens of THINLENS and TELECENTRIC cameras (the other models ignore it).
+    Only `cam.ctype`'s model is computed, with the JAX package's arithmetic
+    for it."""
+    t = cam.ctype
+
+    def lens_point():
+        disk = warp.square_to_uniform_disk_concentric(u_aperture) * cam.aperture_radius
+        return torch.stack([disk[..., 0], disk[..., 1], torch.zeros_like(disk[..., 0])], dim=-1)
+
+    if t in (PERSPECTIVE, THINLENS):
+        x = (film_uv[..., 0] * 2.0 - 1.0) * cam.tan_half_fov
+        y = (1.0 - film_uv[..., 1] * 2.0) * cam.tan_half_fov / cam.aspect
+        d_cam = normalize(torch.stack([x, y, torch.ones_like(x)], dim=-1))
+        o_cam = torch.zeros_like(d_cam)
+        if t == THINLENS:  # the lens point, aimed at the focus plane at focal_distance
+            focus_p = d_cam * (cam.focal_distance / torch.clamp(d_cam[..., 2:3], min=1e-6))
+            o_cam = lens_point()
+            d_cam = normalize(focus_p - o_cam)
+    elif t in (ORTHOGRAPHIC, TELECENTRIC):  # telecentric: a lens offset on the origin
+        ox = (film_uv[..., 0] * 2.0 - 1.0) * cam.ortho_scale
+        oy = (1.0 - film_uv[..., 1] * 2.0) * cam.ortho_scale / cam.aspect
+        o_cam = torch.stack([ox, oy, torch.zeros_like(ox)], dim=-1)
+        if t == TELECENTRIC:
+            o_cam = o_cam + lens_point()
+        d_cam = torch.zeros_like(o_cam)
+        d_cam[..., 2] = 1.0
+    elif t == SPHERICAL:  # equirectangular over the full sphere
+        phi = (1.0 - film_uv[..., 0]) * 2.0 * PI - PI
+        theta = film_uv[..., 1] * PI
+        st = torch.sin(theta)
+        d_cam = torch.stack([st * torch.sin(phi), torch.cos(theta), st * torch.cos(phi)], dim=-1)
+        o_cam = torch.zeros_like(d_cam)
+    else:
+        raise ValueError(f"camera type {t}: the models are 0 (perspective) to 4 (telecentric)")
+    o = _xform(cam.to_world, o_cam, point=True)
     d = normalize(_xform(cam.to_world, d_cam, point=False))
     return o, d, torch.ones(o.shape[:-1] + (3,), device=o.device)
 
@@ -118,11 +154,9 @@ def sample_direct(cam: Camera, ref_p):
 def pixel_spread(cam: Camera, width: int, height: int):
     """Per-pixel ray-cone parameters (r0, slope): the world-space footprint
     radius of one pixel at distance t is ~ r0 + slope * t."""
-    persp_slope = 2.0 * cam.tan_half_fov / width
-    ortho_r0 = 2.0 * cam.ortho_scale / width
-    is_ortho = (cam.ctype == ORTHOGRAPHIC) | (cam.ctype == TELECENTRIC)
-    r0 = torch.where(is_ortho, ortho_r0, 0.0)
-    slope = torch.where(is_ortho, 0.0,
-                        torch.where(cam.ctype == SPHERICAL, 2.0 * math.pi / width,
-                                    persp_slope))
-    return r0, slope
+    zero = torch.zeros((), device=cam.tan_half_fov.device)
+    if cam.ctype in (ORTHOGRAPHIC, TELECENTRIC):
+        return 2.0 * cam.ortho_scale / width, zero
+    if cam.ctype == SPHERICAL:
+        return zero, zero + 2.0 * math.pi / width
+    return zero, 2.0 * cam.tan_half_fov / width

@@ -1,10 +1,21 @@
 """Procedural geometry, the Cornell box, the white furnace, the glossy scene
 and the caustic scene (port of cudatracerlib_tpu/scene/shapes.py:18-141,
-217-241, 244-374).
+217-241, 244-374), and two scenes of the port's own for the nested BSDFs and
+the delta lights: the furnace sphere under a coating or blend
+(`nested_furnace`) and the Cornell box lit by a point and a spot light
+(`cornell_point_spot`).
 
 The geometry and the scene records are the JAX package's, built through the
 port's `build_scene`. Every scene factory puts its tensors on `device`, the
-card unless the caller asks for the CPU.
+card unless the caller asks for the CPU. The port's own scenes are also
+given as host inputs (`*_inputs`: vertices, material ids, texture, material
+and light records, the camera's look_at arguments), which either package's
+`build_scene` takes (`build_inputs` is the port's).
+
+The surface-shading cases that chip_smoke.py's phase 21, its pins
+(tools/shading_reference_mean.py) and the port's tests render are defined
+here once, as keywords either package's factories take: FURNACE_CASES,
+NESTED_CASES with NESTED_KW, and CORNELL_CAMERAS.
 """
 from __future__ import annotations
 
@@ -13,6 +24,7 @@ import numpy as np
 from . import bsdf as B
 from . import lights as L
 from .scene import Materials, build_scene
+from . import sensors as S
 from .sensors import Camera
 from .textures import Textures
 
@@ -297,3 +309,97 @@ def caustic_scene(light_radiance=(400.0, 380.0, 340.0), device="cuda"):
         vertices, None, None, mat_id, materials, textures, light_records, camera,
         device=device,
     )
+
+
+def build_inputs(inputs: dict, device="cuda"):
+    """A port Scene from host inputs (see the module note)."""
+    return build_scene(inputs["vertices"], None, None, inputs["mat_id"],
+                       Materials.build(inputs["materials"]), Textures.build(inputs["textures"]),
+                       inputs["lights"], Camera.look_at(**inputs["camera"]), device=device)
+
+
+def nested_furnace_inputs(outer=B.COATING, inner=B.DIFFUSE, albedo=0.8, **outer_kw) -> dict:
+    """The furnace sphere (as `furnace_scene`) whose material is a nested
+    BSDF `outer` (COATING, ROUGHCOATING or BLEND, its own fields from
+    `outer_kw`) over the inner material `inner` (alpha 0.3). Textures: 0 the
+    outer albedo, 1 white (both specular and transmittance), 2 the inner
+    albedo, each `albedo` grey."""
+    tris = sphere([0, 0, 0], 1.0, n_theta=24, n_phi=48)
+    return dict(
+        vertices=tris, mat_id=np.zeros(len(tris), np.int32),
+        textures=[{"type": 0, "color_a": [albedo] * 3}, {"type": 0, "color_a": [1.0] * 3},
+                  {"type": 0, "color_a": [albedo] * 3}],
+        materials=[
+            {"bsdf_type": outer, "tex_albedo": 0, "tex_specular": 1, "tex_transmittance": 1,
+             "nested_id": 1, **outer_kw},
+            {"bsdf_type": inner, "tex_albedo": 2, "tex_specular": 1, "tex_transmittance": 1,
+             "alpha_u": 0.3, "alpha_v": 0.3},
+        ],
+        lights=[{"type": L.CONSTANT_ENV, "radiance": [1.0] * 3}],
+        camera=dict(origin=[0, -4, 0], target=[0, 0, 0], fov_deg=35.0),
+    )
+
+
+def nested_furnace(outer=B.COATING, inner=B.DIFFUSE, albedo=0.8, device="cuda", **outer_kw):
+    return build_inputs(nested_furnace_inputs(outer, inner, albedo, **outer_kw), device)
+
+
+def cornell_point_spot_inputs(point=(2.0, 1.8, 1.5), spot=(10.0, 8.0, 6.0)) -> dict:
+    """The Cornell box's walls and blocks (no area light) lit by a POINT
+    light under the ceiling and a SPOT light in the front right corner
+    aimed at the tall block (cone 30 degrees, full intensity within 20)."""
+    tris = [quad([-1, 0, 0], [1, 0, 0], [1, 2, 0], [-1, 2, 0]),        # floor
+            quad([-1, 0, 2], [-1, 2, 2], [1, 2, 2], [1, 0, 2]),        # ceiling
+            quad([-1, 2, 0], [1, 2, 0], [1, 2, 2], [-1, 2, 2]),        # back wall
+            quad([-1, 0, 0], [-1, 2, 0], [-1, 2, 2], [-1, 0, 2]),      # left (red)
+            quad([1, 0, 0], [1, 0, 2], [1, 2, 2], [1, 2, 0]),          # right (green)
+            box([-0.65, 0.9, 0.0], [-0.05, 1.5, 1.2]),                  # tall block
+            box([0.1, 0.5, 0.0], [0.65, 1.05, 0.6])]                    # short block
+    mids = [0, 0, 0, 1, 2, 0, 0]
+    aim = np.array([-0.35, 1.2, 0.6]) - np.array([0.8, 0.2, 1.8])
+    return dict(
+        vertices=np.concatenate(tris),
+        mat_id=np.concatenate([np.full(len(t), m, np.int32) for t, m in zip(tris, mids)]),
+        textures=[{"type": 0, "color_a": (0.725, 0.71, 0.68)},
+                  {"type": 0, "color_a": (0.63, 0.065, 0.05)},
+                  {"type": 0, "color_a": (0.14, 0.45, 0.091)}],
+        materials=[{"bsdf_type": B.DIFFUSE, "tex_albedo": i} for i in range(3)],
+        lights=[{"type": L.POINT, "position": [0.0, 1.0, 1.8], "radiance": list(point)},
+                {"type": L.SPOT, "position": [0.8, 0.2, 1.8], "direction": aim.tolist(),
+                 "radiance": list(spot), "cos_width": float(np.cos(np.radians(30.0))),
+                 "cos_falloff": float(np.cos(np.radians(20.0)))}],
+        camera=dict(origin=[0.0, -3.25, 1.0], target=[0.0, 1.0, 1.0], up=[0.0, 0.0, 1.0],
+                    fov_deg=39.3077),
+    )
+
+
+def cornell_point_spot(device="cuda"):
+    return build_inputs(cornell_point_spot_inputs(), device)
+
+
+# furnace_scene keywords of the white furnace with each closed-form BSDF
+# (tests/test_render.py's test_energy_conservation cases, HK's and
+# NULL_BSDF's default fields; PHONG and WARD at specular 0.2, kd + ks <= 1)
+FURNACE_CASES = {
+    "roughdiffuse": dict(albedo=0.8, bsdf_type=B.ROUGHDIFFUSE, alpha_u=0.3),
+    "thindielectric": dict(albedo=0.8, bsdf_type=B.THINDIELECTRIC),
+    "plastic": dict(albedo=0.8, bsdf_type=B.PLASTIC),
+    "phong": dict(albedo=0.8, bsdf_type=B.PHONG, specular=0.2),
+    "ward": dict(albedo=0.8, bsdf_type=B.WARD, alpha_u=0.3, alpha_v=0.3, specular=0.2),
+    "hk": dict(albedo=0.8, bsdf_type=B.HK),
+    "null": dict(albedo=0.8, bsdf_type=B.NULL_BSDF),
+}
+# nested_furnace(_inputs) outer types, over a DIFFUSE inner, with NESTED_KW
+NESTED_CASES = {"coating": B.COATING, "roughcoating": B.ROUGHCOATING, "blend": B.BLEND}
+NESTED_KW = dict(alpha_u=0.2, alpha_v=0.2, blend_weight=0.3)
+# Camera.look_at keywords of the Cornell box through the other camera models
+_CORNELL_VIEW = dict(origin=[0.0, -3.25, 1.0], target=[0.0, 1.0, 1.0], up=[0.0, 0.0, 1.0],
+                     fov_deg=39.3077)
+CORNELL_CAMERAS = {
+    "thinlens": dict(_CORNELL_VIEW, ctype=S.THINLENS, aperture_radius=0.08, focal_distance=4.25),
+    "orthographic": dict(_CORNELL_VIEW, ctype=S.ORTHOGRAPHIC, ortho_scale=1.2),
+    "spherical": dict(_CORNELL_VIEW, ctype=S.SPHERICAL, origin=[0.0, 1.0, 1.0],
+                      target=[0.0, 2.0, 1.0]),
+    "telecentric": dict(_CORNELL_VIEW, ctype=S.TELECENTRIC, ortho_scale=1.2,
+                        aperture_radius=0.05),
+}

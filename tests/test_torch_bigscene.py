@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+from cudatracerlib_tpu.render import light_tracer as jlt
 from cudatracerlib_tpu.render import path_tracer as jpt
 from cudatracerlib_tpu.render import wavefront as jwf
 from cudatracerlib_tpu.scene import bigscene as jbig
@@ -92,9 +93,11 @@ def test_env_light_variant_equal(jax_cache):
     ts = tbig.build_big_scene(2_000, light="env", device="cpu")
     _assert_arrays_equal(flatten(js), flatten(ts))
     assert ts.spec["light_types"] == (5,)  # CONSTANT_ENV
-    # emitted rays of a constant environment are not ported
-    with pytest.raises(NotImplementedError):
-        render_light_trace(ts, 8, 8, 64, 0)
+    # the light tracer starts its particles on the constant environment
+    want = np.asarray(jlt.render_light_trace(js, 8, 8, 64, 0))
+    got = render_light_trace(ts, 8, 8, 64, 0).numpy()
+    assert np.isfinite(got).all() and want.sum() > 0
+    np.testing.assert_allclose(got, want, rtol=1e-3, atol=1e-6)
 
 
 def test_bigscene_wavefront_matches_jax(scenes):

@@ -18,7 +18,9 @@ launches are bit-equal.
 The BVH kernel's t, u, v are bit-equal to its oracle's on every ray whose
 two hits name the same Woop row content.
 Renders on the card: mean within 1% of the CPU render, rays within 0.1%;
-the volume render within 7.5% and 1% (its test says why).
+the volume render within 7.5% and 1% (its test says why). The filtered
+film's splat sum as the gather backward's. The port's TestFurnace runs
+here at the JAX test's sizes (on the CPU it is `slow`).
 """
 import _torch_threads  # noqa: F401  (caps torch's CPU threads under xdist)
 import numpy as np
@@ -706,3 +708,134 @@ def test_sppm_on_card_matches_cpu(dev):
         if name == "caustic":
             assert sg_ops.launches["gather"] > before[1]["gather"]
         assert abs(out[1] - out[0]) <= tol * out[0], (name, out)
+
+
+def test_furnace_plastic_on_card_matches_cpu(dev):
+    """A PLASTIC sphere in the furnace (2,208 triangles: the dense kernel
+    and, in the pack's band, the shade-pack gather) on the card against the
+    CPU at 32x32, 4 spp, depth 4: mean within 1%, rays within 0.1%."""
+    from cudatracerlib_tpu_torch.scene import bsdf
+    from cudatracerlib_tpu_torch.scene.shapes import furnace_scene
+
+    cfg = pt.PTConfig(max_depth=4)
+    ref, ref_rays = pt.render_counted(furnace_scene(albedo=0.8, bsdf_type=bsdf.PLASTIC,
+                                                    device="cpu"), 32, 32, 4, 3, cfg)
+    before = dict(sg_ops.launches), dict(ops.launches)
+    img, rays = pt.render_counted(furnace_scene(albedo=0.8, bsdf_type=bsdf.PLASTIC), 32, 32, 4,
+                                  3, cfg)
+    torch.cuda.synchronize()
+    assert sg_ops.launches["gather"] > before[0]["gather"]
+    assert ops.launches["closest"] > before[1]["closest"]
+    assert ops.launches["any_hit"] > before[1]["any_hit"]
+    assert bool(torch.isfinite(img).all())
+    assert abs(float(img.mean()) - float(ref.mean())) <= 1e-2 * float(ref.mean())
+    assert abs(int(rays) - int(ref_rays)) <= 1e-3 * int(ref_rays)
+
+
+def test_gaussian_filtered_cornell_on_card_matches_cpu(dev):
+    """The Gaussian-filtered Cornell pass (64x64, 4 spp, depth 4) on the
+    card against the CPU: mean within 1%, every pixel within 5% of the
+    image's largest; its taps summed in one call of the splat sum."""
+    cfg = pt.PTConfig(max_depth=4, rec_filter=1, rec_radius=1.5)
+    ref = pt.render(cornell_box(device="cpu"), 64, 64, 4, 3, cfg)
+    before = sg_ops.launches["gather_bwd_tile"]
+    img = pt.render(cornell_box(), 64, 64, 4, 3, cfg)
+    torch.cuda.synchronize()
+    assert sg_ops.launches["gather_bwd_tile"] == before + 1
+    assert bool(torch.isfinite(img).all())
+    assert abs(float(img.mean()) - float(ref.mean())) <= 1e-2 * float(ref.mean())
+    assert float((img.cpu() - ref).abs().max()) <= 5e-2 * float(ref.max())
+
+
+@pytest.mark.parametrize("n,support", [(4096, 1), (1 << 18, 1), (1 << 16, 2)])
+def test_filter_splat_sum_matches_plain(dev, n, support):
+    """The filtered film's taps (rgb w, w onto the pixels plus the dropped
+    row) summed on the card: within 1e-5 relative of the float64 plain
+    version where positive, 0 where no tap lands, two launches bit-equal;
+    the film equal to the CPU film within 1e-5 relative."""
+    from cudatracerlib_tpu_torch.image import film, pipeline
+
+    h, w = 96, 128
+    g = torch.Generator(device="cpu").manual_seed(n)
+    sx, sy = torch.rand(n, generator=g) * w, torch.rand(n, generator=g) * h
+    val = torch.rand(n, 3, generator=g)
+    pid, rows = film.filter_taps(sx, sy, val, pipeline.GAUSSIAN, 1.5, support, h, w)
+    pid_d, rows_d = pid.to(dev), rows.to(dev)
+    got = film.splat_sum(pid_d, rows_d, h * w + 1)
+    again = film.splat_sum(pid_d, rows_d, h * w + 1)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again) and got.shape == (h * w + 1, 4)
+    plain = sg_ops.packed_gather_bwd_plain(rows, pid, h * w + 1)
+    hit = plain > 0
+    got = got.cpu()
+    assert bool((got[~hit] == 0).all())
+    assert bool(((got - plain).abs()[hit] <= 1e-5 * plain[hit]).all())
+    cpu_film = film.add_samples_filtered(film.Film.create(h, w, device="cpu"), sx, sy, val,
+                                         pipeline.GAUSSIAN, 1.5, support)
+    card_film = film.add_samples_filtered(film.Film.create(h, w, device=dev), sx.to(dev),
+                                          sy.to(dev), val.to(dev), pipeline.GAUSSIAN, 1.5, support)
+    for f in ("rgb", "weight"):
+        a, b = getattr(card_film, f).cpu(), getattr(cpu_film, f)
+        assert bool(((a - b).abs() <= 1e-5 * b.abs() + 1e-7).all()), f
+
+
+def test_filtered_film_at_1024_in_runs(dev):
+    """The filtered film at 1024x1024, 16 spp, in the path tracer's sample
+    order: one call would take 167 GB of the gather backward's scratch, so
+    the samples go in runs, none over SPLAT_SCRATCH_FLOATS, and the film
+    equals the float64 plain sum of every tap at once within 1e-5 relative;
+    a Gaussian-filtered Cornell pass at that size renders."""
+    from cudatracerlib_tpu_torch.image import film, pipeline
+
+    h = w = 1024
+    pix = torch.from_numpy(pt.block_order_pixels_np(w, h)).to(dev).repeat(16)
+    g = torch.Generator(device=dev).manual_seed(5)
+    sx = (pix % w).float() + torch.rand(pix.shape[0], generator=g, device=dev)
+    sy = (pix // w).float() + torch.rand(pix.shape[0], generator=g, device=dev)
+    val = torch.rand(pix.shape[0], 3, generator=g, device=dev)
+    runs = list(film.splat_runs(sy, 9, 1, h, w))
+    assert len(runs) > 1
+    assert max(sg_ops.bwd_scratch_floats(4, 9 * (b1 - b0), (y1 + 1 - y0) * w + 1)
+               for b0, b1, y0, y1 in runs) <= film.SPLAT_SCRATCH_FLOATS
+    f = film.add_samples_filtered(film.Film.create(h, w, device=dev), sx, sy, val,
+                                  pipeline.GAUSSIAN, 1.5, 1)
+    got = torch.cat([f.rgb.reshape(-1, 3), f.weight.reshape(-1, 1)], 1)
+    pid, taps = film.filter_taps(sx, sy, val, pipeline.GAUSSIAN, 1.5, 1, h, w)
+    plain = sg_ops.packed_gather_bwd_plain(taps, pid, h * w + 1)[:h * w]
+    assert bool(((got - plain).abs() <= 1e-5 * plain).all())
+    del pid, taps, plain
+    cfg = pt.PTConfig(max_depth=5, rec_filter=1, rec_radius=1.5)
+    img = pt.render(cornell_box(), w, h, 16, 7, cfg)
+    assert img.shape == (h, w, 3) and bool(torch.isfinite(img).all())
+
+
+# ---- the port's TestFurnace (tests/test_render.py:18-60) at its sizes, on the card ----
+
+def test_port_furnace_diffuse_on_card(dev):
+    from cudatracerlib_tpu_torch.scene import bsdf
+    from cudatracerlib_tpu_torch.scene.shapes import furnace_scene
+
+    img = pt.render(furnace_scene(albedo=0.7, bsdf_type=bsdf.DIFFUSE), 48, 48, 32, 0,
+                    pt.PTConfig(max_depth=6)).cpu().numpy()
+    assert abs(img[0:4, 0:4].mean() - 1.0) < 0.02
+    assert abs(img[18:30, 18:30].mean() - 0.7) < 0.03
+    img = pt.render(furnace_scene(albedo=1.0, bsdf_type=bsdf.DIFFUSE), 32, 32, 32, 0,
+                    pt.PTConfig(max_depth=16)).cpu().numpy()
+    assert abs(img.mean() - 1.0) < 0.03
+
+
+@pytest.mark.parametrize("bt,kw", [
+    (6, dict(alpha_u=0.3, alpha_v=0.3)), (7, {}), (8, dict(alpha_u=0.3, alpha_v=0.3)), (9, {}),
+    (10, dict(alpha_u=0.3, alpha_v=0.3)), (4, dict(alpha_u=0.1, alpha_v=0.1, dist_type=0)),
+    (2, {}), (4, dict(alpha_u=0.3, alpha_v=0.3)), (3, {}), (5, {}), (1, dict(alpha_u=0.3)),
+])
+def test_port_energy_conservation_on_card(dev, bt, kw):
+    from cudatracerlib_tpu_torch.scene.shapes import furnace_scene
+
+    spec = 0.2 if bt in (9, 10) else 1.0   # PHONG, WARD: kd + ks <= 1
+    img = pt.render(furnace_scene(albedo=0.8, bsdf_type=bt, specular=spec, **kw), 32, 32, 16, 0,
+                    pt.PTConfig(max_depth=8)).cpu().numpy()
+    assert np.isfinite(img).all()
+    assert img.mean() < 1.1, f"type {bt} gains energy: {img.mean()}"
+    if bt in (2, 3, 4):   # DIELECTRIC, THINDIELECTRIC, ROUGHDIELECTRIC
+        assert img.mean() > 0.85, f"type {bt} loses too much: {img.mean()}"

@@ -18,6 +18,7 @@ MODULES = [
     "cudatracerlib_tpu_torch.convert",
     "cudatracerlib_tpu_torch.entry",
     "cudatracerlib_tpu_torch.image.film",
+    "cudatracerlib_tpu_torch.image.pipeline",
     "cudatracerlib_tpu_torch.math.frame",
     "cudatracerlib_tpu_torch.math.fresnel",
     "cudatracerlib_tpu_torch.math.microfacet",

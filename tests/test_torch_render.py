@@ -132,13 +132,17 @@ def test_render_progressive(scenes):
 
 
 @pytest.mark.parametrize("cfg", [
-    dict(regularization=0.1), dict(parallax=True), dict(rec_filter=1), dict(sss=True),
+    dict(height_maps=True), dict(parallax=True), dict(rec_filter=5), dict(sss=True),
     dict(alpha_test=True), dict(normal_maps=True), dict(media_modes=(0,)),
-    dict(bsdf_types=(0, 14)), dict(light_types=(3, 1)), dict(tex_types=(0, 2)),
+    dict(bsdf_types=(0, 16)), dict(light_types=(3, 6)), dict(tex_types=(0, 2)),
 ], ids=lambda c: next(iter(c)))
 def test_unported_config_raises(scenes, cfg):
-    """Features that are not ported raise instead of rendering black. The
-    config is given already specialized, so its flags are not replaced."""
+    """Features that are not ported, and tags and filters that do not
+    exist, raise instead of rendering black. The config is given already
+    specialized, so its flags are not replaced. (Regularization, the
+    filters 1-4 and every BSDF and light type are ported:
+    tests/test_torch_filter.py and tests/test_torch_bsdf_more.py hold them
+    to JAX.)"""
     _, ts = scenes
     spec = dict(tpt.specialize_config(ts, tpt.PTConfig())._asdict(), max_depth=2)
     with pytest.raises(NotImplementedError):
@@ -146,11 +150,18 @@ def test_unported_config_raises(scenes, cfg):
 
 
 def test_unported_bsdf_types_raise():
-    """A scene whose materials include an unported BSDF (here the spheres'
-    glass made THINDIELECTRIC) raises when its specialization is derived."""
+    """Every BSDF type is ported, and a scene of any of them renders; a
+    scene whose materials use a feature that is not ported (here the
+    spheres' glass made THINDIELECTRIC with subsurface scattering) raises
+    when its specialization is derived from the arrays."""
     s = tcornell(extra_objects="spheres", device="cpu")
     bt = s.materials.bsdf_type.clone()
     bt[5] = tbsdf.THINDIELECTRIC
     s = s._replace(materials=s.materials._replace(bsdf_type=bt), spec=None)
+    img = tpt.render(s, 8, 8, 1, 0, tpt.PTConfig(max_depth=2))
+    assert bool(torch.isfinite(img).all()) and float(img.mean()) > 0
+    sss = s.materials.sss.clone()
+    sss[5] = 1
+    s = s._replace(materials=s.materials._replace(sss=sss))
     with pytest.raises(NotImplementedError):
         tpt.render(s, 8, 8, 1, 0, tpt.PTConfig(max_depth=2))

@@ -207,9 +207,14 @@ def test_bsdf_eval_pdf_sample(tag):
 
 
 def test_bsdf_unported_tags_raise():
+    """Every tag of the JAX package is ported (tests/test_torch_bsdf_more.py
+    holds the new families to JAX); the static type set stays required:
+    active=None (JAX's compute-every-family default) and unknown tags
+    raise."""
     _, tmp = _mat_params(tbsdf.DIFFUSE, 0, n=4)
     wo = _t(_dirs(4, 1))
-    for active in [(0, 3), (7,), (0, 14), None]:
+    assert tbsdf.PORTED == tuple(range(16))
+    for active in [None, (0, 16), (-1,)]:
         with pytest.raises(NotImplementedError):
             tbsdf.eval_bsdf(tmp, wo, wo, active)
         with pytest.raises(NotImplementedError):
@@ -279,10 +284,17 @@ def test_env_sample_eval_pdf(env_lights):
 
 
 def test_unported_light_types_raise(env_lights):
+    """Every light type is ported (tests/test_torch_camera_lights.py holds
+    SPOT and DISTANT and every emitter to JAX); the static type set stays
+    required: None and unknown types raise, in direct and emitter
+    sampling."""
     _, tl = env_lights
-    for active in [(1,), (3, 2), None]:   # SPOT, DISTANT: not ported
+    assert tlights.PORTED == tuple(range(6))
+    for active in [None, (4, 6), (-1,)]:
         with pytest.raises(NotImplementedError):
             tlights.sample_direct(tl, 0, torch.zeros(2, 3), torch.zeros(2, 2), active=active)
+        with pytest.raises(NotImplementedError):
+            tlights.sample_emitter_ray(tl, 0, torch.zeros(2, 2), torch.zeros(2, 2), active=active)
 
 
 def test_mixed_area_and_env_lights():
@@ -315,7 +327,7 @@ def test_point_and_constant_env_direct(mix):
     and mixed per lane with an area light and the environment map): the
     point light's DISCRETE measure and pdf 1, the constant environment's
     uniform sphere and 1 / (4 pi); `eval_env` and `pdf_env_dir` on the
-    constant environment."""
+    constant environment; their emitted rays (`sample_emitter_ray`)."""
     quad = np.array([[[-1, -1, 3], [1, -1, 3], [1, 1, 3]], [[-1, -1, 3], [1, 1, 3], [-1, 1, 3]]],
                     np.float32)
     rec = [{"type": jlights.POINT, "position": [0.3, -0.2, 1.5], "radiance": [30.0, 20.0, 10.0]},
@@ -347,5 +359,10 @@ def test_point_and_constant_env_direct(mix):
            jlights.eval_env(jl, jnp.asarray(lid_env), jnp.asarray(d)), rtol=1e-6, atol=0)
     _close(tlights.pdf_env_dir(tl, _t(lid_env).long(), _t(d)),
            jlights.pdf_env_dir(jl, jnp.asarray(lid_env), jnp.asarray(d)), rtol=1e-6, atol=0)
-    with pytest.raises(NotImplementedError):   # emitted rays of these two are not ported
-        tlights.sample_emitter_ray(tl, 0, _t(u2), _t(u2), active=active)
+    # their emitted rays, per lane, against JAX's
+    u_dir = rng.random((N, 2), dtype=np.float32)
+    want = jlights.sample_emitter_ray(jl, jnp.asarray(lid), jnp.asarray(u2), jnp.asarray(u_dir))
+    got = tlights.sample_emitter_ray(tl, _t(lid).long(), _t(u2), _t(u_dir), active=active)
+    for name, a, b in zip(("o", "d", "w"), got, want):
+        _close(a, b, rtol=1e-5, atol=1e-5 * max(float(np.abs(np.asarray(b)).max()), 1.0),
+               err_msg=name)
