@@ -230,7 +230,26 @@ It imports nothing of JAX. Phases, each of which raises on failure:
      at 1024x1024; (d) the caustic scene
      with regularization 0.1; (e) the light tracer (65,536 paths), BDPT and
      VCM at 128x128, 4 spp on the Cornell box lit by a point and a spot
-     light, and the light tracer on the constant-environment furnace.
+     light, and the light tracer on the constant-environment furnace;
+  22. multi-device (parallel/): this process joins a one-rank NCCL group and
+     runs, each warm first (the kernels' arguments captured and held to
+     their plain versions as in 3, 6, 8 and 11), then once with the launch
+     counts reset just before and read just after: (a) make_sharded_render
+     at bench config 1's size (mean within 0.5% and rays within 1e-3 of the
+     JAX package's one-device make_sharded_render, seed 3), its pass wall
+     beside render_progressive's one pass (alternating pairs) and the film
+     all-reduce's own time; (c) make_train_step at the inverse-rendering
+     example's size (64x64, 8 spp, depth 4): the loss within 1e-3 and each
+     parameter's update within 1e-2 (plus 1e-2 of the largest) of JAX's, the
+     gather backward launched; (d) make_sharded_ppm pinned at PPM_PIN's size
+     (within 0.1% of JAX's exhaustive mean), then at bench config 5's size
+     with its seed spread over 4 seeds, its pass wall beside
+     render_ppm_pass's and the photon all-gather's own time. Then two gloo
+     ranks spawned on the same card run (b) the render of (a): rays equal to
+     (a)'s, every pixel within 1e-4 relative + 1e-6; (c) the train step:
+     loss within 1e-5 relative, updates within 1e-3 of one rank's; (d) the
+     PPM pass at bench size: finite, within three times the seed spread of
+     one rank's mean; each with its launches, and the collectives' times.
 Each phase's seconds are printed as it ends.
 
 Before its last line it prints one JSON object describing each kernel; the
@@ -368,6 +387,41 @@ SHADING_PINS = {
 SHADING_TOL = 0.005
 SHADING_PAIRS = 7          # phase 21: alternating box / Gaussian film passes
 SHADING_PIN_SIZE, SHADING_PIN_SPP, SHADING_PIN_SEED = 64, 4, 3
+# Phase 22's pins, JAX package on the CPU, each on a one-device mesh as the card's one-rank runs
+# are (`JAX_PLATFORMS=cpu python tools/sharded_reference_mean.py`):
+#   make_sharded_render(cornell_box()) at bench config 1's size (256x256, 16 spp, depth 5, seed 3,
+#   the config specialized as bench.py runs it) -> mean and rays; gates 0.5% (as phase 4's) and
+#   1e-3;
+#   make_train_step at examples/inverse_rendering.py's size (64x64, 8 spp, depth 4, rr_start 99,
+#   lr 0.05; target `render` of the Cornell box at seed 0, start the grey walls and dim light, one
+#   step at seed 1) -> the loss (within 1e-3) and each parameter's update, -lr times the summed
+#   gradient, which pins the gradient's scale: within 1e-2 relative plus 1e-2 of the largest, as
+#   the update is a difference of parameters near 0.5 (float32 rounding alone is 2.2e-4 of the
+#   largest color_a update; a gradient scaled by the rank count misses by 100%);
+#   make_sharded_ppm at PPM_PIN's size with every photon within the radius summed, as the card's
+#   kernel does (the neighbour cap lifted on a grid whose cells cover the radius; JAX's own CPU
+#   pass reads 0.309156656 with its 128-neighbour cap, 0.326323867 uncapped at grid_res 64, whose
+#   cells are lower than the radius): within 0.1%, as the unsharded pin (REF_PPM_MEAN).
+REF_SHARD_MEAN, REF_SHARD_RAYS = 0.132556751, 5_709_883
+REF_SHARD_LOSS = 0.391012639
+REF_SHARD_UPDATE_COLOR_A = [[2.74121761e-04, 1.54256821e-04, -1.50203705e-05],
+                            [7.23600388e-05, 4.70876694e-06, -1.40964985e-05],
+                            [3.14116478e-05, 3.53455544e-05, -1.51693821e-05],
+                            [0.0, 0.0, 0.0], [0.0, 0.0, 0.0]]
+REF_SHARD_UPDATE_RADIANCE = [[0.002178669, 0.001265049, -0.000191689]]
+REF_SHARD_PPM_MEAN = 0.326836854
+SHARD_TOL, SHARD_RAYS_TOL, SHARD_LOSS_RTOL, SHARD_UPDATE_RTOL = 0.005, 1e-3, 1e-3, 1e-2
+SHARD_SEED = 3
+SHARD_TRAIN = dict(width=64, height=64, spp=8, max_depth=4, rr_start=99, lr=0.05, target_seed=0,
+                   seed=1)
+# across rank counts on the card: the same lanes, so only the film's float32 sums (index_add_'s
+# atomics) and the gradient's summation order differ
+SHARD_IMG_RTOL, SHARD_IMG_ATOL = 1e-4, 1e-6
+SHARD_CROSS_LOSS_RTOL, SHARD_CROSS_UPDATE_RTOL = 1e-5, 1e-3
+SHARD_PPM_SEEDS = (7, 8, 9, 10)   # the one-rank bench-size pass's seed spread (d)
+SHARD_PAIRS = 5            # phase 22: alternating sharded / unsharded pass walls
+SHARD_RANKS = 2            # phase 22 (b)-(d): gloo ranks sharing the card
+SHARD_RANK_TIMEOUT_S = 600.0
 PPM_W = PPM_H = 128        # bench config 5 (bench.py:289-340)
 PPM_SPP, PPM_PASS = 4, 1
 DENSITY_RTOL, DENSITY_ATOL = 1e-4, 1e-6
@@ -1955,6 +2009,353 @@ def _shading_phase(cornell, caustic, smi, reset_counts):
     return dict(pins=pins, runs=runs, **checks)
 
 
+def _port_counters():
+    """The port's launch counters by wrapper module (each kernel wrapper adds
+    one where it launches its kernel)."""
+    from cudatracerlib_tpu_torch.ops import intersect_bvh as bvh_ops
+    from cudatracerlib_tpu_torch.ops import intersect_dense as ops
+    from cudatracerlib_tpu_torch.ops import photon_gather as pg_ops
+    from cudatracerlib_tpu_torch.ops import shade_gather as sg_ops
+
+    return {"intersect_dense": ops.launches, "intersect_bvh": bvh_ops.launches,
+            "shade_gather": sg_ops.launches, "photon_gather": pg_ops.launches}
+
+
+def _counted(fn):
+    """(wall s, result, launches) of one synchronised call of `fn`, the
+    launch counts set to 0 just before and read just after."""
+    counters = _port_counters()
+    for c in counters.values():
+        for k in c:
+            c[k] = 0
+    dt, out = _timed(fn)
+    return dt, out, {name: dict(c) for name, c in counters.items()}
+
+
+def _collective_ms(fn, reps=11):
+    """Median host wall in ms of a synchronised collective call, after a
+    warm call (a gloo collective on CUDA tensors goes through the host)."""
+    import torch
+
+    walls = []
+    for _ in range(reps + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    return _median(walls[1:])
+
+
+def _film_buffer_ms(width, height, device):
+    """The film all-reduce's own time: one float64 buffer of (rgb, weight,
+    rays), as parallel/shard.py sums it."""
+    import torch
+    import torch.distributed as dist
+
+    buf = torch.zeros(width * height * 4 + 1, dtype=torch.float64, device=device)
+    return _collective_ms(lambda: dist.all_reduce(buf))
+
+
+def _photon_gather_ms(n_slots, device):
+    """The photon map all-gather's own time: each rank's (n_slots, 14)
+    float32 slots, as parallel/shard.py gathers them."""
+    import torch
+    import torch.distributed as dist
+
+    local = torch.zeros(n_slots, 14, device=device)
+    slots = [torch.empty_like(local) for _ in range(dist.get_world_size())]
+    return _collective_ms(lambda: dist.all_gather(slots, local))
+
+
+def _train_case(mesh, device):
+    """Phase 22 (c)'s step: the Cornell target, the grey start and a
+    sharded train step at SHARD_TRAIN's size."""
+    import torch
+    from cudatracerlib_tpu_torch import entry as entry_mod
+    from cudatracerlib_tpu_torch.parallel import shard
+    from cudatracerlib_tpu_torch.render import path_tracer as pt
+    from cudatracerlib_tpu_torch.scene.shapes import cornell_box
+
+    t = SHARD_TRAIN
+    cfg = pt.PTConfig(max_depth=t["max_depth"], rr_start=t["rr_start"])
+    with torch.no_grad():
+        target = pt.render(cornell_box(device=device), t["width"], t["height"], t["spp"],
+                           t["target_seed"], cfg)
+    start = entry_mod.grey_start(device=device)
+    step = shard.make_train_step(mesh, t["width"], t["height"], t["spp"], target, lr=t["lr"],
+                                 config=cfg)
+    return start, step
+
+
+def _updates(start, new):
+    """Each parameter's update (after - before), numpy."""
+    return (new.textures.color_a.cpu().numpy() - start.textures.color_a.cpu().numpy(),
+            new.lights.radiance.cpu().numpy() - start.lights.radiance.cpu().numpy())
+
+
+def _shard_rank_program(rank, device):
+    """Phase 22 (b)-(d) on one of SHARD_RANKS gloo ranks sharing the card:
+    the sharded render at bench config 1's size, the train step and the
+    sharded PPM pass at bench config 5's size, each on a (ranks, 1) mesh,
+    warm first, then one call with its launches counted; and the
+    collectives' own times."""
+    import torch
+    from cudatracerlib_tpu_torch.parallel import shard
+    from cudatracerlib_tpu_torch.render import path_tracer as pt
+    from cudatracerlib_tpu_torch.render import ppm
+    from cudatracerlib_tpu_torch.scene.shapes import caustic_scene, cornell_box
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {}
+    mesh = shard.make_mesh(SHARD_RANKS, 1, device=device)
+    cornell = shard.replicate_scene(cornell_box(device=device), mesh)
+    fn = shard.make_sharded_render(mesh, W, H, SPP, pt.PTConfig(max_depth=DEPTH), with_stats=True)
+    fn(cornell, 0)
+    dt, (img, rays), launches = _counted(lambda: fn(cornell, SHARD_SEED))
+    out["render"] = dict(dt=dt, img=img.cpu().numpy(), rays=int(rays), launches=launches,
+                         film_ms=_film_buffer_ms(W, H, device))
+
+    start, step = _train_case(mesh, device)
+    step(start, 0)
+    dt, (new, loss), launches = _counted(lambda: step(start, SHARD_TRAIN["seed"]))
+    out["train"] = dict(dt=dt, loss=float(loss), updates=_updates(start, new), launches=launches)
+
+    caustic = shard.replicate_scene(caustic_scene(device=device), mesh)
+    pcfg = ppm.PPMConfig()
+    pfn = shard.make_sharded_ppm(mesh, PPM_W, PPM_H, PPM_SPP, pcfg)
+    radius = ppm.progressive_radius(pcfg.radius0, PPM_PASS)
+    pfn(caustic, 0, radius)
+    dt, img, launches = _counted(lambda: pfn(caustic, SHARD_PPM_SEEDS[0], radius))
+    n_slots = pcfg.base.max_depth * pcfg.n_photons // SHARD_RANKS
+    out["ppm"] = dict(dt=dt, mean=float(img.mean()), finite=bool(torch.isfinite(img).all()),
+                      shape=tuple(img.shape), launches=launches,
+                      gather_ms=_photon_gather_ms(n_slots, device))
+    return out
+
+
+def _multidevice_phase(cornell, caustic, smi):
+    """Phase 22 (module docstring): the sharded render, train step and PPM
+    pass on a one-rank NCCL group in this process, their kernels held to
+    their plain versions, the pins; then the same on SHARD_RANKS spawned
+    gloo ranks sharing the card."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from cudatracerlib_tpu_torch.parallel import distributed as pdist
+    from cudatracerlib_tpu_torch.parallel import shard
+    from cudatracerlib_tpu_torch.ops import photon_gather as pg_ops
+    from cudatracerlib_tpu_torch.render import path_tracer as pt
+    from cudatracerlib_tpu_torch.render import ppm
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    _require(pdist.init_distributed(0, 1, "127.0.0.1", pdist.free_port(), 0, device="cuda",
+                                    backend="nccl", timeout=SHARD_RANK_TIMEOUT_S),
+             "the one-rank NCCL group did not start")
+    try:
+        mesh = shard.make_mesh(1, 1)
+        print(f"[shard] one rank: {json.dumps(pdist.process_topology())}, mesh {mesh}")
+        # (a) the sharded render at bench config 1's size
+        cfg = pt.specialize_config(cornell, pt.PTConfig(max_depth=DEPTH))
+        fn = shard.make_sharded_render(mesh, W, H, SPP, pt.PTConfig(max_depth=DEPTH),
+                                       with_stats=True)
+        dense_args, _, _ = _capture_render(lambda: fn(cornell, 0))
+        dense = {f"sharded {k}": _compare(f"sharded cornell {k}", c[0], c[1], c[2], c[3], c[4],
+                                          20, c[6])
+                 for k, c in dense_args.items() if k != "first-bounce rays"}
+        dt_a, (img_a, rays_a), launch_a = _counted(lambda: fn(cornell, SHARD_SEED))
+        mean_a, rays_a = float(img_a.mean()), int(rays_a)
+        _require(bool(torch.isfinite(img_a).all()) and tuple(img_a.shape) == (H, W, 3),
+                 "the sharded render is not finite or has the wrong shape")
+        _require(launch_a["intersect_dense"]["closest"] > 0
+                 and launch_a["intersect_dense"]["any_hit"] > 0,
+                 f"the sharded render did not launch intersect_dense for both ray kinds: "
+                 f"{launch_a}")
+        _require(abs(mean_a - REF_SHARD_MEAN) <= SHARD_TOL * REF_SHARD_MEAN,
+                 f"sharded render mean {mean_a} is not within {SHARD_TOL:.1%} of JAX's "
+                 f"{REF_SHARD_MEAN}")
+        _require(abs(rays_a - REF_SHARD_RAYS) <= SHARD_RAYS_TOL * REF_SHARD_RAYS,
+                 f"sharded render rays {rays_a} are not within {SHARD_RAYS_TOL} of JAX's "
+                 f"{REF_SHARD_RAYS}")
+        print(f"[main path] sharded render, one NCCL rank, {W}x{H} spp {SPP} depth {DEPTH} seed "
+              f"{SHARD_SEED}: mean {mean_a:.9f} (JAX {REF_SHARD_MEAN}, "
+              f"{100 * (mean_a / REF_SHARD_MEAN - 1):+.5f}%), rays {rays_a} (JAX "
+              f"{REF_SHARD_RAYS}), {dt_a:.4f} s; launches {json.dumps(launch_a)}")
+        walls = _paired_walls_ms(lambda: fn(cornell, 7),
+                                 lambda: pt.render_progressive(cornell, W, H, SPP, 1, 7, cfg),
+                                 SHARD_PAIRS)
+        film_ms = _film_buffer_ms(W, H, dev)
+        print(f"[time] sharded render pass, one NCCL rank: median {_median(walls[0]):.3f} ms "
+              f"against render_progressive's one pass {_median(walls[1]):.3f} ms ({SHARD_PAIRS} "
+              f"alternating pairs: {[round(x, 3) for x in walls[0]]} / "
+              f"{[round(x, 3) for x in walls[1]]}); the film all-reduce alone ({W * H * 4 + 1} "
+              f"float64) {film_ms:.4f} ms; {smi}")
+
+        # (c) the train step at the example's size
+        t = SHARD_TRAIN
+        start, step = _train_case(mesh, dev)
+        step(start, 0)
+        n_tex = start.textures.color_a.shape[0]
+        (g, idx, n_rows), _ = _capture_bwd(lambda: step(start, t["seed"]),
+                                           lambda g, idx, n: n == n_tex)
+        bwd = _check_bwd_captured("sharded train texture", g, idx, n_rows, dev)
+        dt_c, (new_c, loss_c), launch_c = _counted(lambda: step(start, t["seed"]))
+        loss_c = float(loss_c)
+        upd_c = _updates(start, new_c)
+        _require(np.isfinite(loss_c) and abs(loss_c - REF_SHARD_LOSS) <= SHARD_LOSS_RTOL
+                 * REF_SHARD_LOSS, f"train step loss {loss_c} against JAX's {REF_SHARD_LOSS}")
+        for name, got, ref in (("color_a", upd_c[0], REF_SHARD_UPDATE_COLOR_A),
+                               ("radiance", upd_c[1], REF_SHARD_UPDATE_RADIANCE)):
+            ref = np.asarray(ref, np.float32)
+            err = np.abs(got - ref)
+            _require(bool((err <= SHARD_UPDATE_RTOL * (np.abs(ref) + np.abs(ref).max())).all()),
+                     f"train step's {name} update {got.tolist()} against JAX's {ref.tolist()}")
+            print(f"[grad] sharded train step, one rank: {name} update max abs err "
+                  f"{float(err.max()):.3g} (largest {float(np.abs(ref).max()):.4g})")
+        _require(launch_c["intersect_dense"]["closest"] > 0
+                 and launch_c["shade_gather"]["gather_bwd_tile"] > 0,
+                 f"the train step did not launch intersect_dense and the gather backward: "
+                 f"{launch_c}")
+        print(f"[main path] sharded train step, one NCCL rank, {t['width']}x{t['height']} spp "
+              f"{t['spp']} depth {t['max_depth']}: loss {loss_c:.9f} (JAX {REF_SHARD_LOSS}), "
+              f"{dt_c:.4f} s; launches {json.dumps(launch_c)}")
+
+        # (d) the sharded PPM pass: pinned, then at bench config 5's size
+        p = PPM_PIN
+        pin_cfg = ppm.PPMConfig(n_photons=p["n_photons"])
+        pin_fn = shard.make_sharded_ppm(mesh, p["width"], p["height"], p["spp"], pin_cfg)
+        img_pin = pin_fn(caustic, p["seed"], ppm.progressive_radius(pin_cfg.radius0,
+                                                                    p["pass_idx"]))
+        mean_pin = float(img_pin.mean())
+        _require(bool(torch.isfinite(img_pin).all()) and abs(mean_pin - REF_SHARD_PPM_MEAN)
+                 <= PPM_TOL * REF_SHARD_PPM_MEAN,
+                 f"pinned sharded PPM mean {mean_pin} is not within {PPM_TOL:.1%} of JAX's "
+                 f"exhaustive {REF_SHARD_PPM_MEAN}")
+        print(f"[main path] sharded ppm pinned ({p['width']}x{p['height']}, {p['spp']} spp, "
+              f"{p['n_photons']} photons, seed {p['seed']}, pass {p['pass_idx']}, grid_res "
+              f"{pin_cfg.grid_res}): mean {mean_pin:.9f} (JAX exhaustive {REF_SHARD_PPM_MEAN}, "
+              f"{100 * (mean_pin / REF_SHARD_PPM_MEAN - 1):+.5f}%)")
+        pcfg = ppm.PPMConfig()
+        pfn = shard.make_sharded_ppm(mesh, PPM_W, PPM_H, PPM_SPP, pcfg)
+        radius = ppm.progressive_radius(pcfg.radius0, PPM_PASS)
+        density_calls, real_density = [], pg_ops.photon_density
+
+        def capture_density(*args):
+            density_calls.append(args)
+            return real_density(*args)
+
+        pg_ops.photon_density = capture_density
+        try:
+            ppm_dense, ppm_gathers = _capture_sppm(lambda: pfn(caustic, 0, radius))
+        finally:
+            pg_ops.photon_density = real_density
+        _require(len(density_calls) == 2 and bool(ppm_gathers),
+                 f"the sharded PPM pass called photon_density {len(density_calls)} times and "
+                 f"packed_gather {len(ppm_gathers)} times")
+        dense.update({f"sharded ppm {k}": _compare(f"sharded ppm {k}", c[0], c[1], c[2], c[3],
+                                                   c[4], 10, c[6])
+                      for k, c in ppm_dense.items()})
+        dens_err = max(_check_density(f"sharded ppm {m}", a)
+                       for m, a in zip(("global map", "caustic map"), density_calls))
+        gather = _check_gather_at("sharded ppm", *ppm_gathers[0])
+        dt_d, img_d, launch_d = _counted(lambda: pfn(caustic, SHARD_PPM_SEEDS[0], radius))
+        _require(bool(torch.isfinite(img_d).all()) and tuple(img_d.shape) == (PPM_H, PPM_W, 3),
+                 "the sharded PPM image is not finite or has the wrong shape")
+        _require(launch_d["photon_gather"]["density"] > 0
+                 and launch_d["shade_gather"]["gather"] > 0
+                 and launch_d["intersect_dense"]["closest"] > 0
+                 and launch_d["intersect_dense"]["any_hit"] > 0,
+                 f"the sharded PPM pass did not launch photon_density, packed_gather and both "
+                 f"kinds of intersect_dense: {launch_d}")
+        seed_means = [float(img_d.mean())] + [float(pfn(caustic, s, radius).mean())
+                                              for s in SHARD_PPM_SEEDS[1:]]
+        spread = max(seed_means) - min(seed_means)
+        walls_d = _paired_walls_ms(
+            lambda: pfn(caustic, 7, radius),
+            lambda: ppm.render_ppm_pass(caustic, PPM_W, PPM_H, PPM_SPP, 7, PPM_PASS, pcfg),
+            SHARD_PAIRS)
+        n_slots = pcfg.base.max_depth * pcfg.n_photons
+        gather_ms = _photon_gather_ms(n_slots, dev)
+        print(f"[main path] sharded ppm, one NCCL rank, {PPM_W}x{PPM_H} spp {PPM_SPP} pass "
+              f"{PPM_PASS} (PPMConfig(), grid_res {pcfg.grid_res}): seed {SHARD_PPM_SEEDS[0]} "
+              f"mean {seed_means[0]:.6f}, {dt_d:.4f} s; means over seeds {SHARD_PPM_SEEDS}: "
+              f"{[round(m, 6) for m in seed_means]} (spread {spread:.6f}); launches "
+              f"{json.dumps(launch_d)}")
+        print(f"[time] sharded ppm pass, one NCCL rank: median {_median(walls_d[0]):.3f} ms "
+              f"against render_ppm_pass's {_median(walls_d[1]):.3f} ms ({SHARD_PAIRS} "
+              f"alternating pairs: {[round(x, 3) for x in walls_d[0]]} / "
+              f"{[round(x, 3) for x in walls_d[1]]}); the photon all-gather alone ({n_slots} x "
+              f"14 float32) {gather_ms:.4f} ms; {smi}")
+    finally:
+        dist.destroy_process_group()
+
+    # (b)-(d) on ranks sharing the card over gloo
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = pdist.run_ranks(_shard_rank_program, SHARD_RANKS, device="cuda", backend="gloo",
+                            timeout=SHARD_RANK_TIMEOUT_S)
+    job_s = time.perf_counter() - t0
+    r0 = ranks[0]
+    total = lambda part, name, kind: sum(r[part]["launches"][name][kind]  # noqa: E731
+                                         for r in ranks)
+    rays_b = ranks[0]["render"]["rays"]
+    _require(all(r["render"]["rays"] == rays_b for r in ranks) and rays_b == rays_a,
+             f"{SHARD_RANKS} ranks traced {[r['render']['rays'] for r in ranks]} rays, one rank "
+             f"{rays_a}")
+    img_b = r0["render"]["img"]
+    img_a = img_a.cpu().numpy()
+    diff = np.abs(img_b - img_a)
+    _require(all(np.array_equal(r["render"]["img"], img_b) for r in ranks)
+             and bool((diff <= SHARD_IMG_RTOL * np.abs(img_a) + SHARD_IMG_ATOL).all()),
+             f"the {SHARD_RANKS}-rank image is not within {SHARD_IMG_RTOL} relative + "
+             f"{SHARD_IMG_ATOL} of the one-rank image (max abs diff {float(diff.max())})")
+    _require(total("render", "intersect_dense", "closest") > 0
+             and total("render", "intersect_dense", "any_hit") > 0,
+             f"the {SHARD_RANKS}-rank render did not launch intersect_dense for both ray kinds")
+    loss_b = r0["train"]["loss"]
+    _require(all(r["train"]["loss"] == loss_b for r in ranks)
+             and abs(loss_b - loss_c) <= SHARD_CROSS_LOSS_RTOL * loss_c,
+             f"train step losses {[r['train']['loss'] for r in ranks]} on {SHARD_RANKS} ranks, "
+             f"{loss_c} on one")
+    upd_err = 0.0
+    for got, one in zip(r0["train"]["updates"], upd_c):
+        err = np.abs(got - one)
+        upd_err = max(upd_err, float(err.max()))
+        _require(bool((err <= SHARD_CROSS_UPDATE_RTOL * (np.abs(one) + np.abs(one).max())).all()),
+                 f"the {SHARD_RANKS}-rank update {got.tolist()} against one rank's {one.tolist()}")
+    _require(total("train", "intersect_dense", "closest") > 0
+             and total("train", "shade_gather", "gather_bwd_tile") > 0,
+             f"the {SHARD_RANKS}-rank train step did not launch intersect_dense and the gather "
+             f"backward")
+    ppm_b = r0["ppm"]
+    _require(all(r["ppm"]["finite"] and r["ppm"]["shape"] == (PPM_H, PPM_W, 3)
+                 and r["ppm"]["mean"] == ppm_b["mean"] for r in ranks),
+             f"the {SHARD_RANKS}-rank PPM images are not finite, equal and of shape "
+             f"({PPM_H}, {PPM_W}, 3)")
+    _require(abs(ppm_b["mean"] - seed_means[0]) <= 3 * spread,
+             f"the {SHARD_RANKS}-rank PPM mean {ppm_b['mean']} is not within three times the "
+             f"seed spread {spread} of the one-rank mean {seed_means[0]}")
+    _require(all(total("ppm", n, k) > 0 for n, k in (
+        ("photon_gather", "density"), ("shade_gather", "gather"),
+        ("intersect_dense", "closest"), ("intersect_dense", "any_hit"))),
+        f"the {SHARD_RANKS}-rank PPM pass did not launch every kernel of its path")
+    rl = {part: {name: {k: total(part, name, k) for k in r0[part]["launches"][name]}
+                 for name in r0[part]["launches"]} for part in ("render", "train", "ppm")}
+    print(f"[main path] {SHARD_RANKS} gloo ranks on one card (job {job_s:.1f} s): render rays "
+          f"{rays_b} (one rank {rays_a}, equal), image max abs diff {float(diff.max()):.3g}; "
+          f"train loss {loss_b:.9f} (one rank {loss_c:.9f}), update max abs diff {upd_err:.3g}; "
+          f"ppm mean {ppm_b['mean']:.6f} (one rank {seed_means[0]:.6f}, 3x seed spread "
+          f"{3 * spread:.6f}); launches summed over the ranks {json.dumps(rl)}")
+    print(f"[time] {SHARD_RANKS} gloo ranks on one card, rank 0: sharded render pass "
+          f"{1e3 * r0['render']['dt']:.3f} ms (film all-reduce alone "
+          f"{r0['render']['film_ms']:.4f} ms), train step {1e3 * r0['train']['dt']:.3f} ms (one "
+          f"rank {1e3 * dt_c:.3f} ms), sharded ppm pass {1e3 * ppm_b['dt']:.3f} ms (photon "
+          f"all-gather alone {ppm_b['gather_ms']:.4f} ms); {smi}")
+    return dict(dense=dense, bwd=bwd, gather=gather, dens_err=dens_err,
+                launches={"render": launch_a, "train": launch_c, "ppm": launch_d},
+                rank_launches=rl)
+
+
 def _timed(fn):
     """Host wall in seconds of one call of `fn`, ending in a synchronize,
     and its result."""
@@ -2489,8 +2890,14 @@ def main():
     # ---- 21. closed-form surface shading: BSDFs, cameras, filters, regularization, lights ----
     sh = _shading_phase(scene, caustic, smi, reset_counts)
     lap(21)
-    print(f"[wall] chip_smoke.py phases 1-21: {time.perf_counter() - t_start:.1f} s after the "
+
+    # ---- 22. multi-device: the sharded render, train step and PPM pass ----
+    md = _multidevice_phase(scene, caustic, smi)
+    lap(22)
+    print(f"[wall] chip_smoke.py phases 1-22: {time.perf_counter() - t_start:.1f} s after the "
           f"imports")
+    mdl, mrl = md["launches"], md["rank_launches"]
+    md_dense = lambda part: sum(part["intersect_dense"].values())  # noqa: E731
     sh_launch = {k: r["launches"] for k, r in sh["runs"].items()}
     sh_dense = sum(v["intersect_dense"]["closest"] + v["intersect_dense"]["any_hit"]
                    for v in sh_launch.values())
@@ -2506,7 +2913,8 @@ def main():
             "launches": launches["closest"] + launches["any_hit"],
             "max_abs_err": max(dense_err, *(r["err"] for r in (
                 *bdpt_r.values(), *vol_r.values(), *vg["dense"].values(),
-                *sp_c["dense"].values(), *sp_v["dense"].values(), *sh["dense"].values()))),
+                *sp_c["dense"].values(), *sp_v["dense"].values(), *sh["dense"].values(),
+                *md["dense"].values()))),
             "ms": cam["ms"],
             "plain_ms": cam["plain_ms"],
             "bound_ms": cam["bound"][0],
@@ -2548,6 +2956,15 @@ def main():
             **{f"furnace_{k.split()[1].split('-')[0]}_{f}": (r[v][0] if v == "bound" else r[v])
                for k, r in sh["dense"].items()
                for f, v in (("ms", "ms"), ("plain_ms", "plain_ms"), ("bound_ms", "bound"))},
+            "sharded_render_launches": md_dense(mdl["render"]),
+            "sharded_train_launches": md_dense(mdl["train"]),
+            "sharded_ppm_launches": md_dense(mdl["ppm"]),
+            "sharded_ranks_launches": sum(md_dense(mrl[k]) for k in mrl),
+            "sharded_max_abs_err": max(r["err"] for r in md["dense"].values()),
+            **{f"{k.replace(' rays', '').replace(' ', '_')}_{f}": (r[v][0] if v == "bound"
+                                                                   else r[v])
+               for k, r in md["dense"].items()
+               for f, v in (("ms", "ms"), ("plain_ms", "plain_ms"), ("bound_ms", "bound"))},
         },
         {
             "name": "intersect_bvh",
@@ -2578,7 +2995,8 @@ def main():
             "source": "cudatracerlib_tpu_torch/csrc/shade_gather.cu",
             "replaces": "cudatracerlib_tpu/ops/shade_gather.py:69",
             "launches": glaunch["packed_gather"]["gather"],
-            "max_abs_err": max(gather_err, sp_c["gather"]["err"], sh["gather"]["err"]),
+            "max_abs_err": max(gather_err, sp_c["gather"]["err"], sh["gather"]["err"],
+                               md["gather"]["err"]),
             "ms": ms_g,
             "plain_ms": plain_ms_g,
             "bound_ms": gather_bound[0],
@@ -2598,6 +3016,11 @@ def main():
             **{f"sppm_{f}": (sp_c["gather"][v][0] if v == "bound" else sp_c["gather"][v])
                for f, v in (("ms", "ms"), ("plain_ms", "plain_ms"), ("library_ms", "lib_ms"),
                             ("bound_ms", "bound"))},
+            "sharded_ppm_launches": mdl["ppm"]["shade_gather"]["gather"],
+            "sharded_ranks_ppm_launches": mrl["ppm"]["shade_gather"]["gather"],
+            **{f"sharded_ppm_{f}": (md["gather"][v][0] if v == "bound" else md["gather"][v])
+               for f, v in (("ms", "ms"), ("plain_ms", "plain_ms"), ("library_ms", "lib_ms"),
+                            ("bound_ms", "bound"))},
         },
         {
             "name": "packed_gather_bwd",
@@ -2607,7 +3030,7 @@ def main():
             "launches": gl["shade_gather"]["gather_bwd_tile"],
             "max_abs_err": max(*(b["err"] for b in bwd.values()), splat_bdpt["err"],
                                splat_lt["err"], vg["grid"]["err"], vg["table"]["err"],
-                               sh["splat"]["err"]),
+                               sh["splat"]["err"], md["bwd"]["err"]),
             "ms": bwd["pack"]["ms"],
             "plain_ms": bwd["pack"]["plain_ms"],
             "bound_ms": bwd["pack"]["bound"][0],
@@ -2648,6 +3071,13 @@ def main():
                             ("max_abs_err", "err"), ("max_rel_err", "rel"),
                             ("captured_rel_err", "captured_rel"), ("scratch_bytes", "scratch"),
                             ("mask_bytes", "masks"))},
+            "sharded_train_launches": mdl["train"]["shade_gather"]["gather_bwd_tile"],
+            "sharded_ranks_train_launches": mrl["train"]["shade_gather"]["gather_bwd_tile"],
+            **{f"sharded_train_{f}": (md["bwd"][v][0] if v == "bound" else md["bwd"][v])
+               for f, v in (("lanes", "lanes"), ("rows", "rows"), ("ms", "ms"),
+                            ("wrapper_ms", "wrap_ms"), ("plain_ms", "plain_ms"),
+                            ("library_ms", "lib_ms"), ("bound_ms", "bound"),
+                            ("max_abs_err", "err"), ("captured_rel_err", "captured_rel"))},
         },
         {
             "name": "photon_density",
@@ -2655,7 +3085,7 @@ def main():
             "source": "cudatracerlib_tpu_torch/csrc/photon_gather.cu",
             "replaces": "cudatracerlib_tpu/ops/photon_gather.py:164",
             "launches": plaunch["photon_density"]["density"],
-            "max_abs_err": dens_err,
+            "max_abs_err": max(dens_err, md["dens_err"]),
             "ms": pd_ms["global map"]["ms"],
             "plain_ms": plain_ms_pd,
             "bound_ms": pd_bound[0],
@@ -2665,6 +3095,8 @@ def main():
             "reduce_launches": plaunch["photon_density"]["density_reduce"],
             "caustic_ms": pd_ms["caustic map"]["ms"],
             "caustic_bound_ms": work["caustic map"]["bound"][0],
+            "sharded_ppm_launches": mdl["ppm"]["photon_gather"]["density"],
+            "sharded_ranks_ppm_launches": mrl["ppm"]["photon_gather"]["density"],
         },
     ]}))
     print(smi)

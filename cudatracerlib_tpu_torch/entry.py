@@ -8,15 +8,19 @@ examples/inverse_rendering.py:36-55: the L2 loss of a render against a
 target image, its value and gradient with respect to the wall albedos
 (`textures.color_a`, clipped to [0, 1]) and the light radiance
 (`lights.radiance`, taken by absolute value), and one SGD step with the
-example's learning rates. Both run on the card unless the caller asks for
-the CPU.
+example's learning rates. `dryrun_multichip` is the counterpart of
+`__graft_entry__.dryrun_multichip` (:24): one sharded train step on spawned
+ranks. All run on the card unless the caller asks for the CPU.
 """
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import torch
 
+from .parallel import shard
+from .parallel.distributed import run_ranks
 from .render.path_tracer import PTConfig, render, specialize_config
 from .scene.shapes import cornell_box
 
@@ -69,3 +73,31 @@ def inverse_step(scene, params, target, seed, width: int = 64, height: int = 64,
     grads = torch.autograd.grad(loss, params)
     new = tuple((p - rate * g).detach() for p, g, rate in zip(params, grads, INVERSE_LR))
     return InverseStep(loss=loss.detach(), grads=grads, params=new)
+
+
+DRYRUN_SIZE = 16
+
+
+def _dryrun_rank(rank, device, n_ranks):
+    """One rank of `dryrun_multichip`: its loss."""
+    n_sp = 2 if n_ranks % 2 == 0 else 1
+    mesh = shard.make_mesh(n_ranks // n_sp, n_sp, device=device)
+    scene = shard.replicate_scene(cornell_box(device=device), mesh)
+    target = torch.zeros(DRYRUN_SIZE, DRYRUN_SIZE, 3, device=device)
+    step = shard.make_train_step(mesh, DRYRUN_SIZE, DRYRUN_SIZE, 2 * n_sp, target,
+                                 config=PTConfig(max_depth=2, rr_start=99))
+    _, loss = step(scene, 0)
+    return float(loss)
+
+
+def dryrun_multichip(n_ranks: int, device="cuda") -> float:
+    """The full sharded differentiable training step on `n_ranks` spawned
+    ranks (pixels over dp, samples over sp = 2 when n_ranks is even; the
+    scene replicated from rank 0; the film all-reduce and the gradient
+    all-reduce), once at 16x16, depth 2. Raises unless the loss is finite
+    and equal on every rank; returns it."""
+    losses = run_ranks(_dryrun_rank, n_ranks, (n_ranks,), device=device)
+    if not all(math.isfinite(v) for v in losses) or len(set(losses)) != 1:
+        raise RuntimeError(f"dryrun_multichip({n_ranks}): losses by rank {losses}")
+    print(f"dryrun_multichip({n_ranks}) OK: loss={losses[0]:.6f}")
+    return losses[0]

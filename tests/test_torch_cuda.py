@@ -18,7 +18,9 @@ launches are bit-equal.
 The BVH kernel's t, u, v are bit-equal to its oracle's on every ray whose
 two hits name the same Woop row content.
 Renders on the card: mean within 1% of the CPU render, rays within 0.1%;
-the volume render within 7.5% and 1% (its test says why). The filtered
+the volume render within 7.5% and 1% (its test says why). The sharded
+render on one NCCL rank: rays within 1e-3 and the mean within 1e-4
+relative of one CPU rank's (the same lanes and seed). The filtered
 film's splat sum as the gather backward's. The port's TestFurnace runs
 here at the JAX test's sizes (on the CPU it is `slow`).
 """
@@ -33,6 +35,8 @@ from cudatracerlib_tpu_torch.ops import intersect_bvh as bvh_ops
 from cudatracerlib_tpu_torch.ops import intersect_dense as ops
 from cudatracerlib_tpu_torch.ops import photon_gather as pg_ops
 from cudatracerlib_tpu_torch.ops import shade_gather as sg_ops
+from cudatracerlib_tpu_torch.parallel import shard
+from cudatracerlib_tpu_torch.parallel.distributed import run_ranks
 from cudatracerlib_tpu_torch.render import path_tracer as pt
 from cudatracerlib_tpu_torch.render import ppm
 from cudatracerlib_tpu_torch.render import wavefront as wf
@@ -839,3 +843,22 @@ def test_port_energy_conservation_on_card(dev, bt, kw):
     assert img.mean() < 1.1, f"type {bt} gains energy: {img.mean()}"
     if bt in (2, 3, 4):   # DIELECTRIC, THINDIELECTRIC, ROUGHDIELECTRIC
         assert img.mean() > 0.85, f"type {bt} loses too much: {img.mean()}"
+
+
+def _sharded_render_rank(rank, device):
+    """One rank of a one-rank job: the sharded Cornell render at 64x64, 16
+    spp, depth 5, seed 3, and the group's backend."""
+    import torch.distributed as dist
+
+    mesh = shard.make_mesh(1, 1, device=device)
+    fn = shard.make_sharded_render(mesh, 64, 64, 16, pt.PTConfig(max_depth=5), with_stats=True)
+    img, n_rays = fn(cornell_box(device=device), 3)
+    return float(img.mean()), int(n_rays), bool(torch.isfinite(img).all()), dist.get_backend()
+
+
+def test_sharded_render_one_nccl_rank_matches_cpu(dev):
+    (mean, rays, finite, backend), = run_ranks(_sharded_render_rank, 1, device="cuda")
+    (mean_c, rays_c, finite_c, _), = run_ranks(_sharded_render_rank, 1, device="cpu")
+    assert backend == "nccl" and finite and finite_c
+    assert abs(rays - rays_c) <= 1e-3 * rays_c, (rays, rays_c)
+    assert abs(mean - mean_c) <= 1e-4 * mean_c, (mean, mean_c)

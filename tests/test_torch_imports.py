@@ -31,6 +31,9 @@ MODULES = [
     "cudatracerlib_tpu_torch.ops.intersect_dense",
     "cudatracerlib_tpu_torch.ops.photon_gather",
     "cudatracerlib_tpu_torch.ops.shade_gather",
+    "cudatracerlib_tpu_torch.parallel",
+    "cudatracerlib_tpu_torch.parallel.distributed",
+    "cudatracerlib_tpu_torch.parallel.shard",
     "cudatracerlib_tpu_torch.render.bdpt",
     "cudatracerlib_tpu_torch.render.light_tracer",
     "cudatracerlib_tpu_torch.render.path_tracer",
