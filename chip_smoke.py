@@ -249,7 +249,31 @@ It imports nothing of JAX. Phases, each of which raises on failure:
      (a)'s, every pixel within 1e-4 relative + 1e-6; (c) the train step:
      loss within 1e-5 relative, updates within 1e-3 of one rank's; (d) the
      PPM pass at bench size: finite, within three times the seed spread of
-     one rank's mean; each with its launches, and the collectives' times.
+     one rank's mean; each with its launches, and the collectives' times;
+  23. textures and material maps, the subsurface walk and cornell_box_deluxe
+     (pins from tools/texture_reference_mean.py, 64x64, 4 spp, seed 3): (a)
+     deluxe (1,428 Woop rows, the shade pack on; its back wall normal-mapped
+     by an IMAGE texture) at bench config 1's size, its pin within 0.5% and
+     its rays within 1e-3, a counted pass at seed 3, 5 passes through
+     `render_progressive` timed with the launch counts reset just before and
+     read just after (both kinds of intersect_dense and packed_gather), one
+     pass profiled; (b) deluxe through `render_wavefront_counted`, its pin
+     within 1%, one 256x256, 16-spp render timed; (c) tools/texture_cases.py's
+     maps case (an IMAGE albedo trilinear through the ray cone, a height map
+     with parallax, an alpha-tested quad; three atlas layers), its pin within
+     0.5%, one pass timed; (d) tests/test_sss.py's Marble sphere at 256x256,
+     16 spp, depth 8, 24 walk steps, its pin within three times JAX's seed
+     spread, one pass timed, whose closest-hit launches must be depth x (1 +
+     walk steps); (e) the gradients of deluxe (textures.atlas,
+     textures.color_a) and of the sphere (materials.sss_sigma_s) at 64x64
+     within 1e-3 of tools/texture_grad_reference.npz's, then each at full
+     size (the sphere at 128x128, with remat), forward and forward+backward
+     walls in 2 alternating pairs, peak memory and the launches of one
+     forward+backward; (f) intersect_dense on deluxe's camera, first-bounce
+     and shadow rays and the deluxe pack gather held to their plain versions
+     as in 3 and 6, and the gather backward at the atlas shape (2^20 x 3
+     lanes of one (level, corner) fetch onto 87,381 rows, captured in a
+     deluxe gradient pass) as in 19 (c).
 Each phase's seconds are printed as it ends.
 
 Before its last line it prints one JSON object describing each kernel; the
@@ -422,6 +446,30 @@ SHARD_PPM_SEEDS = (7, 8, 9, 10)   # the one-rank bench-size pass's seed spread (
 SHARD_PAIRS = 5            # phase 22: alternating sharded / unsharded pass walls
 SHARD_RANKS = 2            # phase 22 (b)-(d): gloo ranks sharing the card
 SHARD_RANK_TIMEOUT_S = 600.0
+# Phase 23's pins, the JAX package on the CPU at 64x64, 4 spp (`JAX_PLATFORMS=cpu python
+# tools/texture_reference_mean.py`): cornell_box_deluxe through render_counted (seed 3, depth 5;
+# gate 0.5%, as phase 4's) and render_wavefront_counted (gate 1%, as the glossy pin's), the maps
+# case of tools/texture_cases.py (seed 3, depth 5; 0.5%), each with its rays (within 1e-3); the
+# Marble sphere of tests/test_sss.py (depth 8, rr_start 99, 24 walk steps) at seed 3, gated at
+# three times the spread of JAX's means over seeds 3-5 (a walk decision an ulp flips draws that
+# lane's walk anew). The CPU port (`--port`) gives deluxe's mean and rays exactly, the wavefront's
+# within 5e-7 and 2 rays, the maps case's within 1.7e-5.
+TEXTURE_PINS = {"deluxe": (0.116040580, 89_172, 0.005), "deluxe_wf": (0.116319418, 89_192, 0.01),
+                "maps": (0.124433614, 89_269, 0.005)}
+REF_SSS_MEAN = 0.805994451
+REF_SSS_SPREAD = 0.034776     # (max - min) / seed-3 mean over seeds 3, 4, 5
+TEXTURE_PIN = dict(width=64, height=64, spp=4, seed=3)
+SSS_CFG = dict(max_depth=8, rr_start=99, sss_steps=24)
+# Phase 23's gradients, the JAX package on the CPU (`JAX_PLATFORMS=cpu python
+# tools/texture_grad_reference.py` writes TGRAD_REF): d mean(render) at 64x64, 4 spp, seed 0 of
+# deluxe (depth 4, rr_start 99) with respect to textures.atlas and textures.color_a, and of the
+# Marble sphere (depth 6, rr_start 99, 16 walk steps) with respect to materials.sss_sigma_s. Each
+# entry within 1e-3 of the field's largest (+1e-6), the loss within 1e-4, as phase 12's.
+TGRAD_REF = os.path.join("tools", "texture_grad_reference.npz")
+TGRAD_CASES = {"deluxe": (dict(max_depth=4, rr_start=99), ["textures.atlas", "textures.color_a"]),
+               "sss": (dict(max_depth=6, rr_start=99, sss_steps=16), ["materials.sss_sigma_s"])}
+TGRAD_PAIRS = 2            # phase 23 (e): alternating forward / forward+backward walls
+TGRAD_SSS_SIZE = 128       # phase 23 (e): the sphere's gradient pass, 128x128 at 16 spp
 PPM_W = PPM_H = 128        # bench config 5 (bench.py:289-340)
 PPM_SPP, PPM_PASS = 4, 1
 DENSITY_RTOL, DENSITY_ATOL = 1e-4, 1e-6
@@ -2009,6 +2057,244 @@ def _shading_phase(cornell, caustic, smi, reset_counts):
     return dict(pins=pins, runs=runs, **checks)
 
 
+def _texture_cases():
+    """tools/texture_cases.py (numpy only), imported from the checkout."""
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools"))
+    import texture_cases
+
+    return texture_cases
+
+
+def _texture_scene(case):
+    """A texture case of tools/texture_cases.py built on the card."""
+    from cudatracerlib_tpu_torch.scene.scene import Materials, build_scene
+    from cudatracerlib_tpu_torch.scene.sensors import Camera
+    from cudatracerlib_tpu_torch.scene.textures import Textures
+
+    return _texture_cases().build(case, build_scene, Materials, Textures, Camera)
+
+
+def _texture_grad_gates(deluxe, sss):
+    """Phase 23 (e)'s pinned gradients against tools/texture_grad_reference.npz."""
+    import numpy as np
+    from cudatracerlib_tpu_torch.render import path_tracer as pt
+
+    ref = np.load(TGRAD_REF)
+    out = {}
+    for name, scene in (("deluxe", deluxe), ("sss", sss)):
+        cfg, paths = TGRAD_CASES[name]
+        loss, g = _loss_and_grads(scene, paths, 64, 64, 4, 0, pt.PTConfig(**cfg))
+        ref_loss = float(ref[f"{name}/loss"])
+        _require(abs(loss - ref_loss) <= REF_LOSS_RTOL * abs(ref_loss),
+                 f"{name} gradient pass: loss {loss} is not within {REF_LOSS_RTOL} of JAX's "
+                 f"{ref_loss}")
+        worst = 0.0
+        for path in paths:
+            r, v = ref[f"{name}/{path}"], g[path]
+            err = np.abs(v - r)
+            _require(bool(np.isfinite(v).all()) and bool(
+                (err <= REF_GRAD_RTOL * (np.abs(r) + np.abs(r).max()) + 1e-6).all()),
+                f"{name} d/d{path}: off JAX's by up to {float(err.max())} (largest "
+                f"{float(np.abs(r).max())})")
+            worst = max(worst, float(err.max() / np.abs(r).max()))
+        print(f"[tex grad] {name} 64x64 spp 4 seed 0 {cfg}: loss {loss:.9f} (JAX {ref_loss:.9f}), "
+              f"d/d{paths} within {worst:.3g} of each field's largest of JAX's (tolerance "
+              f"{REF_GRAD_RTOL} of the entry + {REF_GRAD_RTOL} of the largest)")
+        out[name] = dict(loss=loss, worst=worst)
+    return out
+
+
+def _texture_phase(smi, reset_counts):
+    """Phase 23 (module docstring): textures and material maps, the
+    subsurface walk and cornell_box_deluxe on the card, their pins and
+    gradients, and intersect_dense, packed_gather and the gather backward
+    held to their plain versions at the new shapes."""
+    import numpy as np
+    import torch
+    from cudatracerlib_tpu_torch.ops import intersect_dense as ops
+    from cudatracerlib_tpu_torch.ops import shade_gather as sg_ops
+    from cudatracerlib_tpu_torch.render import path_tracer as pt
+    from cudatracerlib_tpu_torch.render import wavefront as wf
+    from cudatracerlib_tpu_torch.scene import material_lib, shade_pack
+    from cudatracerlib_tpu_torch.scene import textures as tex_mod
+    from cudatracerlib_tpu_torch.scene.shapes import cornell_box_deluxe
+
+    tc = _texture_cases()
+    cfg = pt.PTConfig(max_depth=DEPTH)
+    sss_cfg = pt.PTConfig(**SSS_CFG)
+    marks = [time.perf_counter()]
+
+    def part(tag):
+        marks.append(time.perf_counter())
+        print(f"[wall] phase 23 ({tag}): {marks[-1] - marks[-2]:.1f} s")
+    pw, ph, pspp, pseed = (TEXTURE_PIN[k] for k in ("width", "height", "spp", "seed"))
+
+    def counts():
+        return {"intersect_dense": dict(ops.launches), "shade_gather": dict(sg_ops.launches)}
+
+    def pin(name, img, rays):
+        ref, ref_rays, tol = TEXTURE_PINS[name]
+        m = float(img.mean())
+        _require(bool(torch.isfinite(img).all()), f"the pinned {name} image is not finite")
+        _require(abs(m - ref) <= tol * ref,
+                 f"pinned {name} mean {m} is not within {tol:.1%} of JAX's {ref}")
+        _require(abs(int(rays) - ref_rays) <= 1e-3 * ref_rays,
+                 f"pinned {name} rays {int(rays)} are not within 1e-3 of JAX's {ref_rays}")
+        print(f"[pin] {name} ({pw}x{ph}, {pspp} spp, seed {pseed}): mean {m:.9f} (JAX {ref}, "
+              f"{100 * (m / ref - 1):+.5f}%), rays {int(rays)} (JAX {ref_rays})")
+        return m / ref - 1
+
+    deluxe = cornell_box_deluxe()
+    _require(deluxe.bvh.woop.device.type == "cuda" and shade_pack.pack_enabled(deluxe),
+             "cornell_box_deluxe() did not build on the card in the shade pack's band")
+    maps = _texture_scene(tc.maps_case())
+    sss = _texture_scene(tc.sss_case(material_lib.sss_record))
+    pins, runs = {}, {}
+
+    # (a) deluxe at bench config 1's size: the pin, a counted pass, 5 passes timed
+    pins["deluxe"] = pin("deluxe", *pt.render_counted(deluxe, pw, ph, pspp, pseed, cfg))
+    img1, rays = pt.render_counted(deluxe, W, H, SPP, 3, cfg)
+    torch.cuda.synchronize()
+    reset_counts()
+    dt, img = _timed(lambda: pt.render_progressive(deluxe, W, H, SPP, N_PASS, 7, cfg))
+    launch = counts()
+    _require(launch["intersect_dense"]["closest"] > 0 and launch["intersect_dense"]["any_hit"] > 0
+             and launch["shade_gather"]["gather"] > 0,
+             f"the deluxe passes did not launch intersect_dense for both ray kinds and "
+             f"packed_gather: {launch}")
+    _require(bool(torch.isfinite(img).all()) and bool(torch.isfinite(img1).all())
+             and tuple(img.shape) == (H, W, 3), "the deluxe images are not finite")
+    prof = _profile("deluxe pass", lambda: pt.render(deluxe, W, H, SPP, 7, cfg), top_n=5)
+    mrays = int(rays) * N_PASS / dt / 1e6
+    print(f"[main path] deluxe {W}x{H} spp {SPP} depth {DEPTH}: rays/pass {int(rays)} (seed 3, "
+          f"mean {float(img1.mean()):.6f}), {N_PASS} passes in {dt:.4f} s, {mrays:.3f} Mrays/s, "
+          f"idle {prof['idle']:.3f}; launches {json.dumps(launch)}; {smi}")
+    runs["deluxe"] = dict(dt=dt / N_PASS, mrays=mrays, idle=prof["idle"], launches=launch)
+
+    part("a")
+
+    # (b) deluxe through the wavefront engine
+    pins["deluxe_wf"] = pin("deluxe_wf", *wf.render_wavefront_counted(deluxe, pw, ph, pspp,
+                                                                      pseed, cfg))
+    wf.render_wavefront_counted(deluxe, W, H, SPP, 0, cfg)
+    torch.cuda.synchronize()
+    reset_counts()
+    dt, (img, rays) = _timed(lambda: wf.render_wavefront_counted(deluxe, W, H, SPP, 7, cfg))
+    launch = counts()
+    _require(launch["intersect_dense"]["closest"] > 0 and launch["shade_gather"]["gather"] > 0
+             and bool(torch.isfinite(img).all()),
+             f"the deluxe wavefront render failed: {launch}")
+    print(f"[main path] deluxe wavefront {W}x{H} spp {SPP} depth {DEPTH} seed 7: rays "
+          f"{int(rays)}, {dt:.4f} s, {int(rays) / dt / 1e6:.3f} Mrays/s; launches "
+          f"{json.dumps(launch)}; {smi}")
+    runs["deluxe_wf"] = dict(dt=dt, mrays=int(rays) / dt / 1e6, launches=launch)
+
+    part("b")
+
+    # (c) the maps case: IMAGE albedo through the cone, height map with parallax, alpha test
+    spec = pt.specialize_config(maps, cfg)
+    _require(spec.height_maps and spec.parallax and spec.alpha_test
+             and tex_mod.IMAGE in spec.tex_types, f"the maps case lost a feature: {spec}")
+    pins["maps"] = pin("maps", *pt.render_counted(maps, pw, ph, pspp, pseed, cfg))
+    pt.render_counted(maps, W, H, SPP, 0, cfg)
+    torch.cuda.synchronize()
+    reset_counts()
+    dt, (img, rays) = _timed(lambda: pt.render_counted(maps, W, H, SPP, 7, cfg))
+    launch = counts()
+    _require(launch["intersect_dense"]["closest"] > 0 and launch["intersect_dense"]["any_hit"] > 0
+             and bool(torch.isfinite(img).all()), f"the maps case failed: {launch}")
+    print(f"[main path] maps case {W}x{H} spp {SPP} depth {DEPTH} seed 7: rays {int(rays)}, "
+          f"{dt:.4f} s, {int(rays) / dt / 1e6:.3f} Mrays/s, mean {float(img.mean()):.6f}; "
+          f"launches {json.dumps(launch)}; {smi}")
+    runs["maps"] = dict(dt=dt, mrays=int(rays) / dt / 1e6, launches=launch)
+
+    part("c")
+
+    # (d) the subsurface walk: tests/test_sss.py's scene
+    img, rays = pt.render_counted(sss, pw, ph, pspp, pseed, sss_cfg)
+    m = float(img.mean())
+    _require(bool(torch.isfinite(img).all())
+             and abs(m - REF_SSS_MEAN) <= 3 * REF_SSS_SPREAD * REF_SSS_MEAN,
+             f"pinned sss mean {m} is not within three times JAX's seed spread "
+             f"({REF_SSS_SPREAD:.4f}) of {REF_SSS_MEAN}")
+    pins["sss"] = m / REF_SSS_MEAN - 1
+    print(f"[pin] sss ({pw}x{ph}, {pspp} spp, seed {pseed}, {SSS_CFG}): mean {m:.9f} (JAX "
+          f"{REF_SSS_MEAN}, {100 * pins['sss']:+.4f}%, gate {300 * REF_SSS_SPREAD:.2f}%), rays "
+          f"{int(rays)}")
+    pt.render_counted(sss, W, H, SPP, 0, sss_cfg)
+    torch.cuda.synchronize()
+    reset_counts()
+    dt, (img, rays) = _timed(lambda: pt.render_counted(sss, W, H, SPP, 7, sss_cfg))
+    launch = counts()
+    walk = sss_cfg.max_depth * sss_cfg.sss_steps
+    _require(launch["intersect_dense"]["closest"] == sss_cfg.max_depth + walk
+             and bool(torch.isfinite(img).all()),
+             f"the sss pass did not launch {sss_cfg.max_depth} + {walk} closest-hit traces: "
+             f"{launch}")
+    print(f"[main path] sss {W}x{H} spp {SPP} {SSS_CFG} seed 7: rays {int(rays)}, {dt:.4f} s, "
+          f"{int(rays) / dt / 1e6:.3f} Mrays/s, mean {float(img.mean()):.6f}; the walk adds "
+          f"{walk} closest-hit launches to the bounces' {sss_cfg.max_depth}; launches "
+          f"{json.dumps(launch)}; {smi}")
+    runs["sss"] = dict(dt=dt, mrays=int(rays) / dt / 1e6, launches=launch)
+
+    part("d")
+
+    # (e) gradients: the pins at 64x64, then the full-size passes in alternating pairs
+    gates = _texture_grad_gates(deluxe, sss)
+    part("e, pins")
+    grad = {}
+    for name, scene, gcfg, paths, size in (
+            ("deluxe", deluxe, cfg, ["textures.atlas", "textures.color_a"], W),
+            ("sss", sss, sss_cfg._replace(remat=True), ["materials.sss_sigma_s"], TGRAD_SSS_SIZE)):
+        def fwd(scene=scene, gcfg=gcfg, size=size):
+            with torch.no_grad():
+                return pt.render(scene, size, size, SPP, 7, gcfg)
+
+        def fwd_bwd(scene=scene, gcfg=gcfg, paths=paths, size=size):
+            return _loss_and_grads(scene, paths, size, size, SPP, 7, gcfg)
+
+        fwd_walls, fb_walls = _paired_walls_ms(fwd, fwd_bwd, TGRAD_PAIRS)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        reset_counts()
+        _, g = fwd_bwd()
+        torch.cuda.synchronize()
+        launch = counts()
+        peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+        _require(launch["shade_gather"]["gather_bwd_tile"] > 0
+                 and all(bool(np.isfinite(v).all()) and np.abs(v).max() > 0 for v in g.values()),
+                 f"the {name} gradient pass failed: {launch}")
+        fwd_ms, fb_ms = _median(fwd_walls), _median(fb_walls)
+        print(f"[tex grad pass] {name} {size}x{size} spp {SPP} seed 7 d/d{paths}"
+              f"{' (remat)' if gcfg.remat else ''}: forward {fwd_ms:.3f} ms (min "
+              f"{min(fwd_walls):.3f}, max {max(fwd_walls):.3f}), forward+backward {fb_ms:.3f} ms "
+              f"(min {min(fb_walls):.3f}, max {max(fb_walls):.3f}), medians of {TGRAD_PAIRS} "
+              f"alternating pairs; peak device memory above the scene {peak:.3f} GB; launches "
+              f"over one forward+backward {json.dumps(launch)}; {smi}")
+        grad[name] = dict(fwd_ms=fwd_ms, fb_ms=fb_ms, peak_gb=peak, launches=launch)
+
+    part("e")
+
+    # (f) the kernels at the new shapes: intersect_dense and the pack gather on a warm deluxe
+    # pass, the gather backward on an atlas lookup's cotangent from a deluxe gradient pass
+    dense, gathers, _ = _capture_render(lambda: pt.render_counted(deluxe, W, H, SPP, 0, cfg))
+    dense_r = {f"deluxe {k}": _compare(f"deluxe {k}", c[0], c[1], c[2], c[3], c[4], 10, c[6])
+               for k, c in dense.items()}
+    gather_r = _check_gather_at("deluxe pack", *gathers[0])
+    n_atlas = deluxe.textures.atlas.shape[0] * tex_mod.ATLAS_TOTAL
+    lanes = W * H * SPP
+    (g_cap, idx_cap, rows_cap), _ = _capture_bwd(
+        lambda: _loss_and_grads(deluxe, ["textures.atlas"], W, H, SPP, 7, cfg),
+        lambda g_, i, r: r == n_atlas and g_.shape == (lanes, 3))
+    atlas_r = _check_bwd_captured("atlas", g_cap, idx_cap, rows_cap, deluxe.bvh.woop.device)
+    del g_cap, idx_cap
+    torch.cuda.empty_cache()
+    part("f")
+    return dict(pins=pins, runs=runs, gates=gates, grad=grad, dense=dense_r, gather=gather_r,
+                atlas=atlas_r)
+
+
 def _port_counters():
     """The port's launch counters by wrapper module (each kernel wrapper adds
     one where it launches its kernel)."""
@@ -2894,8 +3180,15 @@ def main():
     # ---- 22. multi-device: the sharded render, train step and PPM pass ----
     md = _multidevice_phase(scene, caustic, smi)
     lap(22)
-    print(f"[wall] chip_smoke.py phases 1-22: {time.perf_counter() - t_start:.1f} s after the "
+
+    # ---- 23. textures, material maps, the subsurface walk and cornell_box_deluxe ----
+    tx = _texture_phase(smi, reset_counts)
+    lap(23)
+    print(f"[wall] chip_smoke.py phases 1-23: {time.perf_counter() - t_start:.1f} s after the "
           f"imports")
+    tx_launch = {k: r["launches"] for k, r in tx["runs"].items()}
+    tx_dense = sum(v["intersect_dense"]["closest"] + v["intersect_dense"]["any_hit"]
+                   for v in tx_launch.values())
     mdl, mrl = md["launches"], md["rank_launches"]
     md_dense = lambda part: sum(part["intersect_dense"].values())  # noqa: E731
     sh_launch = {k: r["launches"] for k, r in sh["runs"].items()}
@@ -2914,7 +3207,7 @@ def main():
             "max_abs_err": max(dense_err, *(r["err"] for r in (
                 *bdpt_r.values(), *vol_r.values(), *vg["dense"].values(),
                 *sp_c["dense"].values(), *sp_v["dense"].values(), *sh["dense"].values(),
-                *md["dense"].values()))),
+                *md["dense"].values(), *tx["dense"].values()))),
             "ms": cam["ms"],
             "plain_ms": cam["plain_ms"],
             "bound_ms": cam["bound"][0],
@@ -2961,6 +3254,15 @@ def main():
             "sharded_ppm_launches": md_dense(mdl["ppm"]),
             "sharded_ranks_launches": sum(md_dense(mrl[k]) for k in mrl),
             "sharded_max_abs_err": max(r["err"] for r in md["dense"].values()),
+            "deluxe_launches": tx_launch["deluxe"]["intersect_dense"]["closest"]
+            + tx_launch["deluxe"]["intersect_dense"]["any_hit"],
+            "texture_phase_launches": tx_dense,
+            "sss_walk_launches": tx_launch["sss"]["intersect_dense"]["closest"],
+            "deluxe_max_abs_err": max(r["err"] for r in tx["dense"].values()),
+            **{f"{k.replace(' rays', '').replace(' ', '_').replace('-', '_')}_{f}": (
+                r[v][0] if v == "bound" else r[v])
+               for k, r in tx["dense"].items()
+               for f, v in (("ms", "ms"), ("plain_ms", "plain_ms"), ("bound_ms", "bound"))},
             **{f"{k.replace(' rays', '').replace(' ', '_')}_{f}": (r[v][0] if v == "bound"
                                                                    else r[v])
                for k, r in md["dense"].items()
@@ -2996,7 +3298,7 @@ def main():
             "replaces": "cudatracerlib_tpu/ops/shade_gather.py:69",
             "launches": glaunch["packed_gather"]["gather"],
             "max_abs_err": max(gather_err, sp_c["gather"]["err"], sh["gather"]["err"],
-                               md["gather"]["err"]),
+                               md["gather"]["err"], tx["gather"]["err"]),
             "ms": ms_g,
             "plain_ms": plain_ms_g,
             "bound_ms": gather_bound[0],
@@ -3018,6 +3320,10 @@ def main():
                             ("bound_ms", "bound"))},
             "sharded_ppm_launches": mdl["ppm"]["shade_gather"]["gather"],
             "sharded_ranks_ppm_launches": mrl["ppm"]["shade_gather"]["gather"],
+            "deluxe_launches": tx_launch["deluxe"]["shade_gather"]["gather"],
+            **{f"deluxe_{f}": (tx["gather"][v][0] if v == "bound" else tx["gather"][v])
+               for f, v in (("ms", "ms"), ("plain_ms", "plain_ms"), ("library_ms", "lib_ms"),
+                            ("bound_ms", "bound"))},
             **{f"sharded_ppm_{f}": (md["gather"][v][0] if v == "bound" else md["gather"][v])
                for f, v in (("ms", "ms"), ("plain_ms", "plain_ms"), ("library_ms", "lib_ms"),
                             ("bound_ms", "bound"))},
@@ -3030,7 +3336,7 @@ def main():
             "launches": gl["shade_gather"]["gather_bwd_tile"],
             "max_abs_err": max(*(b["err"] for b in bwd.values()), splat_bdpt["err"],
                                splat_lt["err"], vg["grid"]["err"], vg["table"]["err"],
-                               sh["splat"]["err"], md["bwd"]["err"]),
+                               sh["splat"]["err"], md["bwd"]["err"], tx["atlas"]["err"]),
             "ms": bwd["pack"]["ms"],
             "plain_ms": bwd["pack"]["plain_ms"],
             "bound_ms": bwd["pack"]["bound"][0],
@@ -3038,7 +3344,7 @@ def main():
             "library_ms": bwd["pack"]["lib_ms"],
             "wrapper_ms": bwd["pack"]["wrap_ms"],
             "max_rel_err": max(*(b["rel"] for b in bwd.values()), vg["grid"]["rel"],
-                               vg["table"]["rel"]),
+                               vg["table"]["rel"], tx["atlas"]["rel"]),
             "range_launches": gl["shade_gather"]["gather_bwd_range"],
             "final_launches": gl["shade_gather"]["gather_bwd_final"],
             "cornell_launches": cgrad["launches"]["shade_gather"]["gather_bwd_tile"],
@@ -3065,6 +3371,15 @@ def main():
             "grid_launches": vgl["shade_gather"]["gather_bwd_tile"],
             **{f"{k}_{f}": (vg[k][v][0] if v == "bound" else vg[k][v])
                for k in ("grid", "table")
+               for f, v in (("lanes", "lanes"), ("rows", "rows"), ("ms", "ms"),
+                            ("wrapper_ms", "wrap_ms"), ("plain_ms", "plain_ms"),
+                            ("library_ms", "lib_ms"), ("bound_ms", "bound"),
+                            ("max_abs_err", "err"), ("max_rel_err", "rel"),
+                            ("captured_rel_err", "captured_rel"), ("scratch_bytes", "scratch"),
+                            ("mask_bytes", "masks"))},
+            "atlas_launches": tx["grad"]["deluxe"]["launches"]["shade_gather"]["gather_bwd_tile"],
+            "sss_grad_launches": tx["grad"]["sss"]["launches"]["shade_gather"]["gather_bwd_tile"],
+            **{f"atlas_{f}": (tx["atlas"][v][0] if v == "bound" else tx["atlas"][v])
                for f, v in (("lanes", "lanes"), ("rows", "rows"), ("ms", "ms"),
                             ("wrapper_ms", "wrap_ms"), ("plain_ms", "plain_ms"),
                             ("library_ms", "lib_ms"), ("bound_ms", "bound"),

@@ -44,3 +44,16 @@ def coordinate_system(n):
     s = torch.stack([1.0 + sign * nx * nx * a, sign * b, -sign * nx], dim=-1)
     t = torch.stack([b, sign + ny * ny * a, -ny], dim=-1)
     return s, t
+
+
+def reflect(w, n):
+    """Mirror reflection of direction `w` about normal `n` (both pointing
+    away from the surface)."""
+    return 2.0 * dot(w, n, keepdims=True) * n - w
+
+
+def refract(w, n, eta, cos_theta_t):
+    """`w` refracted about `n`, given the relative IOR `eta` (per lane) and
+    the signed transmitted cosine from `fresnel_dielectric`."""
+    cos_theta_i = dot(w, n, keepdims=True)
+    return n * (cos_theta_i * eta[..., None] + cos_theta_t[..., None]) - w * eta[..., None]

@@ -18,14 +18,16 @@ requires grad nothing is recorded; `render_counted` and
 `render_progressive` run without gradients.
 
 Ported: every BSDF tag (the nested COATING / ROUGHCOATING / BLEND through
-`bsdf.eval_bsdf_nested` / `sample_bsdf_nested`) and light type, the texture
-types of scene/textures.py `PORTED`, all five camera models, with or
-without NEE, path-space regularization (`_regularize`), filter-importance
-splatting (`rec_filter` 1-4, `image/film.add_samples_filtered`) and the
-fused shade-pack path on the card. What stays unported raises
-NotImplementedError: media in `render` (`media_modes`; render/volpath.py
-renders media), `sss`, `alpha_test`, normal/height/parallax maps and the
-texture types scene/textures.py does not port.
+`bsdf.eval_bsdf_nested` / `sample_bsdf_nested`), light type and texture
+type, image textures MIP-filtered by the ray cone (`sensors.pixel_spread`
+and each path's length), normal, height and parallax maps and the alpha
+test (`scene.apply_material_maps`, `scene.alpha_test`), the subsurface
+random walk (`_sss_walk`, `PTConfig.sss_steps`), all five camera models,
+with or without NEE, path-space regularization (`_regularize`),
+filter-importance splatting (`rec_filter` 1-4,
+`image/film.add_samples_filtered`) and the fused shade-pack path on the
+card. Media in `render` (`media_modes`) raise NotImplementedError:
+render/volpath.py renders media.
 """
 from __future__ import annotations
 
@@ -36,17 +38,20 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..image import film as film_mod
+from ..math import fresnel as fres
 from ..math import montecarlo as mc
-from ..math.vecmath import dot
+from ..math.vecmath import dot, reflect, refract
+from ..ops.shade_gather import gather_rows, packed_gather
 from ..sampling.records import DISCRETE
 from ..sampling.rng import MASK, Sampler
 from ..scene import bsdf as bsdf_mod
 from ..scene import lights as lights_mod
+from ..scene import phase as phase_mod
 from ..scene import sensors
+from ..scene import shade_pack as sp_mod
 from ..scene import textures as tex_mod
 from ..scene import scene as scene_mod
-from ..scene.scene import Scene, gather_nested_params
-from ..scene.shade_pack import build_shade_pack, hit_shading, pack_enabled
+from ..scene.scene import Scene, gather_mat_params, gather_nested_params, make_interaction
 
 RAY_EPS = 1e-3
 
@@ -74,20 +79,13 @@ class PTConfig(NamedTuple):
     rec_filter: int = 0
     rec_radius: float = 1.5
     media_modes: tuple | None = None
-    sss: bool = False
+    sss: bool = False            # the subsurface random walk (set from the scene)
+    sss_steps: int = 16          # the walk's steps (truncation ~ albedo^N)
 
 
 def _check_ported(config: PTConfig) -> None:
-    unported = [name for name, on in (
-        ("media_modes", config.media_modes is not None),
-        ("sss", config.sss),
-        ("alpha_test", config.alpha_test),
-        ("normal_maps", config.normal_maps),
-        ("height_maps", config.height_maps),
-        ("parallax", config.parallax),
-    ) if on]
-    if unported:
-        raise NotImplementedError(f"PTConfig features not ported: {unported}")
+    if config.media_modes is not None:
+        raise NotImplementedError("PTConfig.media_modes: render/volpath.py renders media")
     if config.rec_filter not in range(5):
         raise NotImplementedError(f"rec_filter {config.rec_filter}: the filters are 0 (box) "
                                   f"to 4 (triangle)")
@@ -161,10 +159,101 @@ def _regularize(mp: bsdf_mod.MatParams, depth, alpha: float) -> bsdf_mod.MatPara
                        alpha_v=torch.where(was_delta, alpha, mp.alpha_v))
 
 
+def texture_cone(scene: Scene, width: int, height: int, config: PTConfig):
+    """The per-pixel ray cone (`sensors.pixel_spread`) when the scene has
+    IMAGE textures to filter with it, else None (no path length carried)."""
+    if tex_mod.IMAGE in config.tex_types:
+        return sensors.pixel_spread(scene.camera, width, height)
+    return None
+
+
 def _offset_ray(p, n_geo, w, eps):
     """Offset the origin along the geometric normal on w's side."""
     s = torch.sign(dot(n_geo, w, keepdims=True))
     return p + n_geo * s * eps
+
+
+def _sss_walk(scene: Scene, config: PTConfig, *, entered, p0, d0, n_entry, mat_id,
+              sampler: Sampler):
+    """Random-walk subsurface transport (Engine/Material.h:66 GetBSSRDF and
+    Kernel/ParticleProcess.h's SSS handling).
+
+    A lane that refracted into an sss material walks its homogeneous
+    interior: distances are sampled against the channel-mean sigma_t (its
+    pdf detached; per-channel weights keep the estimator exact and
+    differentiable in the sigmas), HG phase at each scatter, and a boundary
+    hit either refracts out through the dielectric interface or reflects
+    back inside by Fresnel. `config.sss_steps` steps, each one closest-hit
+    trace of every lane; lanes still inside after the last step end.
+
+    Returns (exited, exit_o, exit_d, weight (B, 3), sampler, rays traced)."""
+    B = p0.shape[0]
+    m = scene.materials
+    mid = mat_id.long()
+    sig_s = gather_rows(m.sss_sigma_s, mid)
+    sig_a = gather_rows(m.sss_sigma_a, mid)
+    sig_t = sig_s + sig_a
+    hg = gather_rows(m.sss_g, mid)
+    eta_mat = gather_rows(m.eta, mid)
+    sig_mean = torch.clamp((sig_t[..., 0] + sig_t[..., 1] + sig_t[..., 2]) / 3.0,
+                           min=1e-6).detach()
+    hg_type = torch.full((B,), phase_mod.HG, dtype=torch.int32, device=p0.device)
+    eps = config.ray_eps
+
+    pos, dirn = p0 - n_entry * eps, d0      # start just inside the surface
+    w = torch.ones(B, 3, device=p0.device)
+    inside = entered
+    exited = torch.zeros(B, dtype=torch.bool, device=p0.device)
+    exit_o, exit_d = p0, d0
+    s = sampler
+    n_rays = torch.zeros((), dtype=torch.int64, device=p0.device)
+    for _ in range(config.sss_steps):
+        s, u_t = s.next_1d()
+        t_s = -torch.log(torch.clamp(1.0 - u_t, min=1e-12)) / sig_mean
+        hit = scene_mod.scene_intersect(scene, pos, dirn, eps, t_s)
+        hit_bound = inside & hit.valid
+        scat = inside & ~hit.valid
+
+        # ---- scatter event: per-channel weight over the mean-sigma pdf ----
+        tr_c = torch.exp(-sig_t * t_s[..., None])
+        pdf_sc = (sig_mean * torch.exp(-sig_mean * t_s)).detach()[..., None]
+        w_sc = sig_s * tr_c / torch.clamp(pdf_sc, min=1e-20)
+        s, u_ph = s.next_2d()
+        ps = phase_mod.sample_phase(hg_type, hg, -dirn, u_ph)
+        p_sc = pos + dirn * t_s[..., None]
+
+        # ---- boundary event: pass weight, Fresnel exit or TIR ----
+        t_b = torch.where(hit.valid, hit.t, 1.0)
+        tr_b = torch.exp(-sig_t * t_b[..., None])
+        pdf_b = torch.exp(-sig_mean * t_b).detach()[..., None]
+        w_b = tr_b / torch.clamp(pdf_b, min=1e-20)
+        nf = gather_rows(scene.shading.n_face, torch.clamp(hit.prim, min=0).long())
+        n_out = nf * torch.sign(dot(nf, dirn, keepdims=True))  # points along the exit
+        p_b = pos + dirn * t_b[..., None]
+        wo = -dirn
+        F, cos_t, _, eta_ti = fres.fresnel_dielectric(dot(wo, n_out), eta_mat)
+        s, u_f = s.next_1d()
+        do_exit = hit_bound & (u_f >= F)          # transmit out
+        tir = hit_bound & ~do_exit                # reflect back inside
+        d_refr = refract(wo, n_out, eta_ti, cos_t)
+        d_refl = reflect(wo, n_out)
+        # radiance compression leaving the dense medium
+        w_exit = (w_b * (eta_ti * eta_ti)[..., None]
+                  * ((1.0 - F) / torch.clamp((1.0 - F).detach(), min=1e-12))[..., None])
+        w_tir = w_b * (F / torch.clamp(F.detach(), min=1e-12))[..., None]
+
+        n_rays = n_rays + inside.sum()
+        scat3, tir3, exit3 = scat[..., None], tir[..., None], do_exit[..., None]
+        pos = torch.where(scat3, p_sc, torch.where(tir3, p_b - dirn * eps, pos))
+        new_dir = torch.where(scat3, ps.wi, torch.where(tir3, d_refl, dirn))
+        w = torch.where(scat3, w * w_sc * ps.weight[..., None],
+                        torch.where(tir3, w * w_tir, torch.where(exit3, w * w_exit, w)))
+        exit_o = torch.where(exit3, p_b + n_out * eps, exit_o)
+        exit_d = torch.where(exit3, d_refr, exit_d)
+        dirn = new_dir
+        inside = scat | tir
+        exited = exited | do_exit
+    return exited, exit_o, exit_d, w, s, n_rays
 
 
 class BounceOut(NamedTuple):
@@ -177,6 +266,7 @@ class BounceOut(NamedTuple):
     bs_pdf: torch.Tensor      # solid-angle pdf of the sampled direction
     delta_now: torch.Tensor   # sampled lobe was delta (suppress next MIS)
     eta_scale: torch.Tensor   # updated accumulated eta^2
+    path_len: torch.Tensor    # updated path length (the ray cone's footprint)
     sampler: Sampler
     n_rays: torch.Tensor      # rays traced this bounce (int64 scalar)
     n_nonfinite: torch.Tensor  # lanes whose L or throughput went non-finite
@@ -184,26 +274,63 @@ class BounceOut(NamedTuple):
 
 def surface_bounce(scene: Scene, config: PTConfig, *, o, d, active, throughput,
                    prev_pdf, prev_delta, eta_scale, sampler: Sampler, depth,
-                   pack=None) -> BounceOut:
-    """One surface-path bounce: intersect -> environment on escape and
-    area-light emission, each with MIS -> NEE -> BSDF sample -> Russian
-    roulette. `config` must be specialized; `depth` is an int (megakernel)
-    or a per-lane tensor (wavefront pool).
+                   path_len=None, cone=None, pack=None) -> BounceOut:
+    """One surface-path bounce: intersect -> material maps and the alpha
+    test -> environment on escape and area-light emission, each with MIS ->
+    NEE -> BSDF sample -> Russian roulette -> the subsurface walk.
+    `config` must be specialized; `depth` is an int (megakernel) or a
+    per-lane tensor (wavefront pool).
 
+    `cone`: the (r0, slope) ray cone of `sensors.pixel_spread` or None; with
+    it and an IMAGE texture in the scene, image lookups are trilinear at the
+    footprint (r0 + slope * path length) * the triangle's uv density, and
+    the bounce returns the path length through this hit. `path_len`: each
+    lane's path length so far (None: zeros).
     `pack`: the (Tp, 64) shade pack (scene/shade_pack.py) or None; with it
     the interaction and material parameters come from one packed gather.
-    The JAX `cone` and `path_len` arguments feed the ray cone of
-    image-texture filtering, which is not ported (image textures raise), so
-    they are left out."""
+    An alpha-tested-away hit passes the ray on unchanged from behind the
+    surface, at the cost of a bounce."""
     B = o.shape[0]
     s = sampler
+    if path_len is None:
+        path_len = torch.zeros(B, device=o.device)
+    filter_textures = cone is not None and tex_mod.IMAGE in config.tex_types
     hit = scene_mod.scene_intersect(scene, o, d)
-    it, mp = hit_shading(scene, o, d, hit, pack, config.tex_types, flat=config.flat_shading)
+    if pack is not None:
+        rows = packed_gather(pack, torch.clamp(hit.prim, min=0))
+        it = sp_mod.pack_interaction(rows, o, d, hit, flat=config.flat_shading)
+    else:
+        rows = None
+        it = make_interaction(scene, o, d, hit, flat=config.flat_shading)
+    found_any = hit.valid & active
+    wo_world = -d
+    if config.normal_maps or config.height_maps:
+        it = scene_mod.apply_material_maps(scene, it, wo_world, config.tex_types,
+                                           use_normal=config.normal_maps,
+                                           use_height=config.height_maps,
+                                           use_parallax=config.parallax)
+    if config.alpha_test:
+        passthru = found_any & ~scene_mod.alpha_test(scene, it, config.tex_types)
+        found = found_any & ~passthru
+    else:
+        passthru = None
+        found = found_any
+    if filter_textures:
+        r0, slope = cone
+        path_t = path_len + torch.where(found_any, hit.t, 0.0)
+        density = (rows[:, sp_mod.UV_DENSITY] if rows is not None
+                   else gather_rows(scene.shading.uv_density, it.prim))
+        uv_width = (r0 + slope * path_t) * density
+    else:
+        path_t, uv_width = path_len, None
+    if rows is not None:
+        mp = sp_mod.pack_mat_params(scene, rows, it.uv, config.tex_types, uv_width)
+    else:
+        mp = gather_mat_params(scene, it, config.tex_types, uv_width)
     nested = any(x in config.bsdf_types for x in bsdf_mod.NESTED)
-    mp_in = gather_nested_params(scene, it, config.tex_types) if nested else None
+    mp_in = gather_nested_params(scene, it, config.tex_types, uv_width) if nested else None
     if config.regularization > 0.0:
         mp = _regularize(mp, depth, config.regularization)
-    found = hit.valid & active
     L = torch.zeros(B, 3, device=o.device)
     no_mis = prev_delta if config.direct else torch.ones_like(prev_delta)
 
@@ -218,7 +345,6 @@ def surface_bounce(scene: Scene, config: PTConfig, *, o, d, active, throughput,
         L = L + torch.where(escaped[..., None], throughput * env_L * w_env[..., None], 0.0)
 
     # ---- emission at the hit (MIS against NEE) ----
-    wo_world = -d
     if lights_mod.AREA_LIGHT in config.light_types:
         mat_light = scene.materials.light_id[it.mat_id.long()]
         emissive = found & (mat_light >= 0)
@@ -285,40 +411,76 @@ def surface_bounce(scene: Scene, config: PTConfig, *, o, d, active, throughput,
     cont = cont & (u_rr < p_cont)
 
     delta_now = bsdf_mod.is_delta(mp) | ((bs.sampled_type & (16 | 32 | 64)) > 0)
+    n_rays = active.sum() + n_shadow
+    if config.sss:
+        # ---- BSSRDF: a refraction into an sss material starts the interior
+        # walk, and the path resumes from its exit point and direction ----
+        sss_mask = scene.materials.sss[it.mat_id.long()] > 0
+        entering = (cont & sss_mask & ((bs.sampled_type & (32 | 8)) > 0)
+                    & (dot(wi_world, it.n_geo) * dot(wo_world, it.n_geo) < 0.0))
+        n_out_entry = it.n_geo * torch.sign(dot(it.n_geo, wo_world, keepdims=True))
+        ex, ex_o, ex_d, w_sss, s, n_sss = _sss_walk(
+            scene, config, entered=entering, p0=it.p, d0=wi_world, n_entry=n_out_entry,
+            mat_id=it.mat_id, sampler=s)
+        e3 = entering[..., None]
+        new_o = torch.where(e3, ex_o, new_o)
+        wi_world = torch.where(e3, ex_d, wi_world)
+        new_tp = torch.where(e3, new_tp * w_sss, new_tp)
+        cont = torch.where(entering, ex, cont)
+        delta_now = delta_now | entering
+        n_rays = n_rays + n_sss
+    eta_next = eta_scale * bs.eta * bs.eta
+    bs_pdf = bs.pdf
+    if passthru is not None:
+        # alpha pass-through: the unchanged ray goes on from behind the
+        # surface with its throughput and MIS state untouched
+        p3 = passthru[..., None]
+        new_o = torch.where(p3, it.p + d * config.ray_eps, new_o)
+        wi_world = torch.where(p3, d, wi_world)
+        new_tp = torch.where(p3, throughput, new_tp)
+        cont = cont | passthru
+        bs_pdf = torch.where(passthru, prev_pdf, bs_pdf)
+        delta_now = torch.where(passthru, prev_delta, delta_now)
+        eta_next = torch.where(passthru, eta_scale, eta_next)
     bad = active & (~torch.isfinite(L).all(-1)
                     | (cont & ~torch.isfinite(new_tp).all(-1)))
     return BounceOut(
         o=new_o, d=wi_world, throughput=new_tp, L_add=L, cont=cont,
-        bs_pdf=bs.pdf, delta_now=delta_now, eta_scale=eta_scale * bs.eta * bs.eta,
-        sampler=s, n_rays=active.sum() + n_shadow,
+        bs_pdf=bs_pdf, delta_now=delta_now, eta_scale=eta_next, path_len=path_t,
+        sampler=s, n_rays=n_rays,
         n_nonfinite=bad.sum(),
     )
 
 
-def trace_radiance(scene: Scene, o, d, sampler: Sampler, config: PTConfig,
+def trace_radiance(scene: Scene, o, d, sampler: Sampler, config: PTConfig, cone=None,
                    with_stats: bool = False):
     """Radiance along a batch of rays. Returns (L (B, 3), sampler), plus with
     `with_stats` the rays traced (alive closest-hit lanes plus NEE shadow
-    rays, summed over bounces) and the non-finite lane count. The shade pack
-    is built once here, outside the bounce loop, where it applies. With
-    `config.remat` and a graph being recorded, each bounce is checkpointed:
-    the backward runs it again (its kernels launch again) instead of keeping
-    its intermediates."""
+    rays and the subsurface walk's rays, summed over bounces) and the
+    non-finite lane count. `cone`: the per-pixel ray cone
+    (`sensors.pixel_spread`) that MIP-filters image textures, or None (then
+    no path length is carried). The
+    shade pack is built once here, outside the bounce loop, where it
+    applies. With `config.remat` and a graph being recorded, each bounce is
+    checkpointed: the backward runs it again (its kernels launch again)
+    instead of keeping its intermediates."""
     B = o.shape[0]
     dev = o.device
-    pack = build_shade_pack(scene) if pack_enabled(scene) else None
+    pack = sp_mod.build_shade_pack(scene) if sp_mod.pack_enabled(scene) else None
 
-    def bounce(depth, o, d, active, throughput, prev_pdf, prev_delta, eta_scale, state):
+    def bounce(depth, o, d, active, throughput, prev_pdf, prev_delta, eta_scale, path_len,
+               state):
         out = surface_bounce(scene, config, o=o, d=d, active=active,
                              throughput=throughput, prev_pdf=prev_pdf,
-                             prev_delta=prev_delta, eta_scale=eta_scale,
-                             sampler=Sampler(state=state), depth=depth, pack=pack)
+                             prev_delta=prev_delta, eta_scale=eta_scale, path_len=path_len,
+                             sampler=Sampler(state=state), depth=depth, cone=cone, pack=pack)
         c, c3 = out.cont, out.cont[..., None]
         return (torch.where(c3, out.o, o), torch.where(c3, out.d, d), c,
                 torch.where(c3, out.throughput, throughput), out.L_add,
                 torch.where(c, out.bs_pdf, prev_pdf), torch.where(c, out.delta_now, prev_delta),
-                torch.where(c, out.eta_scale, eta_scale), out.sampler.state,
-                out.n_rays, out.n_nonfinite)
+                torch.where(c, out.eta_scale, eta_scale),
+                None if path_len is None else torch.where(c, out.path_len, path_len),
+                out.sampler.state, out.n_rays, out.n_nonfinite)
 
     step = bounce
     if config.remat and torch.is_grad_enabled():
@@ -331,13 +493,14 @@ def trace_radiance(scene: Scene, o, d, sampler: Sampler, config: PTConfig,
     prev_pdf = torch.zeros(B, device=dev)
     prev_delta = torch.ones(B, dtype=torch.bool, device=dev)  # depth 0: emission counts fully
     eta_scale = torch.ones(B, device=dev)
+    path_len = None if cone is None else torch.zeros(B, device=dev)
     state = sampler.state
     n_rays = torch.zeros((), dtype=torch.int64, device=dev)
     n_bad = torch.zeros((), dtype=torch.int64, device=dev)
     for depth in range(config.max_depth):
-        (o, d, active, throughput, L_add, prev_pdf, prev_delta, eta_scale, state,
+        (o, d, active, throughput, L_add, prev_pdf, prev_delta, eta_scale, path_len, state,
          n_r, n_b) = step(depth, o, d, active, throughput, prev_pdf, prev_delta,
-                          eta_scale, state)
+                          eta_scale, path_len, state)
         L = L + L_add
         n_rays = n_rays + n_r
         n_bad = n_bad + n_b
@@ -385,7 +548,8 @@ def camera_rays(scene: Scene, width: int, height: int, spp: int, seed):
 def _render_body(scene: Scene, width: int, height: int, spp: int, seed,
                  config: PTConfig, with_stats: bool):
     o, d, w_cam, sampler, sx, sy = _camera_samples(scene, width, height, spp, seed)
-    out = trace_radiance(scene, o, d, sampler, config, with_stats=with_stats)
+    cone = texture_cone(scene, width, height, config)
+    out = trace_radiance(scene, o, d, sampler, config, cone=cone, with_stats=with_stats)
     L = torch.nan_to_num(out[0] * w_cam, nan=0.0, posinf=0.0, neginf=0.0)
     stats = (out[2], out[3]) if with_stats else None
     if config.rec_filter != 0:

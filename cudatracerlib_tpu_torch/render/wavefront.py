@@ -4,7 +4,8 @@
 Every iteration, lanes whose path ended are re-seeded with the next unused
 camera rays (prefix-sum assignment, the deterministic counterpart of the
 reference's atomic ray queue), finished paths are flushed to the film, and
-all lanes take one shared `surface_bounce`. Once the camera-ray supply is
+all lanes take one shared `surface_bounce` (with the ray cone and each
+lane's path length, reset on refill, for MIP-filtered image textures). Once the camera-ray supply is
 out and fewer than an eighth of the lanes still live, extra Russian roulette
 (p = 1/4, compensated) drains the tail. The JAX `lax.while_loop` becomes a
 Python loop whose condition reads one value from the device per iteration.
@@ -22,7 +23,7 @@ from ..sampling.rng import MASK, Sampler
 from ..scene import sensors
 from ..scene.scene import Scene
 from ..scene.shade_pack import build_shade_pack, pack_enabled
-from .path_tracer import PTConfig, specialize_config, surface_bounce
+from .path_tracer import PTConfig, specialize_config, surface_bounce, texture_cone
 
 
 def _camera_ray(scene: Scene, ray_id, seed: int, width: int, height: int):
@@ -55,6 +56,7 @@ def _wavefront(scene: Scene, width: int, height: int, spp: int, seed, config: PT
     seed = int(seed) & MASK
     dev = scene.light_cdf.device
     pack = build_shade_pack(scene) if pack_enabled(scene) else None
+    cone = texture_cone(scene, width, height, config)
 
     o = torch.zeros(C, 3, device=dev)
     d = torch.tensor([0.0, 0.0, 1.0], device=dev).repeat(C, 1)
@@ -66,6 +68,7 @@ def _wavefront(scene: Scene, width: int, height: int, spp: int, seed, config: PT
     prev_pdf = torch.zeros(C, device=dev)
     prev_delta = torch.ones(C, dtype=torch.bool, device=dev)
     eta_scale = torch.ones(C, device=dev)
+    path_len = None if cone is None else torch.zeros(C, device=dev)
     alive = torch.zeros(C, dtype=torch.bool, device=dev)
     film = torch.zeros(n_px, 3, device=dev)
     film_w = torch.zeros(n_px, device=dev)
@@ -90,12 +93,15 @@ def _wavefront(scene: Scene, width: int, height: int, spp: int, seed, config: PT
             throughput[lanes], L[lanes], depth[lanes] = 1.0, 0.0, 0
             prev_pdf[lanes], prev_delta[lanes] = 0.0, True
             eta_scale[lanes] = 1.0
+            if path_len is not None:
+                path_len[lanes] = 0.0
             alive = alive | take
 
         # ---- one shared shading bounce ----
         out = surface_bounce(scene, config, o=o, d=d, active=alive, throughput=throughput,
                              prev_pdf=prev_pdf, prev_delta=prev_delta, eta_scale=eta_scale,
-                             sampler=Sampler(state=state), depth=depth, pack=pack)
+                             path_len=path_len, sampler=Sampler(state=state), depth=depth,
+                             cone=cone, pack=pack)
         cont = out.cont & (depth + 1 < config.max_depth)
         L = L + out.L_add
 
@@ -117,6 +123,8 @@ def _wavefront(scene: Scene, width: int, height: int, spp: int, seed, config: PT
         prev_pdf = torch.where(cont, out.bs_pdf, prev_pdf)
         prev_delta = torch.where(cont, out.delta_now, prev_delta)
         eta_scale = torch.where(cont, out.eta_scale, eta_scale)
+        if path_len is not None:
+            path_len = torch.where(cont, out.path_len, path_len)
         alive = cont
         n_rays = n_rays + out.n_rays
 

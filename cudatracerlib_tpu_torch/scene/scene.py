@@ -210,18 +210,25 @@ def make_interaction(scene: Scene, o, d, hit, flat: bool = False) -> Interaction
                        mat_id=mat_id, valid=hit.valid)
 
 
-def gather_mat_params(scene: Scene, it: Interaction, tex_types=None) -> bsdf_mod.MatParams:
-    """Per-lane material parameters with textures evaluated (SampleTextures)."""
+def gather_mat_params(scene: Scene, it: Interaction, tex_types=None,
+                      uv_width=None) -> bsdf_mod.MatParams:
+    """Per-lane material parameters with textures evaluated (SampleTextures).
+    `uv_width`: the per-lane isotropic texture footprint in uv units, for
+    MIP-mapped image lookups (the ray cone's LOD), or None (level 0)."""
     m = scene.materials
     mid = it.mat_id.long()
     g = lambda t: gather_rows(t, mid)  # noqa: E731
+
+    def tex(t):
+        return tex_mod.eval_texture(scene.textures, g(t).long(), it.uv, active=tex_types,
+                                    uv_width=uv_width)
+
     return bsdf_mod.MatParams(
         bsdf_type=g(m.bsdf_type),
         dist_type=g(m.dist_type),
-        albedo=tex_mod.eval_texture(scene.textures, g(m.tex_albedo).long(), it.uv, tex_types),
-        specular=tex_mod.eval_texture(scene.textures, g(m.tex_specular).long(), it.uv, tex_types),
-        transmittance=tex_mod.eval_texture(scene.textures, g(m.tex_transmittance).long(),
-                                           it.uv, tex_types),
+        albedo=tex(m.tex_albedo),
+        specular=tex(m.tex_specular),
+        transmittance=tex(m.tex_transmittance),
         eta=g(m.eta),
         cond_eta=g(m.cond_eta),
         cond_k=g(m.cond_k),
@@ -233,12 +240,122 @@ def gather_mat_params(scene: Scene, it: Interaction, tex_types=None) -> bsdf_mod
     )
 
 
-def gather_nested_params(scene: Scene, it: Interaction, tex_types=None) -> bsdf_mod.MatParams:
+PARALLAX_STEPS = 16  # the fixed-trip replacement of parallaxMin/MaxSamples
+
+
+def _mean3(c):
+    """The mean of the last axis of (..., 3), summed left to right."""
+    return (c[..., 0] + c[..., 1] + c[..., 2]) / 3.0
+
+
+def apply_material_maps(scene: Scene, it: Interaction, wo_world, tex_types=None,
+                        use_normal: bool = True, use_height: bool = True,
+                        use_parallax: bool = True) -> Interaction:
+    """The interaction with its shading frame perturbed by the normal and
+    height maps and its uv moved by parallax occlusion mapping
+    (Material::SampleNormalMap + parallaxOcclusion, Engine/Material.cu:46-139).
+
+    The height march is fixed-trip: PARALLAX_STEPS steps from the surface
+    towards the viewer, the first crossing of the height field kept by a
+    running mask and refined by the secant of its two steps. The height map
+    then bends the normal by its finite-difference gradient (one texel), a
+    tangent-space normal map replaces it, and the frame is
+    re-orthogonalised about the new normal keeping s as stable as possible.
+    Lanes whose material has no map keep their frame and uv."""
+    m = scene.materials
+    mid = it.mat_id.long()
+    nm_id = m.tex_normal[mid]
+    hm_id = m.tex_height[mid]
+    h_scale = gather_rows(m.height_scale, mid)
+    use_par = m.parallax[mid] > 0
+    frame = it.frame
+    uv = it.uv
+    has_hm = hm_id >= 0
+    hm_safe = torch.clamp(hm_id, min=0)
+
+    def height(at):
+        return _mean3(tex_mod.eval_texture(scene.textures, hm_safe, at, active=tex_types))
+
+    if use_parallax:
+        wi_local = frame.to_local(wo_world)  # the view direction, surface to eye
+        denom = torch.clamp(wi_local[..., 2], min=1e-3)
+        par_len = torch.sqrt(torch.clamp(1.0 - wi_local[..., 2] ** 2, min=0.0)) / denom
+        dir2 = wi_local[..., 0:2]
+        dir2 = dir2 / torch.clamp(torch.sqrt((dir2 * dir2).sum(-1, keepdim=True)), min=1e-9)
+        offset_full = dir2 * (par_len * h_scale)[..., None]
+        step = 1.0 / PARALLAX_STEPS
+        amount = torch.zeros(uv.shape[:-1], device=uv.device)
+        found_x = torch.zeros(uv.shape[:-1], dtype=torch.bool, device=uv.device)
+        prev_h = torch.ones(uv.shape[:-1], device=uv.device)
+        for k in range(1, PARALLAX_STEPS + 1):
+            bound = 1.0 - k * step
+            h_k = height(uv - offset_full * (k * step))
+            cross_now = (h_k > bound) & ~found_x
+            # the secant crossing of the two steps' segments (Material.cu:88-91)
+            d2 = (bound + step) - prev_h
+            d1 = bound - h_k
+            den = torch.where((d2 - d1).abs() < 1e-9, 1.0, d2 - d1)
+            amt = (bound * d2 - (bound + step) * d1) / den
+            amount = torch.where(cross_now, amt, amount)
+            found_x = found_x | cross_now
+            prev_h = h_k
+        uv_par = uv - offset_full * (1.0 - amount)[..., None]
+        uv = torch.where((has_hm & use_par)[..., None], uv_par, uv)
+
+    n_new = frame.n
+    if use_height:
+        # the height map's bump gradient (Material.cu:118-135)
+        eps_uv = 1.0 / tex_mod.ATLAS_RES
+        h0 = height(uv)
+        hu = height(torch.stack([uv[..., 0] + eps_uv, uv[..., 1]], -1))
+        hv = height(torch.stack([uv[..., 0], uv[..., 1] + eps_uv], -1))
+        ddu = (hu - h0) / eps_uv * h_scale
+        ddv = (hv - h0) / eps_uv * h_scale
+        dpdu = frame.s + frame.n * ddu[..., None]
+        dpdv = frame.t + frame.n * ddv[..., None]
+        n_h = normalize(cross(dpdu, dpdv))
+        n_h = n_h * torch.sign(dot(n_h, frame.n, keepdims=True))
+        n_new = torch.where(has_hm[..., None], n_h, n_new)
+
+    has_nm = nm_id >= 0
+    if use_normal:
+        # the tangent-space normal map (Material.cu:96-107)
+        c = tex_mod.eval_texture(scene.textures, torch.clamp(nm_id, min=0), uv,
+                                 active=tex_types)
+        n_new = torch.where(has_nm[..., None], frame.to_world(normalize(c - 0.5)), n_new)
+    t_new = normalize(cross(n_new, frame.s))
+    s_new = normalize(cross(n_new, t_new))
+    changed = (has_nm | has_hm)[..., None]
+    new_frame = Frame(s=torch.where(changed, s_new, frame.s),
+                      t=torch.where(changed, t_new, frame.t),
+                      n=torch.where(changed, n_new, frame.n))
+    return it._replace(frame=new_frame, uv=uv)
+
+
+def alpha_test(scene: Scene, it: Interaction, tex_types=None):
+    """True where the surface is kept (opaque), Material::AlphaTest. Modes
+    (Engine/Material.h:8-22): 1 luminance >= ref, 2 alpha >= ref (an RGB
+    atlas has no alpha: luminance again), 3 max |c - ref_color| <= ref."""
+    m = scene.materials
+    mid = it.mat_id.long()
+    mode = m.alpha_mode[mid] & 3
+    tid = m.tex_alpha[mid]
+    ref = m.alpha_ref[mid]
+    used = (mode > 0) & (tid >= 0)
+    c = tex_mod.eval_texture(scene.textures, torch.clamp(tid, min=0), it.uv, active=tex_types)
+    lum = 0.212671 * c[..., 0] + 0.715160 * c[..., 1] + 0.072169 * c[..., 2]
+    keep_col = (c - m.alpha_ref_color[mid]).abs().amax(-1) <= ref
+    keep = torch.where(mode == 3, keep_col, lum >= ref)
+    return ~used | keep
+
+
+def gather_nested_params(scene: Scene, it: Interaction, tex_types=None,
+                         uv_width=None) -> bsdf_mod.MatParams:
     """MatParams of each lane's nested material (the inner BSDF of a
     coating or blend, one level): `gather_mat_params` at the material's
     `nested_id`."""
     inner = gather_rows(scene.materials.nested_id, it.mat_id.long())
-    return gather_mat_params(scene, it._replace(mat_id=inner), tex_types)
+    return gather_mat_params(scene, it._replace(mat_id=inner), tex_types, uv_width)
 
 
 def specialization(mat_id: np.ndarray, materials: dict, tex_ttype: np.ndarray,

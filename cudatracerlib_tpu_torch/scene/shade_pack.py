@@ -140,14 +140,15 @@ def pack_interaction(rows, o, d, hit, flat: bool = False):
                        mat_id=mat_id, valid=valid)
 
 
-def pack_mat_params(scene, rows, uv, tex_types=None) -> bsdf_mod.MatParams:
+def pack_mat_params(scene, rows, uv, tex_types=None, uv_width=None) -> bsdf_mod.MatParams:
     """MatParams from pack columns plus texture evaluation at uv (the fused
-    gather_mat_params)."""
+    gather_mat_params; `uv_width` as there)."""
     def i32(c):
         return rows[:, c].to(torch.int32)
 
     def tex(c):
-        return tex_mod.eval_texture(scene.textures, i32(c).long(), uv, tex_types)
+        return tex_mod.eval_texture(scene.textures, i32(c).long(), uv, active=tex_types,
+                                    uv_width=uv_width)
 
     return bsdf_mod.MatParams(
         bsdf_type=i32(BSDF_TYPE),
@@ -166,14 +167,15 @@ def pack_mat_params(scene, rows, uv, tex_types=None) -> bsdf_mod.MatParams:
     )
 
 
-def hit_shading(scene, o, d, hit, pack, tex_types=None, flat: bool = False):
+def hit_shading(scene, o, d, hit, pack, tex_types=None, uv_width=None, flat: bool = False):
     """(Interaction, MatParams) for a hit batch: one packed gather when
-    `pack` is set, the per-lane gathers otherwise."""
+    `pack` is set, the per-lane gathers otherwise. `uv_width`: the texture
+    footprint of `gather_mat_params`."""
     if pack is not None:
         rows = packed_gather(pack, torch.clamp(hit.prim, min=0))
         it = pack_interaction(rows, o, d, hit, flat=flat)
-        return it, pack_mat_params(scene, rows, it.uv, tex_types)
+        return it, pack_mat_params(scene, rows, it.uv, tex_types, uv_width)
     from .scene import gather_mat_params, make_interaction
 
     it = make_interaction(scene, o, d, hit, flat=flat)
-    return it, gather_mat_params(scene, it, tex_types)
+    return it, gather_mat_params(scene, it, tex_types, uv_width)

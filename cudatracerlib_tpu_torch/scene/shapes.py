@@ -1,9 +1,9 @@
-"""Procedural geometry, the Cornell box, the white furnace, the glossy scene
-and the caustic scene (port of cudatracerlib_tpu/scene/shapes.py:18-141,
-217-241, 244-374), and two scenes of the port's own for the nested BSDFs and
-the delta lights: the furnace sphere under a coating or blend
-(`nested_furnace`) and the Cornell box lit by a point and a spot light
-(`cornell_point_spot`).
+"""Procedural geometry, the Cornell box, its deluxe variant, the white
+furnace, the glossy scene and the caustic scene (port of
+cudatracerlib_tpu/scene/shapes.py:18-241, 244-374), and two scenes of the
+port's own for the nested BSDFs and the delta lights: the furnace sphere
+under a coating or blend (`nested_furnace`) and the Cornell box lit by a
+point and a spot light (`cornell_point_spot`).
 
 The geometry and the scene records are the JAX package's, built through the
 port's `build_scene`. Every scene factory puts its tensors on `device`, the
@@ -154,6 +154,70 @@ def cornell_box(
         vertices, None, None, mat_id, materials, textures, light_records, camera,
         device=device,
     )
+
+
+def cornell_box_deluxe(light_radiance=(17.0, 12.0, 4.0), device="cuda"):
+    """The Cornell variant with the shading feature set: a checkerboard
+    floor, a COATING (dielectric over diffuse) sphere, a roughconductor box
+    and a back wall normal-mapped by an IMAGE texture (gentle sinusoidal
+    bumps as tangent-space RGB, a 64x64 image in the atlas)."""
+    tris, mids = [], []
+
+    def add(t, mid):
+        tris.append(t)
+        mids.extend([mid] * len(t))
+
+    add(quad([-1, 0, 0], [1, 0, 0], [1, 2, 0], [-1, 2, 0]), 0)        # floor (checker)
+    add(quad([-1, 0, 2], [-1, 2, 2], [1, 2, 2], [1, 0, 2]), 1)        # ceiling
+    add(quad([-1, 2, 0], [1, 2, 0], [1, 2, 2], [-1, 2, 2]), 5)        # back (normal map)
+    add(quad([-1, 0, 0], [-1, 2, 0], [-1, 2, 2], [-1, 0, 2]), 2)      # left red
+    add(quad([1, 0, 0], [1, 0, 2], [1, 2, 2], [1, 2, 0]), 3)          # right green
+    add(sphere([-0.4, 1.2, 0.45], 0.45), 6)                            # coated
+    add(box([0.1, 0.5, 0.0], [0.65, 1.05, 0.6]), 7)                    # rough metal
+    light_tris = quad([-0.25, 0.75, 1.999], [-0.25, 1.25, 1.999],
+                      [0.25, 1.25, 1.999], [0.25, 0.75, 1.999])
+    add(light_tris, 4)
+
+    vertices = np.concatenate(tris)
+    mat_id = np.asarray(mids, np.int32)
+
+    res = 64
+    yy, xx = np.meshgrid(np.linspace(0, 4 * np.pi, res),
+                         np.linspace(0, 4 * np.pi, res), indexing="ij")
+    nx, ny = 0.25 * np.sin(xx), 0.25 * np.sin(yy)
+    nz = np.sqrt(np.maximum(1.0 - nx**2 - ny**2, 0.0))
+    nmap = np.stack([nx, ny, nz], -1) * 0.5 + 0.5
+
+    textures = Textures.build(
+        [
+            {"type": 1, "color_a": [0.725, 0.71, 0.68],
+             "color_b": [0.18, 0.18, 0.22], "uv_xform": [4, 4, 0, 0]},  # checker
+            {"type": 0, "color_a": [0.725, 0.71, 0.68]},
+            {"type": 0, "color_a": [0.63, 0.065, 0.05]},
+            {"type": 0, "color_a": [0.14, 0.45, 0.091]},
+            {"type": 0, "color_a": [0, 0, 0]},
+            {"type": 0, "color_a": [0.55, 0.45, 0.35]},
+            {"type": 2, "image_id": 0},                                  # normal map
+            {"type": 0, "color_a": [1, 1, 1]},
+        ],
+        images=[nmap],
+    )
+    mat_records = [
+        {"bsdf_type": B.DIFFUSE, "tex_albedo": 0},
+        {"bsdf_type": B.DIFFUSE, "tex_albedo": 1},
+        {"bsdf_type": B.DIFFUSE, "tex_albedo": 2},
+        {"bsdf_type": B.DIFFUSE, "tex_albedo": 3},
+        {"bsdf_type": B.DIFFUSE, "tex_albedo": 4,
+         "emission": np.asarray(light_radiance, np.float32), "light_id": 0},
+        {"bsdf_type": B.DIFFUSE, "tex_albedo": 5, "tex_normal": 6},
+        {"bsdf_type": B.COATING, "tex_albedo": 7, "eta": 1.5, "nested_id": 1},
+        {"bsdf_type": B.ROUGHCONDUCTOR, "tex_albedo": 7, "alpha_u": 0.15, "alpha_v": 0.15},
+    ]
+    light_records = [{"type": L.AREA_LIGHT, "radiance": light_radiance, "tris": light_tris}]
+    camera = Camera.look_at(origin=[0.0, -3.25, 1.0], target=[0.0, 1.0, 1.0],
+                            up=[0.0, 0.0, 1.0], fov_deg=39.3077)
+    return build_scene(vertices, None, None, mat_id, Materials.build(mat_records), textures,
+                       light_records, camera, device=device)
 
 
 def furnace_scene(albedo=0.7, env_radiance=1.0, bsdf_type=B.DIFFUSE, specular=1.0,

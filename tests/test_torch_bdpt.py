@@ -128,16 +128,26 @@ def test_vcm_matches_jax(scenes):
 def test_unported_emitters_raise():
     """Every light type's emitted rays are ported (the point-lit Cornell box
     and the constant-environment furnace are held to JAX in
-    tests/test_torch_camera_lights.py); what stays unported still raises in
-    the bidirectional engines: a material with subsurface scattering or a
-    normal map, here on the furnace."""
+    tests/test_torch_camera_lights.py), and so are the material features
+    the bidirectional engines used to refuse: on the furnace with a
+    subsurface material or a normal map, the light tracer, BDPT and VCM
+    render as JAX's do, which evaluate neither the maps nor the walk."""
+    from cudatracerlib_tpu.scene.shapes import furnace_scene as jfurnace
+
     for kw in (dict(sss=1), dict(tex_normal=1)):
         scene = tshapes.furnace_scene(device="cpu", **kw)
-        for call in (lambda: tlt.render_light_trace(scene, 4, 4, 16, 0),  # noqa: B023
-                     lambda: tbdpt.render_bdpt(scene, 4, 4, 1, 0),  # noqa: B023
-                     lambda: tvcm.render_vcm(scene, 4, 4, 1, 0)):  # noqa: B023
-            with pytest.raises(NotImplementedError):
-                call()
+        jscene = jfurnace(**kw)
+        for label, got, want in (
+                ("lt", lambda: tlt.render_light_trace(scene, 4, 4, 1024, 0),  # noqa: B023
+                 lambda: jlt.render_light_trace(jscene, 4, 4, 1024, 0)),  # noqa: B023
+                ("bdpt", lambda: tbdpt.render_bdpt(scene, 4, 4, 1, 0),  # noqa: B023
+                 lambda: jbdpt.render_bdpt(jscene, 4, 4, 1, 0)),  # noqa: B023
+                ("vcm", lambda: tvcm.render_vcm(scene, 4, 4, 1, 0),  # noqa: B023
+                 lambda: jvcm.render_vcm(jscene, 4, 4, 1, 0))):  # noqa: B023
+            g, w = got().numpy(), np.asarray(want())
+            assert g.shape == w.shape == (4, 4, 3) and np.isfinite(g).all(), (kw, label)
+            np.testing.assert_allclose(g, w, rtol=1e-3, atol=1e-6, err_msg=f"{kw} {label}")
+            assert w.mean() > 0, (kw, label)
 
 
 def _avg(fn, n, seed0):

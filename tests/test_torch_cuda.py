@@ -22,7 +22,10 @@ the volume render within 7.5% and 1% (its test says why). The sharded
 render on one NCCL rank: rays within 1e-3 and the mean within 1e-4
 relative of one CPU rank's (the same lanes and seed). The filtered
 film's splat sum as the gather backward's. The port's TestFurnace runs
-here at the JAX test's sizes (on the CPU it is `slow`).
+here at the JAX test's sizes (on the CPU it is `slow`). The textured and
+subsurface renders and their gradients (the atlas, the colours, the
+sigmas) against the CPU's: means within 1%, gradients within 1% of the
+largest entry.
 """
 import _torch_threads  # noqa: F401  (caps torch's CPU threads under xdist)
 import numpy as np
@@ -489,6 +492,71 @@ def test_gradient_render_on_card_matches_cpu(dev):
             out.append((float(loss.detach()), grads(s, paths)))
         (l_cpu, g_cpu), (l_gpu, g_gpu) = out
         assert abs(l_gpu - l_cpu) <= 1e-2 * abs(l_cpu), (l_gpu, l_cpu)
+        for k in paths:
+            scale = np.abs(g_cpu[k]).max()
+            assert scale > 0 and np.abs(g_gpu[k] - g_cpu[k]).max() <= 1e-2 * scale, k
+
+
+def _texture_scenes(device):
+    """cornell_box_deluxe, the maps case and the Marble sphere of
+    tools/texture_cases.py on `device`."""
+    import os
+    import sys
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                                    "tools"))
+    import texture_cases as tc
+    from cudatracerlib_tpu_torch.scene import material_lib
+    from cudatracerlib_tpu_torch.scene.scene import Materials, build_scene
+    from cudatracerlib_tpu_torch.scene.sensors import Camera
+    from cudatracerlib_tpu_torch.scene.shapes import cornell_box_deluxe
+    from cudatracerlib_tpu_torch.scene.textures import Textures
+
+    def build(case):
+        return tc.build(case, build_scene, Materials, Textures, Camera, device=device)
+
+    return {"deluxe": cornell_box_deluxe(device=device), "maps": build(tc.maps_case()),
+            "sss": build(tc.sss_case(material_lib.sss_record))}
+
+
+def test_textured_renders_on_card_match_cpu(dev):
+    """cornell_box_deluxe (the shade pack and the dense kernel, an IMAGE
+    normal map), the maps case (an IMAGE albedo through the ray cone, a
+    height map with parallax, an alpha-tested quad) and the Marble sphere
+    (8 walk steps a bounce) on the card against the CPU at 32x32, 4 spp:
+    mean within 1%, rays within 0.1%; the sphere's pass launches depth x
+    (1 + walk steps) closest-hit traces."""
+    cpu, card = _texture_scenes("cpu"), _texture_scenes(dev)
+    for name in cpu:
+        cfg = pt.PTConfig(max_depth=4, rr_start=99, sss_steps=8)
+        ref, ref_rays = pt.render_counted(cpu[name], 32, 32, 4, 3, cfg)
+        before = dict(ops.launches)
+        img, rays = pt.render_counted(card[name], 32, 32, 4, 3, cfg)
+        torch.cuda.synchronize()
+        assert bool(torch.isfinite(img).all()), name
+        assert abs(float(img.mean()) - float(ref.mean())) <= 1e-2 * float(ref.mean()), name
+        assert abs(int(rays) - int(ref_rays)) <= 1e-3 * int(ref_rays), name
+        if name == "sss":
+            assert ops.launches["closest"] - before["closest"] == 4 * (1 + 8)
+
+
+def test_texture_gradients_on_card_match_cpu(dev):
+    """mean(render) and its gradient with respect to deluxe's atlas and
+    texture colours (each texel fetch's cotangent summed by the backward
+    kernels) and the sphere's sss_sigma_s, card against CPU at 32x32, 4 spp:
+    the loss within 1%, gradients within 1% of the largest entry."""
+    cpu, card = _texture_scenes("cpu"), _texture_scenes(dev)
+    for name, paths, cfg in (
+            ("deluxe", ["textures.atlas", "textures.color_a"], dict(max_depth=4, rr_start=99)),
+            ("sss", ["materials.sss_sigma_s"], dict(max_depth=4, rr_start=99, sss_steps=8))):
+        out = []
+        for scenes in (cpu, card):
+            s = with_grad(scenes[name], paths)
+            loss = pt.render(s, 32, 32, 4, 0, pt.PTConfig(**cfg)).mean()
+            loss.backward()
+            out.append((float(loss.detach()), grads(s, paths)))
+        (l_cpu, g_cpu), (l_gpu, g_gpu) = out
+        assert abs(l_gpu - l_cpu) <= 1e-2 * abs(l_cpu), (name, l_gpu, l_cpu)
         for k in paths:
             scale = np.abs(g_cpu[k]).max()
             assert scale > 0 and np.abs(g_gpu[k] - g_cpu[k]).max() <= 1e-2 * scale, k

@@ -47,6 +47,7 @@ MODULES = [
     "cudatracerlib_tpu_torch.scene.bigscene",
     "cudatracerlib_tpu_torch.scene.bsdf",
     "cudatracerlib_tpu_torch.scene.lights",
+    "cudatracerlib_tpu_torch.scene.material_lib",
     "cudatracerlib_tpu_torch.scene.media",
     "cudatracerlib_tpu_torch.scene.phase",
     "cudatracerlib_tpu_torch.scene.scene",

@@ -131,37 +131,61 @@ def test_render_progressive(scenes):
     torch.testing.assert_close(got, (first_two + last) / 3, rtol=1e-6, atol=1e-7)
 
 
+# the flags and type sets that were refused before the material maps, the
+# alpha test, the subsurface walk and image textures were ported: each now
+# renders, held to JAX's render under the same forced config
+_FORMERLY_UNPORTED = ("height_maps", "parallax", "sss", "alpha_test", "normal_maps", "tex_types")
+
+
 @pytest.mark.parametrize("cfg", [
     dict(height_maps=True), dict(parallax=True), dict(rec_filter=5), dict(sss=True),
     dict(alpha_test=True), dict(normal_maps=True), dict(media_modes=(0,)),
     dict(bsdf_types=(0, 16)), dict(light_types=(3, 6)), dict(tex_types=(0, 2)),
-], ids=lambda c: next(iter(c)))
+    dict(tex_types=(0, 6)),
+], ids=lambda c: next(iter(c)) + ("_unknown" if c.get("tex_types") == (0, 6) else ""))
 def test_unported_config_raises(scenes, cfg):
-    """Features that are not ported, and tags and filters that do not
-    exist, raise instead of rendering black. The config is given already
-    specialized, so its flags are not replaced. (Regularization, the
-    filters 1-4 and every BSDF and light type are ported:
-    tests/test_torch_filter.py and tests/test_torch_bsdf_more.py hold them
-    to JAX.)"""
-    _, ts = scenes
+    """What is not ported (media in `render`) and tags and filters that do
+    not exist (BSDF 16, light 6, texture 6, rec_filter 5) raise instead of
+    rendering black. The config is given already specialized, so its flags
+    are not replaced. The flags ported since (material maps, the alpha
+    test, the subsurface walk, IMAGE textures) render on the Cornell box,
+    where no material uses them, as JAX's render does under the same forced
+    config (the images' tolerance of the module note)."""
+    js, ts = scenes
     spec = dict(tpt.specialize_config(ts, tpt.PTConfig())._asdict(), max_depth=2)
+    config = tpt.PTConfig(**{**spec, **cfg})
+    if next(iter(cfg)) in _FORMERLY_UNPORTED and cfg.get("tex_types") != (0, 6):
+        jcfg = jpt.PTConfig(**{k: v for k, v in config._asdict().items()
+                               if k in jpt.PTConfig._fields})
+        want = jpt.render(js, 8, 8, 1, jnp.uint32(0), jcfg)
+        got = tpt.render(ts, 8, 8, 1, 0, config)
+        _assert_images_close(got, want)
+        assert float(got.mean()) > 0
+        return
     with pytest.raises(NotImplementedError):
-        tpt.render(ts, 8, 8, 1, 0, tpt.PTConfig(**{**spec, **cfg}))
+        tpt.render(ts, 8, 8, 1, 0, config)
 
 
 def test_unported_bsdf_types_raise():
-    """Every BSDF type is ported, and a scene of any of them renders; a
-    scene whose materials use a feature that is not ported (here the
-    spheres' glass made THINDIELECTRIC with subsurface scattering) raises
-    when its specialization is derived from the arrays."""
-    s = tcornell(extra_objects="spheres", device="cpu")
-    bt = s.materials.bsdf_type.clone()
+    """Every BSDF type is ported, and a scene of any of them renders; so do
+    the features ported since: the spheres' glass made THINDIELECTRIC with
+    subsurface scattering (its sigmas zero) renders as JAX's does, its
+    specialization derived from the arrays."""
+    js = jcornell(extra_objects="spheres")
+    bt = np.asarray(js.materials.bsdf_type).copy()
     bt[5] = tbsdf.THINDIELECTRIC
-    s = s._replace(materials=s.materials._replace(bsdf_type=bt), spec=None)
+    js = js._replace(materials=js.materials._replace(bsdf_type=jnp.asarray(bt)))
+    s = tcornell(extra_objects="spheres", device="cpu")
+    s = s._replace(materials=s.materials._replace(bsdf_type=torch.from_numpy(bt)), spec=None)
     img = tpt.render(s, 8, 8, 1, 0, tpt.PTConfig(max_depth=2))
     assert bool(torch.isfinite(img).all()) and float(img.mean()) > 0
-    sss = s.materials.sss.clone()
+    sss = np.asarray(js.materials.sss).copy()
     sss[5] = 1
-    s = s._replace(materials=s.materials._replace(sss=sss))
-    with pytest.raises(NotImplementedError):
-        tpt.render(s, 8, 8, 1, 0, tpt.PTConfig(max_depth=2))
+    js = js._replace(materials=js.materials._replace(sss=jnp.asarray(sss)))
+    s = s._replace(materials=s.materials._replace(sss=torch.from_numpy(sss)))
+    # JAX keeps the specialization registered when the scene was built, so
+    # it gets the port's, derived from the changed arrays
+    cfg = tpt.specialize_config(s, tpt.PTConfig(max_depth=3, sss_steps=4))
+    assert cfg.sss and tbsdf.THINDIELECTRIC in cfg.bsdf_types
+    _assert_images_close(tpt.render(s, 16, 16, 2, 0, cfg),
+                         jpt.render(js, 16, 16, 2, jnp.uint32(0), jpt.PTConfig(**cfg._asdict())))

@@ -237,8 +237,8 @@ def test_checkerboard_texture():
     want = jtex.eval_texture(jt, jnp.asarray(tid), jnp.asarray(uv), active=(0, 1))
     got = ttex.eval_texture(tt, _t(tid).long(), _t(uv), active=(0, 1))
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
-    with pytest.raises(NotImplementedError):
-        ttex.eval_texture(tt, _t(tid).long(), _t(uv), active=(0, 2))
+    with pytest.raises(NotImplementedError):   # an unknown texture tag
+        ttex.eval_texture(tt, _t(tid).long(), _t(uv), active=(0, 6))
 
 
 @pytest.fixture(scope="module")
