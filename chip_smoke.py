@@ -273,7 +273,42 @@ It imports nothing of JAX. Phases, each of which raises on failure:
      and shadow rays and the deluxe pack gather held to their plain versions
      as in 3 and 6, and the gather backward at the atlas shape (2^20 x 3
      lanes of one (level, corner) fetch onto 87,381 rows, captured in a
-     deluxe gradient pass) as in 19 (c).
+     deluxe gradient pass) as in 19 (c);
+  24. dynamic and instanced scenes (tools/dynamic_cases.py; pins from
+     tools/dynamic_reference_mean.py at 64x64, seed 3): (a) the instanced
+     `_build(8)` scene (3 meshes, 10 instances, the dense band), its pin
+     within 0.5% and rays within 1e-3; its 2^20 camera rays instanced
+     against flattened (valid equal and t within 2e-4 on >= 99.9% of them,
+     rays through cracks of a closed mesh counted against the share; the
+     launches of a bounce); intersect_dense held to its plain version as in
+     3 on one instance's captured per-lane ranges; 5 passes at bench config
+     1's size through `render_progressive`, instanced and flattened, means
+     within 1% of each other, launches counted, one pass of each profiled;
+     (b) the 300-instance forest: the camera rays as in (a), one 256x256,
+     16-spp pass each way (the flattened one in the shade pack's band, its
+     gather held bit-equal as in 6); (c) a 16,128-triangle sphere instanced
+     16 times (a BLAS above the dense band): as (b), and intersect_bvh held
+     to its oracle as in 5 on one instance's captured per-lane ranges, with
+     their empty share; (d) two skinned spheres (2,162 and 16,002 Woop
+     triangles with the floor), each with its pin at pose 2, then 8 poses
+     of skin -> refit -> one 256x256, 16-spp pass (the refit timed alone);
+     the refitted tree's camera-ray hits against a rebuilt tree's (a fresh
+     SBVH over the posed triangles carrying the same closed-form rows, so
+     only the nodes differ) as in 3 / 5; the dense kernel on the refitted chunk boxes as in 3, the BVH kernel
+     on the refitted tree as in 5 with its node visits and time beside the
+     rebuilt tree's; the pose gradient of the 10 x 20 sphere within 1e-3 of
+     JAX's, then a full-size gradient pass on the sphere above the dense
+     band (and the shade pack's) whose gather backward calls at the Woop
+     (2^20 x 12) and verts (2^20 x 9) shapes are held to their float64
+     plain sums as in 19 (c); (e) the adaptive pins
+     (Cornell 0.5%, glossy 1%), then `render_adaptive_host` on the Cornell
+     box at bench config 1's size (5 passes, warmup 1) and
+     `render_wavefront_adaptive` on the glossy scene at 256x256, 16 spp, 5
+     waves, each timed with its launches (the glossy waves launch
+     intersect_bvh and packed_gather); (f) `render_with_counters` at config
+     1 and `render_wavefront_with_counters` at config 2: n_nonfinite 0,
+     n_rays equal to render_counted's / render_wavefront_counted's at the
+     same seed.
 Each phase's seconds are printed as it ends.
 
 Before its last line it prints one JSON object describing each kernel; the
@@ -470,6 +505,33 @@ TGRAD_CASES = {"deluxe": (dict(max_depth=4, rr_start=99), ["textures.atlas", "te
                "sss": (dict(max_depth=6, rr_start=99, sss_steps=16), ["materials.sss_sigma_s"])}
 TGRAD_PAIRS = 2            # phase 23 (e): alternating forward / forward+backward walls
 TGRAD_SSS_SIZE = 128       # phase 23 (e): the sphere's gradient pass, 128x128 at 16 spp
+# Phase 24's pins, the JAX package on the CPU (`JAX_PLATFORMS=cpu python
+# tools/dynamic_reference_mean.py`), on tools/dynamic_cases.py's scenes at 64x64, seed 3, depth 5:
+# render_counted of the instanced _build(8) scene (8 spp) and of the skinned spheres at pose 2 (4
+# spp; 2,160 + 2 triangles in the dense band, 16,000 + 2 above it), each with its rays (gates 0.5%
+# and 1e-3, as phase 4's); render_adaptive_host on the Cornell box (4 spp, 3 passes; 0.5%) and
+# render_wavefront_adaptive on the glossy scene (32x32, 4 spp, 3 waves; 1%, as the glossy pin's).
+# The CPU port (`--port`) gives the instanced mean and rays exactly, the spheres' rays exactly and
+# means within 6e-8, the adaptive means within 3.2e-5 and 2.7e-7.
+DYNAMIC_PINS = {"instanced": (0.083558880, 92_265, 0.005),
+                "skinned_dense": (0.248688146, 44_013, 0.005),
+                "skinned_bvh": (0.248198032, 44_052, 0.005)}
+DYNAMIC_PIN = dict(size=64, seed=3, pose=2)
+REF_ADAPTIVE_MEAN = 0.132675648
+REF_ADAPTIVE_WF_MEAN = 0.165580675
+ADAPTIVE_WF_PIN = 32
+# d mean(render(animate_scene(skinned 10 x 20 sphere, pose))) / d pose at pose 2, 64x64, the JAX
+# package's jax.grad on the CPU (the same tool); the CPU port's within 3e-8 of each entry. Gate as
+# phase 12's: each entry within 1e-3 relative plus 1e-3 of the largest, the loss within 1e-4.
+POSE_GRAD = dict(n_theta=10, n_phi=20, spp=4, seed=0, max_depth=4, rr_start=99)
+REF_POSE_LOSS = 0.246825859
+REF_POSE_GRAD = [0.00237852591, -0.000700105971, 0.00181664689, 0.00031911768, 0.00670840498,
+                 0.00559949176, -0.00863757916, -0.0104023088, 0.00732770795, -0.00506967492,
+                 0.00851382315, 0.0457827672, 0, 0, 0, 0, 0.00407258701, -0.00132088957,
+                 0.00609134557, 0.00658939453, -0.002604804, -0.00547317509, 0.0117989024,
+                 0.00502401125, 0.00101373228, -0.000613909797, 0.00426000124, 0.00206930493,
+                 0, 0, 0, 0]
+INSTANCE_AGREE = 0.999     # phase 24: instanced vs flattened camera rays (tests/test_instances.py)
 PPM_W = PPM_H = 128        # bench config 5 (bench.py:289-340)
 PPM_SPP, PPM_PASS = 4, 1
 DENSITY_RTOL, DENSITY_ATOL = 1e-4, 1e-6
@@ -2295,6 +2357,475 @@ def _texture_phase(smi, reset_counts):
                 atlas=atlas_r)
 
 
+def _dynamic_cases():
+    """tools/dynamic_cases.py (numpy only), imported from the checkout."""
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools"))
+    import dynamic_cases
+
+    return dynamic_cases
+
+
+def _capture_intersects(fn, limit=64):
+    """(fn's result, [(kind, args)]): the arguments of the first `limit`
+    intersect_dense / intersect_bvh wrapper calls in one call of `fn`
+    (rays and ranges cloned), kind "dense" or "bvh"; args as the wrappers
+    take them, the dense kernel's boxes last."""
+    import torch
+    from cudatracerlib_tpu_torch.ops import intersect_bvh as bvh_ops
+    from cudatracerlib_tpu_torch.ops import intersect_dense as ops
+
+    seen, real_dense, real_bvh = [], ops.intersect_dense, bvh_ops.intersect_bvh
+    keep = lambda x: x.clone() if isinstance(x, torch.Tensor) else x  # noqa: E731
+
+    def dense(woop, o, d, t_min=1e-4, t_max=ops.T_MAX_CLAMP, any_hit=False, boxes=None):
+        if len(seen) < limit:
+            seen.append(("dense", (woop, keep(o), keep(d), keep(t_min), keep(t_max), any_hit,
+                                   boxes)))
+        return real_dense(woop, o, d, t_min, t_max, any_hit=any_hit, boxes=boxes)
+
+    def bvh(b, o, d, t_min=1e-4, t_max=torch.inf, any_hit=False):
+        if len(seen) < limit:
+            seen.append(("bvh", (b, keep(o), keep(d), keep(t_min), keep(t_max), any_hit)))
+        return real_bvh(b, o, d, t_min, t_max, any_hit=any_hit)
+
+    ops.intersect_dense, bvh_ops.intersect_bvh = dense, bvh
+    try:
+        out = fn()
+        torch.cuda.synchronize()
+    finally:
+        ops.intersect_dense, bvh_ops.intersect_bvh = real_dense, real_bvh
+    return out, seen
+
+
+def _empty_share(t_min, t_max):
+    """The share of lanes whose range (t_min, t_max) is empty."""
+    import torch
+
+    if not isinstance(t_max, torch.Tensor) or t_max.dim() == 0:
+        return 0.0
+    return float((t_max <= torch.as_tensor(t_min, device=t_max.device)).float().mean())
+
+
+def _instanced_vs_flat(label, inst, flat, o, d):
+    """Camera-ray hits of an instanced scene against its flattened twin: on
+    >= INSTANCE_AGREE of the rays valid equal and, where both hit, t within
+    2e-4 (rtol and atol, tests/test_instances.py's gate). The Woop test is
+    not watertight: a ray through the crack between two triangles of a
+    closed mesh can meet another surface behind in one scene and not in the
+    other, so such rays count against the share. Also the intersect
+    launches of one closest-hit and one any-hit query."""
+    import torch
+    from cudatracerlib_tpu_torch.ops import intersect_bvh as bvh_ops
+    from cudatracerlib_tpu_torch.ops import intersect_dense as ops
+    from cudatracerlib_tpu_torch.scene import scene as scene_mod
+
+    before = sum(ops.launches.values()) + sum(bvh_ops.launches.values())
+    hi = scene_mod.scene_intersect(inst, o, d)
+    scene_mod.scene_intersect(inst, o, d, t_max=1e30, any_hit=True)
+    torch.cuda.synchronize()
+    per_bounce = sum(ops.launches.values()) + sum(bvh_ops.launches.values()) - before
+    hf = scene_mod.scene_intersect(flat, o, d)
+    both = hi.valid & hf.valid
+    rel = torch.where(both, (hi.t - hf.t).abs() / (1.0 + hf.t.abs()), 0.0)
+    off_t = both & (rel > 2e-4)
+    agree = float(((hi.valid == hf.valid) & ~off_t).float().mean())
+    terr = float(rel[both & ~off_t].max())
+    _require(agree >= INSTANCE_AGREE,
+             f"{label}: instanced and flattened agree on {agree} of the rays (gate "
+             f"{INSTANCE_AGREE}): valid differs on {int((hi.valid != hf.valid).sum())}, t on "
+             f"{int(off_t.sum())}")
+    print(f"[instanced vs flat] {label}: {o.shape[0]} camera rays, agree {agree:.7f} (valid "
+          f"differs on {int((hi.valid != hf.valid).sum())}, t beyond 2e-4 on {int(off_t.sum())}, "
+          f"the worst {float(rel.max()):.3g}), both hit {int(both.sum())}, max t error of the "
+          f"rest {terr:.3g} (of 1 + t); one closest + one any-hit query launch {per_bounce} "
+          f"intersect kernels (a bounce's)")
+    return dict(agree=agree, t_err=terr, t_off=int(off_t.sum()), launches_per_bounce=per_bounce)
+
+
+def _bwd_calls(fn):
+    """(fn's result, {(cols, n_rows): [calls]}, {(cols, n_rows): first
+    (g, idx, n_rows) cloned}) of packed_gather_bwd in one call of `fn`."""
+    from cudatracerlib_tpu_torch.ops import shade_gather as sg_ops
+
+    calls, first, real = {}, {}, sg_ops.packed_gather_bwd
+
+    def record(g, idx, n_rows):
+        key = (int(g.shape[1]), int(n_rows))
+        calls[key] = calls.get(key, 0) + 1
+        if key not in first:
+            first[key] = (g.clone(), idx.clone(), n_rows)
+        return real(g, idx, n_rows)
+
+    sg_ops.packed_gather_bwd = record
+    try:
+        out = fn()
+    finally:
+        sg_ops.packed_gather_bwd = real
+    return out, calls, first
+
+
+def _dynamic_phase(smi, reset_counts):
+    """Phase 24 (module docstring): instanced scenes, BVH refit and skinning,
+    adaptive sampling and the engines' counters at full size, their pins,
+    and the kernels held to their plain versions at the new shapes."""
+    import numpy as np
+    import torch
+    from cudatracerlib_tpu_torch.accel import bvh as bvh_mod
+    from cudatracerlib_tpu_torch.accel import refit as refit_mod
+    from cudatracerlib_tpu_torch.accel.bvh import build_bvh
+    from cudatracerlib_tpu_torch.ops import intersect_bvh as bvh_ops
+    from cudatracerlib_tpu_torch.ops import intersect_dense as ops
+    from cudatracerlib_tpu_torch.ops import shade_gather as sg_ops
+    from cudatracerlib_tpu_torch.render import adaptive
+    from cudatracerlib_tpu_torch.render import path_tracer as pt
+    from cudatracerlib_tpu_torch.render import wavefront as wf
+    from cudatracerlib_tpu_torch.scene import animation, shade_pack, shapes
+    from cudatracerlib_tpu_torch.scene.dynamic import DynamicScene
+    from cudatracerlib_tpu_torch.scene.scene import Materials, build_scene
+    from cudatracerlib_tpu_torch.scene.sensors import Camera
+    from cudatracerlib_tpu_torch.scene.textures import Textures
+
+    dc = _dynamic_cases()
+    cfg = pt.PTConfig(max_depth=DEPTH)
+    ps, pseed = DYNAMIC_PIN["size"], DYNAMIC_PIN["seed"]
+    marks = [time.perf_counter()]
+
+    def part(tag):
+        marks.append(time.perf_counter())
+        print(f"[wall] phase 24 ({tag}): {marks[-1] - marks[-2]:.1f} s")
+
+    def counts():
+        return {"intersect_dense": dict(ops.launches), "intersect_bvh": dict(bvh_ops.launches),
+                "shade_gather": dict(sg_ops.launches)}
+
+    def n_intersect(launch):
+        return sum(launch["intersect_dense"].values()) + sum(launch["intersect_bvh"].values())
+
+    def pin(name, img, rays):
+        ref, ref_rays, tol = DYNAMIC_PINS[name]
+        m = float(img.mean())
+        _require(bool(torch.isfinite(img).all()), f"the pinned {name} image is not finite")
+        _require(abs(m - ref) <= tol * ref,
+                 f"pinned {name} mean {m} is not within {tol:.1%} of JAX's {ref}")
+        _require(abs(int(rays) - ref_rays) <= 1e-3 * ref_rays,
+                 f"pinned {name} rays {int(rays)} are not within 1e-3 of JAX's {ref_rays}")
+        print(f"[pin] {name} ({ps}x{ps}, seed {pseed}): mean {m:.9f} (JAX {ref}, "
+              f"{100 * (m / ref - 1):+.5f}%), rays {int(rays)} (JAX {ref_rays})")
+        return m / ref - 1
+
+    def dense_at(label, captured, reps=10):
+        """intersect_dense held to its plain version on captured arguments."""
+        woop, o, d, t_min, t_max, _, boxes = captured
+        print(f"[ranges] {label}: {_empty_share(t_min, t_max):.4f} of the lanes have an empty "
+              f"range (missed the instance's box)")
+        return _compare(label, woop, o, d, t_min, t_max, reps, boxes)
+
+    pins, runs, dense_r, bvh_r = {}, {}, {}, {}
+
+    # (a) the instanced _build(8) scene: pin, then config 1's size instanced and flattened
+    ds8 = dc.instanced(DynamicScene(), shapes, Camera, 8)
+    inst8, flat8 = ds8.update(instancing=True), ds8.update(instancing=False)
+    _require(len(inst8.instances) == 3 and not flat8.instances and inst8.bvh.woop.is_cuda,
+             "the instanced scene did not build on the card")
+    pins["instanced"] = pin("instanced", *pt.render_counted(inst8, ps, ps, 8, pseed, cfg))
+    o, d, _, _ = pt.camera_rays(inst8, W, H, SPP, 3)
+    cmp8 = _instanced_vs_flat("instanced _build(8)", inst8, flat8, o, d)
+    _, cap = _capture_intersects(lambda: pt.render_counted(inst8, W, H, SPP, 0, cfg), limit=11)
+    dense_r["instanced camera"] = dense_at("instanced camera rays, cube instance 2", cap[2][1])
+    del cap
+    for name, scene in (("instanced", inst8), ("flattened", flat8)):
+        _, rays = pt.render_counted(scene, W, H, SPP, 7, cfg)
+        torch.cuda.synchronize()
+        reset_counts()
+        dt, img = _timed(lambda scene=scene: pt.render_progressive(scene, W, H, SPP, N_PASS, 7,
+                                                                   cfg))
+        launch = counts()
+        _require(bool(torch.isfinite(img).all()) and launch["intersect_dense"]["closest"] > 0
+                 and launch["intersect_dense"]["any_hit"] > 0,
+                 f"the {name} passes failed: {launch}")
+        prof = _profile(f"{name} _build(8) pass", lambda scene=scene: pt.render(
+            scene, W, H, SPP, 7, cfg), top_n=4)
+        runs[name] = dict(dt=dt / N_PASS, mrays=int(rays) * N_PASS / dt / 1e6, mean=float(
+            img.mean()), idle=prof["idle"], launches=launch, all_launches=prof["launches"])
+        print(f"[main path] {name} _build(8) {W}x{H} spp {SPP} depth {DEPTH}, {N_PASS} passes: "
+              f"{dt:.4f} s, {runs[name]['mrays']:.3f} Mrays/s ({int(rays)} rays a pass at seed 7), "
+              f"mean {runs[name]['mean']:.6f}, idle {prof['idle']:.3f}, {prof['launches']} kernel "
+              f"launches a pass; port launches over the passes {json.dumps(launch)}; {smi}")
+    m_i, m_f = runs["instanced"]["mean"], runs["flattened"]["mean"]
+    _require(abs(m_i - m_f) <= 0.01 * m_f,
+             f"instanced mean {m_i} is not within 1% of the flattened {m_f}")
+    part("a")
+
+    # (b) the 300-instance forest: camera rays instanced vs flattened, one pass
+    ds_f, _ = dc.forest(DynamicScene(), shapes, Camera)
+    inst_f, flat_f = ds_f.update(instancing=True), ds_f.update(instancing=False)
+    o, d, _, _ = pt.camera_rays(flat_f, W, H, SPP, 3)
+    cmp_f = _instanced_vs_flat("forest (301 instances)", inst_f, flat_f, o, d)
+    del o, d
+    for name, scene in (("forest instanced", inst_f), ("forest flattened", flat_f)):
+        reset_counts()
+        dt, (img, rays) = _timed(lambda scene=scene: pt.render_counted(scene, W, H, SPP, 7, cfg))
+        launch = counts()
+        _require(bool(torch.isfinite(img).all()) and n_intersect(launch) > 0,
+                 f"the {name} pass failed: {launch}")
+        runs[name] = dict(dt=dt, mrays=int(rays) / dt / 1e6, mean=float(img.mean()),
+                          launches=launch)
+        print(f"[main path] {name} {W}x{H} spp {SPP} depth {DEPTH} seed 7: {dt:.4f} s, "
+              f"{int(rays) / dt / 1e6:.3f} Mrays/s, mean {float(img.mean()):.6f}; intersect "
+              f"launches {n_intersect(launch)} ({n_intersect(launch) / DEPTH:.1f} a bounce); "
+              f"{json.dumps(launch)}; {smi}")
+    _require(abs(runs["forest instanced"]["mean"] - runs["forest flattened"]["mean"])
+             <= 0.01 * runs["forest flattened"]["mean"], "the forest's means differ by over 1%")
+    _require(shade_pack.pack_enabled(flat_f), "the flattened forest is not in the shade pack's band")
+    _, gathers = _capture_gathers(lambda: pt.render_counted(flat_f, W, H, SPP, 0, cfg))
+    gather_r = _check_gather_at("flattened forest pack", *gathers[0])
+    del gathers
+    part("b")
+
+    # (c) a BLAS above the dense band: 16 instances of a 16,128-triangle sphere
+    ds_s = dc.spheres(DynamicScene(), shapes, Camera)
+    inst_s = ds_s.update(instancing=True)
+    t0 = time.perf_counter()
+    flat_s = ds_s.update(instancing=False)
+    t_build = time.perf_counter() - t0
+    _require(int(inst_s.blas[0].bvh.woop.shape[0]) > 4096, "the sphere BLAS is in the dense band")
+    o, d, _, _ = pt.camera_rays(flat_s, W, H, SPP, 3)
+    cmp_s = _instanced_vs_flat("16 spheres", inst_s, flat_s, o, d)
+    _, cap = _capture_intersects(lambda: pt.render_counted(inst_s, W, H, SPP, 0, cfg), limit=18)
+    kind, (b, co, cd, tmin, tmax, _) = cap[5]
+    _require(kind == "bvh", "the sphere instance's call is not the BVH kernel's")
+    empty = _empty_share(tmin, tmax)
+    print(f"[ranges] sphere instance 5 camera rays: {empty:.4f} of the lanes have an empty range")
+    bvh_r["sphere instance"] = _compare_bvh("sphere instance 5 camera rays (per-lane ranges)", b,
+                                            co, cd, tmin, tmax, 10)
+    bvh_r["sphere instance"]["empty"] = empty
+    del cap, co, cd
+    for name, scene in (("spheres instanced", inst_s), ("spheres flattened", flat_s)):
+        reset_counts()
+        dt, (img, rays) = _timed(lambda scene=scene: pt.render_counted(scene, W, H, SPP, 7, cfg))
+        launch = counts()
+        _require(bool(torch.isfinite(img).all()) and launch["intersect_bvh"]["closest"] > 0,
+                 f"the {name} pass failed: {launch}")
+        runs[name] = dict(dt=dt, mrays=int(rays) / dt / 1e6, mean=float(img.mean()),
+                          launches=launch)
+        print(f"[main path] {name} {W}x{H} spp {SPP} depth {DEPTH} seed 7: {dt:.4f} s, "
+              f"{int(rays) / dt / 1e6:.3f} Mrays/s, mean {float(img.mean()):.6f}; "
+              f"{json.dumps(launch)}; {smi}")
+    _require(abs(runs["spheres instanced"]["mean"] - runs["spheres flattened"]["mean"])
+             <= 0.01 * runs["spheres flattened"]["mean"], "the spheres' means differ by over 1%")
+    print(f"[build] the flattened spheres ({int(flat_s.bvh.woop.shape[0])} Woop rows): "
+          f"{t_build:.2f} s; the instanced scene holds {int(inst_s.shading.verts.shape[0])} rows")
+    del flat_s
+    part("c")
+
+    # (d) skinned spheres: in the dense band and above it
+    anim, rigs = {}, {}
+    for name, (nt, nph) in (("dense", (24, 48)), ("bvh", (64, 128))):
+        inputs = dc.skinned_inputs(shapes, nt, nph)
+        scene = dc.build_skinned(inputs, build_scene, Materials, Textures, Camera)
+        _, host = build_bvh(inputs["vertices"], with_host=True)
+        mesh = animation.make_skinned(scene, host["nodes"], host["root"],
+                                      *dc.rig(scene.shading.verts.cpu().numpy()))
+        rigs[name] = scene, mesh
+        spec = pt.specialize_config(scene, cfg)
+        _require(not spec.flat_shading, f"the skinned {name} sphere is flat-shaded")
+        pins[f"skinned_{name}"] = pin(f"skinned_{name}", *pt.render_counted(
+            animation.animate_scene(scene, mesh, torch.from_numpy(dc.pose(DYNAMIC_PIN["pose"]))
+                                    .cuda()), ps, ps, 4, pseed, cfg))
+        refit_ms, pass_s, rays_sum = [], 0.0, 0
+        reset_counts()
+        for k in range(dc.POSES):
+            pose = torch.from_numpy(dc.pose(k)).cuda()
+            verts = animation.skin_vertices(mesh, pose)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            bvh_k = refit_mod.refit_bvh(scene.bvh, mesh.plan, verts)
+            torch.cuda.synchronize()
+            refit_ms.append((time.perf_counter() - t0) * 1e3)
+            posed = animation.animate_scene(scene, mesh, pose)
+            dt, (img, rays) = _timed(lambda posed=posed: pt.render_counted(posed, W, H, SPP, 7,
+                                                                           cfg))
+            _require(bool(torch.isfinite(img).all()), f"pose {k} of the {name} sphere failed")
+            pass_s += dt
+            rays_sum += int(rays)
+        launch = counts()
+        print(f"[main path] skinned {name} sphere ({int(scene.bvh.woop.shape[0])} Woop rows), "
+              f"{dc.POSES} poses, each skin -> refit -> a {W}x{H} spp {SPP} pass: refit alone "
+              f"{_median(refit_ms):.3f} ms (min {min(refit_ms):.3f}, max {max(refit_ms):.3f}; "
+              f"{len(mesh.plan.level_nodes)} levels), passes {pass_s / dc.POSES:.4f} s each, "
+              f"{rays_sum / pass_s / 1e6:.3f} Mrays/s; launches {json.dumps(launch)}; {smi}")
+        # refitted against rebuilt on the last pose's camera rays: the rebuilt
+        # tree (a fresh SBVH over the posed triangles) carries the same
+        # closed-form rows as the refitted one, so the two differ only in their
+        # nodes and the comparison is phase 3's / 5's
+        posed = animation.animate_scene(scene, mesh, pose)
+        rebuilt = build_bvh(posed.shading.verts.detach().cpu().numpy())
+        tri_re = posed.shading.verts.detach()[rebuilt.tri_index.long()]
+        woop_re = refit_mod.woop_transform_device(tri_re)
+        rebuilt = rebuilt._replace(woop=woop_re, chunk_boxes=bvh_mod.chunk_boxes(tri_re, woop_re))
+        o, d, _, _ = pt.camera_rays(posed, W, H, SPP, 3)
+        from cudatracerlib_tpu_torch.accel import traversal
+        h_refit = traversal.intersect_auto(posed.bvh, o, d)
+        h_re = traversal.intersect_auto(rebuilt, o, d)
+        h_re = h_re._replace(prim=torch.where(h_re.valid, rebuilt.tri_index[
+            torch.clamp(h_re.prim, min=0).long()], -1).to(torch.int32))
+        torch.cuda.synchronize()
+        r = ops.compare_hits(h_refit, h_re, posed.bvh.woop, 1e-4, torch.inf)
+        t_scale = float(torch.clamp(h_re.t[h_re.valid].abs().max(), min=1.0))
+        err = _check_hits(f"skinned {name} refitted vs rebuilt", "closest", r, t_scale)
+        rec = dict(refit_ms=_median(refit_ms), pass_s=pass_s / dc.POSES,
+                   mrays=rays_sum / pass_s / 1e6, launches=launch, vs_rebuilt_err=err,
+                   rows=int(scene.bvh.woop.shape[0]), levels=len(mesh.plan.level_nodes))
+        if name == "dense":
+            dense_r["refitted sphere"] = _compare("refitted sphere camera rays (refitted boxes)",
+                                                  posed.bvh.woop, o, d, 1e-4, torch.inf, 10,
+                                                  posed.bvh.chunk_boxes)
+        else:
+            bvh_r["refitted sphere"] = _compare_bvh("refitted sphere camera rays", posed.bvh, o,
+                                                    d, 1e-4, torch.inf, 10)
+            _, n_in_re, _, _ = bvh_ops.intersect_bvh_plain(rebuilt, o, d, 1e-4, torch.inf,
+                                                           with_counts=True)
+            _, n_in_rf, _, _ = bvh_ops.intersect_bvh_plain(posed.bvh, o, d, 1e-4, torch.inf,
+                                                           with_counts=True)
+            ms_re = _bvh_kernel_ms(rebuilt, o, d, 1e-4, torch.inf, 10)
+            rec.update(visits_refit=int(n_in_rf.sum()), visits_rebuilt=int(n_in_re.sum()),
+                       ms_refit=bvh_r["refitted sphere"]["ms"], ms_rebuilt=ms_re)
+            print(f"[refit] skinned bvh sphere, pose {k} camera rays: inner-node visits refitted "
+                  f"{int(n_in_rf.sum())} (mean {float(n_in_rf.double().mean()):.2f}), rebuilt "
+                  f"{int(n_in_re.sum())} (mean {float(n_in_re.double().mean()):.2f}), ratio "
+                  f"{int(n_in_rf.sum()) / max(1, int(n_in_re.sum())):.3f}; the BVH kernel "
+                  f"{bvh_r['refitted sphere']['ms']:.4f} ms refitted, {ms_re:.4f} ms rebuilt")
+        anim[name] = rec
+        del o, d, h_refit, h_re, rebuilt
+    # the pose gradient: the pin on the small sphere, then a full-size pass on the sphere above
+    # the dense band (outside the shade pack's band too, so the cotangent reaches the verts
+    # through make_interaction's gathers and the Woop rows through refine_hit)
+    gi = dc.skinned_inputs(shapes, POSE_GRAD["n_theta"], POSE_GRAD["n_phi"])
+    gscene = dc.build_skinned(gi, build_scene, Materials, Textures, Camera)
+    _, ghost = build_bvh(gi["vertices"], with_host=True)
+    gmesh = animation.make_skinned(gscene, ghost["nodes"], ghost["root"],
+                                   *dc.rig(gscene.shading.verts.cpu().numpy()))
+    gcfg = pt.PTConfig(max_depth=POSE_GRAD["max_depth"], rr_start=POSE_GRAD["rr_start"])
+
+    def pose_loss(scene_, mesh_, size, spp, seed):
+        p = torch.from_numpy(dc.pose(DYNAMIC_PIN["pose"])).cuda().requires_grad_()
+        loss = pt.render(animation.animate_scene(scene_, mesh_, p), size, size, spp, seed,
+                         gcfg).mean()
+        loss.backward()
+        return float(loss.detach()), p.grad
+
+    loss, g = pose_loss(gscene, gmesh, ps, POSE_GRAD["spp"], POSE_GRAD["seed"])
+    ref = np.asarray(REF_POSE_GRAD, np.float64).reshape(2, 4, 4)
+    g = g.double().cpu().numpy()
+    gerr = np.abs(g - ref) - (1e-3 * np.abs(ref) + 1e-3 * np.abs(ref).max())
+    _require(abs(loss - REF_POSE_LOSS) <= 1e-4 * REF_POSE_LOSS and bool((gerr <= 0).all()),
+             f"the pose gradient misses JAX's: loss {loss} (JAX {REF_POSE_LOSS}), worst entry "
+             f"{float(np.abs(g - ref).max())}")
+    print(f"[pin] pose gradient ({ps}x{ps}, {POSE_GRAD}): loss {loss:.9f} (JAX {REF_POSE_LOSS}), "
+          f"max |g - JAX| {float(np.abs(g - ref).max()):.3g} ({float(np.abs(g - ref).max()) / float(np.abs(ref).max()):.3g} "
+          f"of the largest entry)")
+    reset_counts()
+    big_scene, big_mesh = rigs["bvh"]
+    _require(not shade_pack.pack_enabled(big_scene),
+             "the big skinned sphere is in the shade pack's band")
+    n_rows = int(big_scene.bvh.woop.shape[0])
+    t0 = time.perf_counter()
+    (gl, gg), bwd_calls, bwd_first = _bwd_calls(lambda: pose_loss(big_scene, big_mesh, W, SPP, 7))
+    torch.cuda.synchronize()
+    gdt = time.perf_counter() - t0
+    glaunch = counts()
+    _require(bool(torch.isfinite(gg).all()) and float(gg.abs().max()) > 0
+             and (12, n_rows) in bwd_calls and (9, n_rows) in bwd_calls,
+             f"the full-size pose gradient pass failed: calls {bwd_calls}, launches {glaunch}")
+    print(f"[grad pass] skinned sphere ({n_rows} rows) {W}x{H} spp {SPP} d mean / d pose: loss "
+          f"{gl:.6f}, "
+          f"forward+backward {gdt:.3f} s; packed_gather_bwd calls by (columns, rows) "
+          f"{ {str(k): v for k, v in bwd_calls.items()} }; launches {json.dumps(glaunch)}; {smi}")
+    woop_r = _check_bwd_captured("Woop (pose gradient)", *bwd_first[(12, n_rows)],
+                                 big_scene.bvh.woop.device)
+    verts_r = _check_bwd_captured("verts (pose gradient)", *bwd_first[(9, n_rows)],
+                                  big_scene.bvh.woop.device)
+    del bwd_first
+    torch.cuda.empty_cache()
+    part("d")
+
+    # (e) adaptive sampling: the pins, then config 1's Cornell and config 2's glossy sizes
+    from cudatracerlib_tpu_torch.scene.shapes import cornell_box, glossy_scene
+
+    cornell, glossy = cornell_box(), glossy_scene()
+    for name, fn, ref, tol in (
+            ("adaptive", lambda: adaptive.render_adaptive_host(cornell, ps, ps, 4, 3, pseed, cfg),
+             REF_ADAPTIVE_MEAN, 0.005),
+            ("adaptive_wf", lambda: adaptive.render_wavefront_adaptive(
+                glossy, ADAPTIVE_WF_PIN, ADAPTIVE_WF_PIN, 4, 3, pseed, cfg),
+             REF_ADAPTIVE_WF_MEAN, 0.01)):
+        m = float(fn().mean())
+        _require(abs(m - ref) <= tol * ref, f"pinned {name} mean {m} not within {tol:.1%} of {ref}")
+        pins[name] = m / ref - 1
+        print(f"[pin] {name}: mean {m:.9f} (JAX {ref}, {100 * pins[name]:+.5f}%)")
+    for name, fn in (
+            ("adaptive cornell", lambda: adaptive.render_adaptive_host(cornell, W, H, SPP, N_PASS,
+                                                                       7, cfg, warmup=1)),
+            ("adaptive glossy wavefront", lambda: adaptive.render_wavefront_adaptive(
+                glossy, W, H, SPP, N_PASS, 7, cfg))):
+        fn()   # warm
+        torch.cuda.synchronize()
+        reset_counts()
+        dt, img = _timed(fn)
+        launch = counts()
+        _require(bool(torch.isfinite(img).all()) and n_intersect(launch) > 0,
+                 f"the {name} render failed: {launch}")
+        runs[name] = dict(dt=dt / N_PASS, mean=float(img.mean()), launches=launch)
+        print(f"[main path] {name} {W}x{H} spp {SPP}, {N_PASS} passes / waves, seed 7: {dt:.4f} s "
+              f"({dt / N_PASS:.4f} s a pass), mean {float(img.mean()):.6f}; launches "
+              f"{json.dumps(launch)}; {smi}")
+    _require(runs["adaptive glossy wavefront"]["launches"]["shade_gather"]["gather"] > 0
+             and runs["adaptive glossy wavefront"]["launches"]["intersect_bvh"]["closest"] > 0,
+             "the adaptive glossy waves did not launch intersect_bvh and packed_gather")
+    part("e")
+
+    # (f) the counters, and the fixed-shape refill's host reads
+    img_c, c = pt.render_with_counters(cornell, W, H, SPP, 3, cfg)
+    _, rays_c = pt.render_counted(cornell, W, H, SPP, 3, cfg)
+    img_w, cw = wf.render_wavefront_with_counters(glossy, W, H, SPP * N_PASS, 3, cfg)
+    _, rays_w = wf.render_wavefront_counted(glossy, W, H, SPP * N_PASS, 3, cfg)
+    _require(int(c["n_nonfinite"]) == 0 and int(cw["n_nonfinite"]) == 0
+             and int(c["n_rays"]) == int(rays_c) and int(cw["n_rays"]) == int(rays_w),
+             f"counters: {c} (render_counted {int(rays_c)}), {cw} (render_wavefront_counted "
+             f"{int(rays_w)})")
+    print(f"[counters] render_with_counters cornell {W}x{H} spp {SPP} seed 3: n_rays "
+          f"{int(c['n_rays'])} (render_counted {int(rays_c)}), n_nonfinite {int(c['n_nonfinite'])}; "
+          f"render_wavefront_with_counters glossy {W}x{H} spp {SPP * N_PASS} seed 3: n_rays "
+          f"{int(cw['n_rays'])} (render_wavefront_counted {int(rays_w)}), n_nonfinite "
+          f"{int(cw['n_nonfinite'])}, n_iters {cw['n_iters']} (one host read an iteration)")
+    part("f")
+    return dict(pins=pins, runs=runs, dense=dense_r, bvh=bvh_r, gather=gather_r, anim=anim,
+                cmp=dict(instanced=cmp8, forest=cmp_f, spheres=cmp_s), woop=woop_r, verts=verts_r,
+                bwd_calls=bwd_calls, grad_launches=glaunch,
+                counters=dict(n_rays=int(c["n_rays"]), wf_rays=int(cw["n_rays"]),
+                              n_iters=cw["n_iters"]))
+
+
+def _capture_gathers(fn):
+    """(fn's result, [(table, idx)]) of the first packed_gather in one call of `fn`."""
+    from cudatracerlib_tpu_torch.ops import shade_gather as sg_ops
+
+    seen, real = [], sg_ops._gather
+
+    def record(table, idx):
+        if not seen:
+            seen.append((table, idx.clone()))
+        return real(table, idx)
+
+    sg_ops._gather = record
+    try:
+        out = fn()
+    finally:
+        sg_ops._gather = real
+    _require(bool(seen), "no packed_gather call was made")
+    return out, seen
+
+
 def _port_counters():
     """The port's launch counters by wrapper module (each kernel wrapper adds
     one where it launches its kernel)."""
@@ -3184,8 +3715,21 @@ def main():
     # ---- 23. textures, material maps, the subsurface walk and cornell_box_deluxe ----
     tx = _texture_phase(smi, reset_counts)
     lap(23)
-    print(f"[wall] chip_smoke.py phases 1-23: {time.perf_counter() - t_start:.1f} s after the "
+
+    # ---- 24. dynamic and instanced scenes, refit and skinning, adaptive sampling, counters ----
+    dy = _dynamic_phase(smi, reset_counts)
+    lap(24)
+    print(f"[wall] chip_smoke.py phases 1-24: {time.perf_counter() - t_start:.1f} s after the "
           f"imports")
+    dyr = dy["runs"]
+    dy_dense = lambda *names: sum(sum(dyr[k]["launches"]["intersect_dense"].values())  # noqa: E731
+                                  for k in names)
+    dy_bvh = lambda *names: sum(sum(dyr[k]["launches"]["intersect_bvh"].values())  # noqa: E731
+                                for k in names)
+    dy_inst = ("instanced", "forest instanced", "spheres instanced")
+    dy_adapt = ("adaptive cornell", "adaptive glossy wavefront")
+    dy_refit = lambda kernel: sum(sum(a["launches"][kernel].values())  # noqa: E731
+                                  for a in dy["anim"].values())
     tx_launch = {k: r["launches"] for k, r in tx["runs"].items()}
     tx_dense = sum(v["intersect_dense"]["closest"] + v["intersect_dense"]["any_hit"]
                    for v in tx_launch.values())
@@ -3207,7 +3751,7 @@ def main():
             "max_abs_err": max(dense_err, *(r["err"] for r in (
                 *bdpt_r.values(), *vol_r.values(), *vg["dense"].values(),
                 *sp_c["dense"].values(), *sp_v["dense"].values(), *sh["dense"].values(),
-                *md["dense"].values(), *tx["dense"].values()))),
+                *md["dense"].values(), *tx["dense"].values(), *dy["dense"].values()))),
             "ms": cam["ms"],
             "plain_ms": cam["plain_ms"],
             "bound_ms": cam["bound"][0],
@@ -3267,6 +3811,13 @@ def main():
                                                                    else r[v])
                for k, r in md["dense"].items()
                for f, v in (("ms", "ms"), ("plain_ms", "plain_ms"), ("bound_ms", "bound"))},
+            "instanced_launches": dy_dense(*dy_inst),
+            "refit_launches": dy_refit("intersect_dense"),
+            "adaptive_launches": dy_dense(*dy_adapt),
+            "dynamic_max_abs_err": max(r["err"] for r in dy["dense"].values()),
+            **{f"{k.replace(' ', '_')}_{f}": (r[v][0] if v == "bound" else r[v])
+               for k, r in dy["dense"].items()
+               for f, v in (("ms", "ms"), ("plain_ms", "plain_ms"), ("bound_ms", "bound"))},
         },
         {
             "name": "intersect_bvh",
@@ -3274,7 +3825,8 @@ def main():
             "source": "cudatracerlib_tpu_torch/csrc/intersect_bvh.cu",
             "replaces": "cudatracerlib_tpu/ops/cluster_trace.py:411",
             "launches": glaunch["intersect_bvh"]["closest"] + glaunch["intersect_bvh"]["any_hit"],
-            "max_abs_err": max(err_g, err_g1, err_s65, big_cam["err"], big_b1["err"]),
+            "max_abs_err": max(err_g, err_g1, err_s65, big_cam["err"], big_b1["err"],
+                               *(r["err"] for r in dy["bvh"].values())),
             "ms": ms_bvh,
             "plain_ms": plain_ms_bvh,
             "bound_ms": bvh_bound[0],
@@ -3290,6 +3842,17 @@ def main():
                for f, v in (("ms", "ms"), ("wrapper_ms", "wrap_ms"), ("plain_ms", "plain_ms"),
                             ("bound_ms", "bound"))},
             "bigscene_bound_by": big_cam["bound"][1],
+            "instanced_launches": dy_bvh(*dy_inst),
+            "refit_launches": dy_refit("intersect_bvh"),
+            "adaptive_launches": dy_bvh(*dy_adapt),
+            "dynamic_max_abs_err": max(r["err"] for r in dy["bvh"].values()),
+            "sphere_instance_empty_share": dy["bvh"]["sphere instance"]["empty"],
+            **{f"{k.replace(' ', '_')}_{f}": (r[v][0] if v == "bound" else r[v])
+               for k, r in dy["bvh"].items()
+               for f, v in (("ms", "ms"), ("plain_ms", "plain_ms"), ("bound_ms", "bound"))},
+            "refitted_visits": dy["anim"]["bvh"]["visits_refit"],
+            "rebuilt_visits": dy["anim"]["bvh"]["visits_rebuilt"],
+            "rebuilt_ms": dy["anim"]["bvh"]["ms_rebuilt"],
         },
         {
             "name": "packed_gather",
@@ -3298,7 +3861,7 @@ def main():
             "replaces": "cudatracerlib_tpu/ops/shade_gather.py:69",
             "launches": glaunch["packed_gather"]["gather"],
             "max_abs_err": max(gather_err, sp_c["gather"]["err"], sh["gather"]["err"],
-                               md["gather"]["err"], tx["gather"]["err"]),
+                               md["gather"]["err"], tx["gather"]["err"], dy["gather"]["err"]),
             "ms": ms_g,
             "plain_ms": plain_ms_g,
             "bound_ms": gather_bound[0],
@@ -3327,6 +3890,13 @@ def main():
             **{f"sharded_ppm_{f}": (md["gather"][v][0] if v == "bound" else md["gather"][v])
                for f, v in (("ms", "ms"), ("plain_ms", "plain_ms"), ("library_ms", "lib_ms"),
                             ("bound_ms", "bound"))},
+            "flattened_launches": dyr["forest flattened"]["launches"]["shade_gather"]["gather"],
+            "adaptive_launches": sum(dyr[k]["launches"]["shade_gather"]["gather"]
+                                     for k in dy_adapt),
+            "dynamic_max_abs_err": dy["gather"]["err"],
+            **{f"forest_{f}": (dy["gather"][v][0] if v == "bound" else dy["gather"][v])
+               for f, v in (("ms", "ms"), ("plain_ms", "plain_ms"), ("library_ms", "lib_ms"),
+                            ("bound_ms", "bound"))},
         },
         {
             "name": "packed_gather_bwd",
@@ -3336,7 +3906,8 @@ def main():
             "launches": gl["shade_gather"]["gather_bwd_tile"],
             "max_abs_err": max(*(b["err"] for b in bwd.values()), splat_bdpt["err"],
                                splat_lt["err"], vg["grid"]["err"], vg["table"]["err"],
-                               sh["splat"]["err"], md["bwd"]["err"], tx["atlas"]["err"]),
+                               sh["splat"]["err"], md["bwd"]["err"], tx["atlas"]["err"],
+                               dy["woop"]["err"], dy["verts"]["err"]),
             "ms": bwd["pack"]["ms"],
             "plain_ms": bwd["pack"]["plain_ms"],
             "bound_ms": bwd["pack"]["bound"][0],
@@ -3389,6 +3960,16 @@ def main():
             "sharded_train_launches": mdl["train"]["shade_gather"]["gather_bwd_tile"],
             "sharded_ranks_train_launches": mrl["train"]["shade_gather"]["gather_bwd_tile"],
             **{f"sharded_train_{f}": (md["bwd"][v][0] if v == "bound" else md["bwd"][v])
+               for f, v in (("lanes", "lanes"), ("rows", "rows"), ("ms", "ms"),
+                            ("wrapper_ms", "wrap_ms"), ("plain_ms", "plain_ms"),
+                            ("library_ms", "lib_ms"), ("bound_ms", "bound"),
+                            ("max_abs_err", "err"), ("captured_rel_err", "captured_rel"))},
+            "refit_launches": dy["grad_launches"]["shade_gather"]["gather_bwd_tile"],
+            "woop_launches": dy["bwd_calls"].get((12, dy["woop"]["rows"]), 0),
+            "verts_launches": dy["bwd_calls"].get((9, dy["verts"]["rows"]), 0),
+            "dynamic_max_abs_err": max(dy["woop"]["err"], dy["verts"]["err"]),
+            **{f"pose_{k}_{f}": (dy[k][v][0] if v == "bound" else dy[k][v])
+               for k in ("woop", "verts")
                for f, v in (("lanes", "lanes"), ("rows", "rows"), ("ms", "ms"),
                             ("wrapper_ms", "wrap_ms"), ("plain_ms", "plain_ms"),
                             ("library_ms", "lib_ms"), ("bound_ms", "bound"),

@@ -5,8 +5,15 @@ The JAX Scene's leaves, flattened to numpy by field path ("bvh.woop",
 "lights.tri_cdf", "camera.to_world", ...), become the port's Scene with the
 same arrays, so both packages can compute on identical scene data;
 `media_from_numpy` does the same for a JAX Media's arrays.
-`flatten` does that flattening for any NamedTuple tree whose leaves numpy
-can read: the JAX Scene, a JAX gradient pytree (`jax.grad` of a function of
+An instanced JAX Scene's per-mesh `blas` and `instances` tuples come
+across as `blas.<i>.bvh.*` and `instances.<i>.*` (a JAX `BlasEntry.clusters`,
+the TPU kernel's layout, is dropped: the port's BLAS is its BVH alone), each
+BLAS's chunk boxes rebuilt from its Woop rows, and the scene's
+specialization set as JAX registers it for instanced scenes.
+`skinned_from_numpy` and `refit_plan_from_numpy` carry a JAX `SkinnedMesh`
+and `RefitPlan` across.
+`flatten` does that flattening for any tree of NamedTuples (and plain
+tuples of them, by index) whose leaves numpy can read: the JAX Scene, a JAX gradient pytree (`jax.grad` of a function of
 the Scene, whose leaves are the gradients), or a port Scene for the way
 back. `with_grad` makes chosen leaves of a port Scene require grad, and
 `grads` reads their `.grad` by the same field paths, so a JAX gradient and
@@ -20,7 +27,11 @@ import numpy as np
 import torch
 
 from .accel.bvh import BVH, chunk_boxes_from_woop
+from .accel.refit import RefitPlan
 from .scene import media as media_mod
+from .scene.animation import SkinnedMesh
+from .scene.dynamic import instanced_spec
+from .scene.instances import BlasEntry, InstanceGroup
 from .scene.lights import Lights
 from .scene.scene import Materials, Scene, ShadingData
 from .scene.sensors import Camera
@@ -34,23 +45,33 @@ _TENSOR_GROUPS = {
     "camera": Camera,
 }
 # port-only leaves derived from others: left out of `flatten`, rebuilt by
-# `scene_from_numpy` (the dense intersector's boxes, from the Woop rows)
-_DERIVED = {"bvh.chunk_boxes"}
+# `scene_from_numpy` (the dense intersector's boxes, from the Woop rows;
+# also each BLAS's, `blas.<i>.bvh.chunk_boxes`)
+_DERIVED = "bvh.chunk_boxes"
 # leaves the port keeps on the host as ints (scene-static: the camera
 # model), int32 arrays in `flatten` as in the JAX Scene
 _HOST_INTS = {"camera.ctype"}
 
 
 def flatten(tree, prefix: str = "") -> dict[str, np.ndarray]:
-    """{field path: numpy array} over a NamedTuple tree. None leaves, empty
-    tuples and non-array metadata (dicts) are left out."""
+    """{field path: numpy array} over a NamedTuple tree; a plain tuple's
+    NamedTuple or array elements go under their index ("blas.0.bvh.woop",
+    "plan.level_nodes.0"). None
+    leaves, empty tuples and non-array metadata (dicts) are left out."""
     out: dict[str, np.ndarray] = {}
     for name, v in zip(tree._fields, tree):
         key = prefix + name
-        if key in _DERIVED:
+        if key == _DERIVED or key.endswith("." + _DERIVED):
             continue
         if isinstance(v, tuple) and hasattr(v, "_fields"):
             out.update(flatten(v, key + "."))
+        elif isinstance(v, tuple) and v and all(hasattr(x, "_fields") for x in v):
+            for i, x in enumerate(v):
+                out.update(flatten(x, f"{key}.{i}."))
+        elif isinstance(v, tuple) and v and all(hasattr(x, "shape") for x in v):
+            for i, x in enumerate(v):     # a tuple of arrays (RefitPlan.level_nodes)
+                out[f"{key}.{i}"] = (x.detach().cpu().numpy() if isinstance(x, torch.Tensor)
+                                     else np.asarray(x))
         elif isinstance(v, torch.Tensor):
             out[key] = v.detach().cpu().numpy()
         elif key in _HOST_INTS and isinstance(v, int):   # the port's; JAX's are arrays
@@ -68,28 +89,80 @@ def _group(cls, arrays, prefix, device):
     return cls(**{f: leaf(f"{prefix}.{f}") for f in cls._fields})
 
 
+def _tensor(arrays, path, device):
+    return torch.from_numpy(np.array(arrays[path])).to(device)
+
+
+def bvh_from_numpy(arrays: dict[str, np.ndarray], prefix: str = "", device="cuda") -> BVH:
+    """A port BVH on `device` from a JAX BVH's arrays flattened under
+    `prefix`, its chunk boxes rebuilt from the Woop rows."""
+    woop = _tensor(arrays, prefix + "woop", device)
+    return BVH(
+        nodes=_tensor(arrays, prefix + "nodes", device),
+        woop=woop,
+        tri_index=_tensor(arrays, prefix + "tri_index", device),
+        root_code=np.int32(arrays[prefix + "root_code"]),
+        world_min=np.array(arrays[prefix + "world_min"]),
+        world_max=np.array(arrays[prefix + "world_max"]),
+        chunk_boxes=chunk_boxes_from_woop(woop),
+    )
+
+
+def _count(arrays, prefix) -> int:
+    """How many tuple elements the keys "<prefix><i>" (leaves) or
+    "<prefix><i>." (trees) name."""
+    n = 0
+    while any(k == f"{prefix}{n}" or k.startswith(f"{prefix}{n}.") for k in arrays):
+        n += 1
+    return n
+
+
 def scene_from_numpy(arrays: dict[str, np.ndarray], device="cuda") -> Scene:
     """Build a port Scene on `device` (the card unless the caller asks for
     the CPU) from flattened Scene arrays. The specialization is derived from
-    the arrays by specialize_config."""
+    the arrays by specialize_config, or for an instanced scene set here as
+    JAX registers it (`dynamic.instanced_spec`: every material's, light's
+    and texture's type, shading never flat)."""
     groups = {name: _group(cls, arrays, name, device) for name, cls in _TENSOR_GROUPS.items()}
-    woop = torch.from_numpy(np.array(arrays["bvh.woop"])).to(device)
-    bvh = BVH(
-        nodes=torch.from_numpy(np.array(arrays["bvh.nodes"])).to(device),
-        woop=woop,
-        tri_index=torch.from_numpy(np.array(arrays["bvh.tri_index"])).to(device),
-        root_code=np.int32(arrays["bvh.root_code"]),
-        world_min=np.array(arrays["bvh.world_min"]),
-        world_max=np.array(arrays["bvh.world_max"]),
-        chunk_boxes=chunk_boxes_from_woop(woop),
-    )
+    blas = tuple(BlasEntry(bvh=bvh_from_numpy(arrays, f"blas.{i}.bvh.", device))
+                 for i in range(_count(arrays, "blas.")))
+    instances = tuple(InstanceGroup(**{f: _tensor(arrays, f"instances.{i}.{f}", device)
+                                       for f in InstanceGroup._fields})
+                      for i in range(_count(arrays, "instances.")))
+    spec = None
+    if instances:
+        spec = instanced_spec(arrays["materials.bsdf_type"], arrays["lights.ltype"],
+                              arrays["textures.ttype"])
     return Scene(
-        bvh=bvh,
-        light_cdf=torch.from_numpy(np.array(arrays["light_cdf"])).to(device),
-        env_light_id=torch.from_numpy(np.array(arrays["env_light_id"])).to(device),
-        spec=None,
+        bvh=bvh_from_numpy(arrays, "bvh.", device),
+        light_cdf=_tensor(arrays, "light_cdf", device),
+        env_light_id=_tensor(arrays, "env_light_id", device),
+        spec=spec,
+        blas=blas,
+        instances=instances,
         **groups,
     )
+
+
+def refit_plan_from_numpy(arrays: dict[str, np.ndarray], prefix: str = "",
+                          device="cuda") -> RefitPlan:
+    """A port RefitPlan on `device` from a JAX RefitPlan's arrays flattened
+    under `prefix` (`level_nodes.<i>`, `c0`, `c1`)."""
+    as_long = lambda path: _tensor(arrays, path, device).long()  # noqa: E731
+    return RefitPlan(
+        level_nodes=tuple(as_long(f"{prefix}level_nodes.{i}")
+                          for i in range(_count(arrays, prefix + "level_nodes."))),
+        c0=as_long(prefix + "c0"), c1=as_long(prefix + "c1"))
+
+
+def skinned_from_numpy(arrays: dict[str, np.ndarray], device="cuda") -> SkinnedMesh:
+    """A port SkinnedMesh on `device` from a JAX SkinnedMesh's arrays
+    (`flatten` of it: rest, bone_ids, weights, inv_bind, plan.*)."""
+    return SkinnedMesh(rest=_tensor(arrays, "rest", device),
+                       bone_ids=_tensor(arrays, "bone_ids", device),
+                       weights=_tensor(arrays, "weights", device),
+                       inv_bind=_tensor(arrays, "inv_bind", device),
+                       plan=refit_plan_from_numpy(arrays, "plan.", device))
 
 
 def media_from_numpy(arrays: dict[str, np.ndarray], device="cuda") -> media_mod.Media:

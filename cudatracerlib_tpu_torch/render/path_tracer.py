@@ -40,11 +40,12 @@ from torch.utils.checkpoint import checkpoint
 from ..image import film as film_mod
 from ..math import fresnel as fres
 from ..math import montecarlo as mc
-from ..math.vecmath import dot, reflect, refract
+from ..math.vecmath import dot, normalize, reflect, refract
 from ..ops.shade_gather import gather_rows, packed_gather
 from ..sampling.records import DISCRETE
 from ..sampling.rng import MASK, Sampler
 from ..scene import bsdf as bsdf_mod
+from ..scene import instances as inst_mod
 from ..scene import lights as lights_mod
 from ..scene import phase as phase_mod
 from ..scene import sensors
@@ -112,15 +113,7 @@ def specialize_config(scene: Scene, config: PTConfig) -> PTConfig:
     lobes become join the BSDF set. Raises NotImplementedError for what is
     not ported."""
     if config.bsdf_types is None:
-        spec = scene.spec
-        if spec is None:
-            sh = scene.shading
-            host = lambda x: x.detach().cpu().numpy()  # noqa: E731
-            spec = scene_mod.specialization(
-                host(sh.mat_id), {k: host(v) for k, v in scene.materials._asdict().items()},
-                host(scene.textures.ttype), np.unique(host(scene.lights.ltype)),
-                host(sh.normals), host(sh.n_face), host(sh.uvs))
-        config = config._replace(**spec)
+        config = config._replace(**scene_mod.scene_spec(scene))
         if config.regularization > 0.0:
             config = config._replace(bsdf_types=_regularized_types(config.bsdf_types))
     _check_ported(config)
@@ -227,7 +220,16 @@ def _sss_walk(scene: Scene, config: PTConfig, *, entered, p0, d0, n_entry, mat_i
         tr_b = torch.exp(-sig_t * t_b[..., None])
         pdf_b = torch.exp(-sig_mean * t_b).detach()[..., None]
         w_b = tr_b / torch.clamp(pdf_b, min=1e-20)
-        nf = gather_rows(scene.shading.n_face, torch.clamp(hit.prim, min=0).long())
+        if scene.instances:
+            # the packed prim decoded to its shading row (as make_interaction
+            # does), the object-space face normal mapped to world space
+            inst_id, _, row = inst_mod.decode_hit(scene.instances,
+                                                  inst_mod.instance_tpad(scene.blas), hit)
+            to_obj = inst_mod.flat_instance_arrays(scene.instances)[0]
+            nf = normalize(torch.einsum("...ij,...i->...j", to_obj[inst_id][..., :, :3],
+                                        gather_rows(scene.shading.n_face, row)))
+        else:
+            nf = gather_rows(scene.shading.n_face, torch.clamp(hit.prim, min=0).long())
         n_out = nf * torch.sign(dot(nf, dirn, keepdims=True))  # points along the exit
         p_b = pos + dirn * t_b[..., None]
         wo = -dirn
@@ -588,6 +590,18 @@ def render_counted(scene: Scene, width: int, height: int, spp: int, seed,
     config = specialize_config(scene, config)
     img, (n_rays, _) = _render_body(scene, width, height, spp, seed, config, True)
     return img, n_rays
+
+
+@torch.no_grad()
+def render_with_counters(scene: Scene, width: int, height: int, spp: int, seed,
+                         config: PTConfig = PTConfig()):
+    """`render` plus debug counters {"n_rays", "n_nonfinite"} (int64
+    tensors): n_nonfinite counts the lanes whose bounce contribution or
+    throughput went non-finite before the film's nan_to_num, which the
+    engine cross-checks hold at zero."""
+    config = specialize_config(scene, config)
+    img, (n_rays, n_bad) = _render_body(scene, width, height, spp, seed, config, True)
+    return img, {"n_rays": n_rays, "n_nonfinite": n_bad}
 
 
 @torch.no_grad()

@@ -9,6 +9,13 @@ its numpy inputs and keeps it on the scene itself, in `spec`.
 
 On the card a gather is a load, so the JAX package's TPU-only select chains
 (`small_gather`) and per-column takes (`gather_rows`) become plain indexing.
+
+An instanced scene (scene/dynamic.py `update(instancing=True)`) carries a
+per-mesh `blas` tuple and the aligned `instances` tuple of
+scene/instances.py: `bvh` is mesh 0's BLAS with the instances' world
+bounds, `shading` the meshes' object-space tables concatenated, and
+`scene_intersect` / `make_interaction` go through the instance loop and
+decode the packed hit.
 """
 from __future__ import annotations
 
@@ -26,6 +33,7 @@ from ..ops.shade_gather import gather_rows
 from . import bsdf as bsdf_mod
 from . import lights as lights_mod
 from . import textures as tex_mod
+from . import instances as inst_mod
 from .lights import Lights, build_lights, light_power
 from .sensors import Camera
 from .textures import Textures
@@ -136,6 +144,8 @@ class Scene(NamedTuple):
     camera: Camera
     env_light_id: torch.Tensor  # () int32, -1 if no environment light
     spec: dict | None = None    # scene-static specialization (PTConfig fields)
+    blas: tuple = ()            # instanced: per-mesh BlasEntry (scene/instances.py)
+    instances: tuple = ()       # instanced: the aligned per-mesh InstanceGroup
 
     @property
     def n_lights(self) -> int:
@@ -147,7 +157,13 @@ class Scene(NamedTuple):
 
 def scene_intersect(scene: Scene, o, d, t_min=1e-4, t_max=torch.inf,
                     any_hit: bool = False):
-    """Closest-hit (the scene-level traceRay)."""
+    """Closest-hit (the scene-level traceRay); an instanced scene goes
+    through the instance loop with t_max clamped to 1e30, as in JAX."""
+    if scene.instances:
+        return inst_mod.intersect_instances(
+            scene.blas, scene.instances, o, d, t_min,
+            torch.clamp(torch.as_tensor(t_max, dtype=torch.float32, device=o.device), max=1e30),
+            any_hit=any_hit)
     return traversal_mod.intersect_auto(scene.bvh, o, d, t_min, t_max, any_hit=any_hit)
 
 
@@ -172,7 +188,16 @@ def make_interaction(scene: Scene, o, d, hit, flat: bool = False) -> Interaction
     """Shading data at hit points (vectorized fillDG).
 
     `flat`: fast path for scenes whose shading normals equal face normals and
-    whose UVs are the default barycentric chart (Cornell takes it)."""
+    whose UVs are the default barycentric chart (Cornell takes it). In an
+    instanced scene the packed prim is decoded to its shading row, the
+    geometry comes out in object space and is mapped to world per lane, and
+    `flat` is off."""
+    inst_id = None
+    if scene.instances:
+        inst_id, _, row = inst_mod.decode_hit(scene.instances, inst_mod.instance_tpad(scene.blas),
+                                              hit)
+        hit = hit._replace(prim=torch.where(hit.valid, row, 0))
+        flat = False
     prim = torch.clamp(hit.prim, min=0).long()
     # missed lanes carry t = t_max (possibly inf): clamp so p stays finite
     t_safe = torch.where(hit.valid & torch.isfinite(hit.t), hit.t, 1.0)
@@ -206,6 +231,19 @@ def make_interaction(scene: Scene, o, d, hit, flat: bool = False) -> Interaction
     s_len = torch.sqrt(torch.clamp((s_uv * s_uv).sum(-1), min=1e-18))
     s = torch.where((use_uv & (s_len > 1e-9))[..., None], s_uv / s_len[..., None], s_fallback)
     frame = Frame(s=s, t=cross(n_sh, s), n=n_sh)
+    if inst_id is not None:
+        # object -> world: directions by the to_world linear part, normals
+        # by the world -> object linear part transposed; p is world already
+        # (from the world ray and the affine-invariant t)
+        to_obj, to_world, imat, _ = inst_mod.flat_instance_arrays(scene.instances)
+        Lw = to_world[inst_id][..., :, :3]
+        Lo = to_obj[inst_id][..., :, :3]
+        n_geo = normalize(torch.einsum("...ij,...i->...j", Lo, n_geo))
+        n_w = normalize(torch.einsum("...ij,...i->...j", Lo, frame.n))
+        s_w = torch.einsum("...ji,...i->...j", Lw, frame.s)
+        s_w = normalize(s_w - n_w * dot(n_w, s_w, keepdims=True))
+        frame = Frame(s=s_w, t=cross(n_w, s_w), n=n_w)
+        mat_id = torch.where(hit.valid, imat[inst_id], 0)
     return Interaction(p=p, n_geo=n_geo, frame=frame, uv=uv, t=hit.t, prim=prim,
                        mat_id=mat_id, valid=hit.valid)
 
@@ -393,6 +431,19 @@ def specialization(mat_id: np.ndarray, materials: dict, tex_ttype: np.ndarray,
                          & (materials["tex_alpha"][used] >= 0)).any()),
         sss=bool((materials["sss"][used] > 0).any()),
     )
+
+
+def scene_spec(scene: Scene) -> dict:
+    """The scene's specialization: the one it carries, or else one derived
+    from its arrays (read back to the host)."""
+    if scene.spec is not None:
+        return scene.spec
+    sh = scene.shading
+    host = lambda x: x.detach().cpu().numpy()  # noqa: E731
+    return specialization(
+        host(sh.mat_id), {k: host(v) for k, v in scene.materials._asdict().items()},
+        host(scene.textures.ttype), np.unique(host(scene.lights.ltype)), host(sh.normals),
+        host(sh.n_face), host(sh.uvs))
 
 
 def build_scene(vertices: np.ndarray, normals: np.ndarray | None, uvs: np.ndarray | None,

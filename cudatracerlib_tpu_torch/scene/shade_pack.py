@@ -58,9 +58,12 @@ COLS = 64
 
 def pack_enabled(scene) -> bool:
     """The fused shade path applies to scenes on the card whose padded
-    triangle count lies in the JAX package's band, 1024 <= Tp <= 16384
-    (the port has no instanced scenes). Smaller scenes, Cornell among them,
-    keep the per-lane gathers; CPU scenes always do."""
+    triangle count lies in the JAX package's band, 1024 <= Tp <= 16384,
+    and that are not instanced (the pack is indexed by a flat prim; JAX
+    turns it off for instanced scenes too). Smaller scenes, Cornell among
+    them, keep the per-lane gathers; CPU scenes always do."""
+    if scene.instances:
+        return False
     Tp = int(scene.bvh.woop.shape[0])
     return scene.bvh.woop.device.type == "cuda" and 1024 <= Tp <= MAX_ROWS
 

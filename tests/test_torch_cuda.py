@@ -930,3 +930,103 @@ def test_sharded_render_one_nccl_rank_matches_cpu(dev):
     assert backend == "nccl" and finite and finite_c
     assert abs(rays - rays_c) <= 1e-3 * rays_c, (rays, rays_c)
     assert abs(mean - mean_c) <= 1e-4 * mean_c, (mean, mean_c)
+
+
+def _capture_intersects(fn):
+    """The dense and BVH wrappers' arguments in one call of `fn`."""
+    seen, real_dense, real_bvh = [], ops.intersect_dense, bvh_ops.intersect_bvh
+
+    def dense(woop, o, d, t_min=1e-4, t_max=ops.T_MAX_CLAMP, any_hit=False, boxes=None):
+        seen.append(("dense", woop, o.clone(), d.clone(), t_min, t_max, boxes))
+        return real_dense(woop, o, d, t_min, t_max, any_hit=any_hit, boxes=boxes)
+
+    def bvh(b, o, d, t_min=1e-4, t_max=torch.inf, any_hit=False):
+        seen.append(("bvh", b, o.clone(), d.clone(), t_min, t_max, None))
+        return real_bvh(b, o, d, t_min, t_max, any_hit=any_hit)
+
+    ops.intersect_dense, bvh_ops.intersect_bvh = dense, bvh
+    try:
+        fn()
+        torch.cuda.synchronize()
+    finally:
+        ops.intersect_dense, bvh_ops.intersect_bvh = real_dense, real_bvh
+    return seen
+
+
+def _instanced_spheres(device):
+    """Two meshes instanced: a 5,248-triangle sphere (a BLAS above the dense
+    band) three times and a floor, built by DynamicScene(instancing=True)."""
+    from cudatracerlib_tpu_torch.scene.dynamic import DynamicScene
+    from cudatracerlib_tpu_torch.scene.sensors import Camera
+    from cudatracerlib_tpu_torch.scene.shapes import quad, sphere
+
+    ds = DynamicScene(device=device)
+    ball = ds.create_mesh(sphere([0, 0, 0], 0.5, 42, 64))
+    for i in range(3):
+        m = np.eye(4)
+        m[:3, 3] = [1.2 * (i - 1), 0.3 * i, 0.5]
+        ds.create_node(ball, m)
+    floor = ds.create_mesh(quad([-3, -3, 0], [3, -3, 0], [3, 3, 0], [-3, 3, 0]))
+    ds.create_node(floor, np.eye(4))
+    ds.create_light({"type": 5, "radiance": [1.0, 1.0, 1.0]})
+    ds.set_camera(Camera.look_at([0, -4, 2.0], [0, 0, 0.4], up=[0, 0, 1], fov_deg=45.0))
+    return ds.update(instancing=True)
+
+
+def test_instanced_scene_kernels_match_plain(dev):
+    """Each instance's call of the instance loop (object-space rays, per-lane
+    t ranges from the box cull, many empty) through both kernels, against
+    their plain versions; and the instanced render on the card against the
+    CPU's: mean within 1%, rays within 0.1%."""
+    scene = _instanced_spheres(dev)
+    assert int(scene.blas[0].bvh.woop.shape[0]) > 4096
+    o, d, _, _ = pt.camera_rays(scene, 64, 64, 4, 3)
+    seen = _capture_intersects(lambda: pt.render_counted(scene, 64, 64, 4, 3,
+                                                         pt.PTConfig(max_depth=2)))
+    kinds = {k for k, *_ in seen}
+    assert kinds == {"dense", "bvh"}
+    for kind, table, o_c, d_c, t_min, t_max, boxes in seen[:4]:   # the camera rays' 4 calls
+        assert isinstance(t_max, torch.Tensor) and t_max.shape == (o_c.shape[0],)
+        if kind == "dense":
+            _assert_agree(table, o_c, d_c, t_min, t_max, boxes)
+        elif bool((t_max > t_min).any()):
+            _assert_bvh_agree(table, o_c, d_c, t_min, t_max)
+    cfg = pt.PTConfig(max_depth=4)
+    img, rays = pt.render_counted(scene, 64, 64, 4, 3, cfg)
+    ref, ref_rays = pt.render_counted(_instanced_spheres("cpu"), 64, 64, 4, 3, cfg)
+    assert abs(float(img.mean()) - float(ref.mean())) <= 0.01 * float(ref.mean())
+    assert abs(int(rays) - int(ref_rays)) <= 1e-3 * int(ref_rays)
+
+
+@pytest.mark.parametrize("n_theta,n_phi", [(24, 48), (64, 128)])
+def test_refitted_mesh_kernels_match_plain(dev, n_theta, n_phi):
+    """A sphere deformed and refitted on the card (in the dense band, and
+    above it): the dense kernel on the refitted chunk boxes and the BVH
+    kernel on the refitted nodes against their plain versions, and the
+    refitted hits against a rebuilt tree's."""
+    from cudatracerlib_tpu_torch.accel import refit
+    from cudatracerlib_tpu_torch.accel.traversal import intersect_auto
+    from cudatracerlib_tpu_torch.scene.shapes import sphere
+
+    tris = sphere([0, 0, 0], 1.0, n_theta, n_phi).astype(np.float32)
+    bvh, host = build_bvh(tris, with_host=True, device=dev)
+    plan = refit.build_refit_plan(host["nodes"], host["root"], device=dev)
+    leaf = torch.from_numpy(host["tris"]).to(dev)
+    bent = leaf * torch.tensor([1.4, 0.7, 1.0], device=dev)
+    bent[..., 2] += 0.3 * torch.sin(3.0 * leaf[..., 0])
+    new = refit.refit_bvh(bvh, plan, bent)
+    rng = np.random.default_rng(9)
+    o = torch.from_numpy(rng.uniform(-2, 2, (1 << 16, 3)).astype(np.float32)).to(dev)
+    d = torch.nn.functional.normalize(-o + torch.from_numpy(
+        rng.normal(scale=0.3, size=(1 << 16, 3)).astype(np.float32)).to(dev), dim=-1)
+    if new.woop.shape[0] <= 4096:
+        _assert_agree(new.woop, o, d, 1e-4, torch.inf, new.chunk_boxes)
+    else:
+        _assert_bvh_agree(new, o, d, 1e-4, torch.inf)
+    rebuilt = build_bvh(bent.cpu().numpy(), device=dev)
+    a, b = intersect_auto(new, o, d), intersect_auto(rebuilt, o, d)
+    torch.cuda.synchronize()
+    agree = (a.valid == b.valid).float().mean()
+    both = a.valid & b.valid
+    assert agree >= 0.9999 and int(both.sum()) > 1000
+    assert float(((a.t - b.t).abs()[both] / b.t[both].abs().clamp(min=1.0)).max()) <= 1e-4

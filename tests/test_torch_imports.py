@@ -14,11 +14,13 @@ MODULES = [
     "cudatracerlib_tpu_torch",
     "cudatracerlib_tpu_torch.accel.bvh",
     "cudatracerlib_tpu_torch.accel.hashgrid",
+    "cudatracerlib_tpu_torch.accel.refit",
     "cudatracerlib_tpu_torch.accel.traversal",
     "cudatracerlib_tpu_torch.convert",
     "cudatracerlib_tpu_torch.entry",
     "cudatracerlib_tpu_torch.image.film",
     "cudatracerlib_tpu_torch.image.pipeline",
+    "cudatracerlib_tpu_torch.image.variance",
     "cudatracerlib_tpu_torch.math.frame",
     "cudatracerlib_tpu_torch.math.fresnel",
     "cudatracerlib_tpu_torch.math.microfacet",
@@ -34,6 +36,7 @@ MODULES = [
     "cudatracerlib_tpu_torch.parallel",
     "cudatracerlib_tpu_torch.parallel.distributed",
     "cudatracerlib_tpu_torch.parallel.shard",
+    "cudatracerlib_tpu_torch.render.adaptive",
     "cudatracerlib_tpu_torch.render.bdpt",
     "cudatracerlib_tpu_torch.render.light_tracer",
     "cudatracerlib_tpu_torch.render.path_tracer",
@@ -44,8 +47,11 @@ MODULES = [
     "cudatracerlib_tpu_torch.render.wavefront",
     "cudatracerlib_tpu_torch.sampling.records",
     "cudatracerlib_tpu_torch.sampling.rng",
+    "cudatracerlib_tpu_torch.scene.animation",
     "cudatracerlib_tpu_torch.scene.bigscene",
     "cudatracerlib_tpu_torch.scene.bsdf",
+    "cudatracerlib_tpu_torch.scene.dynamic",
+    "cudatracerlib_tpu_torch.scene.instances",
     "cudatracerlib_tpu_torch.scene.lights",
     "cudatracerlib_tpu_torch.scene.material_lib",
     "cudatracerlib_tpu_torch.scene.media",
