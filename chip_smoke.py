@@ -308,7 +308,47 @@ It imports nothing of JAX. Phases, each of which raises on failure:
      intersect_bvh and packed_gather); (f) `render_with_counters` at config
      1 and `render_wavefront_with_counters` at config 2: n_nonfinite 0,
      n_rays equal to render_counted's / render_wavefront_counted's at the
-     same seed.
+     same seed;
+  25. the remaining engines (tools/engines_cases.py; pins from
+     tools/engines_reference_mean.py): (a) spectral surfaces: the Cornell
+     and dispersive caustic pins (64x64, 4 spp, seed 3) within 0.5%, then
+     `render_spectral` at bench config 1's size (256x256, 16 spp, depth 5)
+     on Cornell, the achromatic and the dispersive (cauchy_c 0.03) caustic
+     scene, each timed with its ray lanes (every lane given to the
+     intersect wrappers) and launches; red and blue separate on the
+     dispersive image (tests/test_spectral.py's chroma, > 1.35x the
+     achromatic); the guarded gate's stopped lanes counted; intersect_dense
+     held to its plain version as in 3 on the dispersive pass's camera and
+     shadow rays; (b) the spectral gradients: d mean / d light radiance and
+     d (ramp-weighted mean) / d cauchy_c within 1e-3 of JAX's, the spectral
+     volume's d / d sigma_s scale against its central difference at JAX's
+     gate (0.35), and the cauchy gradient at 256x256, 4 spp: forward and
+     forward+backward walls (medians of 3 pairs), peak memory, the launches
+     of one forward+backward; (c) the spectral volume (a homogeneous medium
+     in the Cornell box) pinned within three seed spreads, then at bench
+     config 4's size (256x256, 8 spp, depth 6); (d) guiding on the caustic
+     scene: the pinned histogram's sum within 1e-5 and image within 0.5%,
+     then `make_guiding(res=8)`, 4 `train_guiding` batches of 2^17 photons
+     (each timed) and `render_guided` at 256x256, 16 spp; over 4 such passes
+     its 4x4 block means within 0.1 of 4 path-traced passes' (tests/
+     test_guided.py's gate and protocol; a second path-traced set's gap
+     printed as the noise floor); the
+     deposit's row sum (2^17 x 5 lanes x 1 onto 32,768 rows, captured) held
+     to its float64 plain version as in 19 (c), and the pack gather
+     bit-equal as in 6; (e) `render_fast` on the bigscene at 1024x1024 (one
+     `intersect_bvh` launch of 2^20 rays): best of 5 passes in Mrays/s, the
+     kernel alone, image and depth against the plain route (the oracle in
+     the intersector's place; at most 16 pixels apart, coincident ties),
+     the bound from the oracle's visits; (f) `render_game`: the pin (64x64,
+     frame 7) within 0.5%, then 8 frames of Cornell at 256x256 with the hash
+     grid's build and query timed; (g) `render_aovs` on Cornell at 256x256:
+     each of the 17 channels' means within 2e-3 of JAX's (pixel-centre rays
+     on a quad's diagonal cross the port's Woop test's crack, an open fault:
+     mat_id's mean 1.87e-3 on the card); (c)-(g) each profiled once; (h)
+     `generate_fits` on the card over the full grid (5,878,656 lanes at eta
+     and at 1/eta): the fitted surfaces within 2e-3 of the baked
+     coefficients' (JAX's test_baked_constants_match_regeneration gate) and
+     the residuals beside FIT_RESIDUAL, timed.
 Each phase's seconds are printed as it ends.
 
 Before its last line it prints one JSON object describing each kernel; the
@@ -532,6 +572,31 @@ REF_POSE_GRAD = [0.00237852591, -0.000700105971, 0.00181664689, 0.00031911768, 0
                  0.00502401125, 0.00101373228, -0.000613909797, 0.00426000124, 0.00206930493,
                  0, 0, 0, 0]
 INSTANCE_AGREE = 0.999     # phase 24: instanced vs flattened camera rays (tests/test_instances.py)
+# Phase 25's pins: `JAX_PLATFORMS=cpu python tools/engines_reference_mean.py` (the JAX package
+# on the CPU at tools/engines_cases.PIN's sizes; --port for the CPU port's, equal to 9 digits
+# but the dispersive caustic 1.9e-7, the volume 1.2e-7 and the AOV means, which differ where
+# pixel-centre rays cross a quad's diagonal: 66 of 65,536 rays hit in JAX and miss in the port,
+# through the crack of its Woop test, an open fault of the port)
+ENGINE_PINS = {"spectral_cornell": 0.132589474, "spectral_caustic": 0.317814916,
+               "spectral_vol": 0.127622664, "guided": 0.297794133, "game": 0.095883340}
+ENGINE_TOL = 0.005
+REF_SPECTRAL_VOL_SPREAD = 0.011438   # (max - min) / seed-3 mean over seeds 3, 4, 5
+REF_SPECTRAL_GRAD_RADIANCE = [0.004604860208928585, 0.004264678340405226, 0.003606081008911133]
+REF_SPECTRAL_CAUCHY_LOSS = 0.141414106
+REF_SPECTRAL_GRAD_CAUCHY = -0.00484975288
+SPECTRAL_GRAD_TOL = 1e-3
+REF_GUIDED_HIST_SUM = 87.8799515
+REF_AOV_MEANS = {"albedo": 0.409643412, "albedo_non_delta": 0.409643412, "bary": 0.160925373,
+                 "d3d_depth": 0.835478306, "depth": 3.27000594, "direct": 0.03401893,
+                 "direct_non_delta": 0.0340284556, "emission": 0.0711669922,
+                 "emission_non_delta": 0.0711669922, "mat_id": 0.0981750488,
+                 "normal_geo": 0.310933441, "normal_sh": 0.310933441, "prim_id": 18.8756561,
+                 "uv": 0.160925373, "v_absdot_n_geo": 0.412555635, "v_dot_n_geo": 0.575342119,
+                 "v_dot_n_shade": 0.575342119}
+AOV_TOL = 0.002            # the crack's rays move mat_id's mean by 1.87e-3 on the card (the rest <= 7e-4)
+GUIDE_RES, GUIDE_BATCHES, GUIDE_PHOTONS = 8, 4, 1 << 17   # phase 25 (d): bench config 5's photons
+FAST_SIZE = 1024           # phase 25 (e): render_fast's 2^20 rays, one BVH launch
+FAST_OFF_MAX = 16          # pixels whose hit may differ from the plain route's (coincident ties)
 PPM_W = PPM_H = 128        # bench config 5 (bench.py:289-340)
 PPM_SPP, PPM_PASS = 4, 1
 DENSITY_RTOL, DENSITY_ATOL = 1e-4, 1e-6
@@ -2806,6 +2871,471 @@ def _dynamic_phase(smi, reset_counts):
                               n_iters=cw["n_iters"]))
 
 
+def _engines_cases():
+    """tools/engines_cases.py (numpy only), imported from the checkout."""
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools"))
+    import engines_cases
+
+    return engines_cases
+
+
+def _count_lanes(fn):
+    """(fn's result, {"closest": lanes, "any_hit": lanes}): the rays given
+    to the intersect wrappers (intersect_dense, intersect_bvh) in one call
+    of `fn`, every lane of each call counted."""
+    import torch
+    from cudatracerlib_tpu_torch.ops import intersect_bvh as bvh_ops
+    from cudatracerlib_tpu_torch.ops import intersect_dense as ops
+
+    lanes = {"closest": 0, "any_hit": 0}
+    real_dense, real_bvh = ops.intersect_dense, bvh_ops.intersect_bvh
+
+    def dense(woop, o, d, t_min=1e-4, t_max=ops.T_MAX_CLAMP, any_hit=False, boxes=None):
+        lanes["any_hit" if any_hit else "closest"] += o.shape[0]
+        return real_dense(woop, o, d, t_min, t_max, any_hit=any_hit, boxes=boxes)
+
+    def bvh(b, o, d, t_min=1e-4, t_max=torch.inf, any_hit=False):
+        lanes["any_hit" if any_hit else "closest"] += o.shape[0]
+        return real_bvh(b, o, d, t_min, t_max, any_hit=any_hit)
+
+    ops.intersect_dense, bvh_ops.intersect_bvh = dense, bvh
+    try:
+        out = fn()
+        torch.cuda.synchronize()
+    finally:
+        ops.intersect_dense, bvh_ops.intersect_bvh = real_dense, real_bvh
+    return out, lanes
+
+
+def _chroma(img):
+    """tests/test_spectral.py's chroma: |R - B| over the brightest decile of
+    a 3x3 box-blurred image (numpy), relative to its luminance."""
+    import numpy as np
+
+    k = np.ones((3, 3)) / 9.0
+    sm = np.stack([np.real(np.fft.ifft2(np.fft.fft2(img[..., c]) * np.fft.fft2(k, img.shape[:2])))
+                   for c in range(3)], -1)
+    lum = sm.mean(-1)
+    m = lum > np.percentile(lum, 90)
+    return float((np.abs(sm[..., 0] - sm[..., 2]) * m).sum() / max((lum * m).sum(), 1e-9))
+
+
+def _block_gap(a, b, k=4):
+    """tests/test_guided.py's relative L1 gap of two images' k x k block means."""
+    import numpy as np
+
+    h, w, _ = a.shape
+    bm = lambda x: x.reshape(h // k, k, w // k, k, 3).mean((1, 3))  # noqa: E731
+    return float(np.abs(bm(a) - bm(b)).sum() / np.abs(bm(b)).sum())
+
+
+def _engines_phase(big, smi, reset_counts):
+    """Phase 25 (module docstring): the spectral, guided, realtime and AOV
+    engines and generate_fits at full size, their pins from
+    tools/engines_reference_mean.py, and the kernels held to their plain
+    versions at the new shapes."""
+    import numpy as np
+    import torch
+    from cudatracerlib_tpu_torch.accel import hashgrid
+    from cudatracerlib_tpu_torch.math import rough_transmittance as rt
+    from cudatracerlib_tpu_torch.ops import intersect_bvh as bvh_ops
+    from cudatracerlib_tpu_torch.ops import intersect_dense as ops
+    from cudatracerlib_tpu_torch.ops import shade_gather as sg_ops
+    from cudatracerlib_tpu_torch.render import guided, prim_tracer, realtime
+    from cudatracerlib_tpu_torch.render import path_tracer as pt
+    from cudatracerlib_tpu_torch.render import spectral as sr
+    from cudatracerlib_tpu_torch.scene import media as media_mod
+    from cudatracerlib_tpu_torch.scene import shade_pack, shapes
+
+    ec = _engines_cases()
+    PTC = pt.PTConfig
+    marks = [time.perf_counter()]
+
+    def part(tag):
+        marks.append(time.perf_counter())
+        print(f"[wall] phase 25 ({tag}): {marks[-1] - marks[-2]:.1f} s")
+
+    def counts():
+        return {"intersect_dense": dict(ops.launches), "intersect_bvh": dict(bvh_ops.launches),
+                "shade_gather": dict(sg_ops.launches)}
+
+    def add(total, launch):
+        for k, v in launch.items():
+            for kk, n in v.items():
+                total.setdefault(k, {}).setdefault(kk, 0)
+                total[k][kk] += n
+
+    def timed_counted(fn):
+        """(wall s, result, launches) of one call, the counts reset just
+        before and read just after."""
+        torch.cuda.synchronize()
+        reset_counts()
+        dt, out = _timed(fn)
+        return dt, out, counts()
+
+    def pin(name, value, ref, tol):
+        _require(np.isfinite(value) and abs(value - ref) <= tol * abs(ref),
+                 f"pinned {name} {value} is not within {tol:.2%} of JAX's {ref}")
+        print(f"[pin] {name}: {value:.9f} (JAX {ref}, {100 * (value / ref - 1):+.5f}%)")
+        return value / ref - 1
+
+    pins, runs, dense_r, launch_all = {}, {}, {}, {}
+    cornell, caustic = shapes.cornell_box(), shapes.caustic_scene()
+    disp = ec.with_cauchy(caustic, ec.DISP_C)
+
+    # (a) spectral surfaces: pins, then bench config 1's size on both scenes
+    p = ec.PIN["spectral"]
+    cfg_p = PTC(max_depth=p["max_depth"])
+    for name, scene in (("spectral_cornell", cornell), ("spectral_caustic", disp)):
+        img = sr.render_spectral(scene, p["size"], p["size"], p["spp"], p["seed"], cfg_p)
+        pins[name] = pin(f"{name} ({p['size']}^2, {p['spp']} spp, seed {p['seed']})",
+                         float(img.mean()), ENGINE_PINS[name], ENGINE_TOL)
+    cfg = PTC(max_depth=DEPTH)
+    imgs = {}
+    for name, scene in (("spectral cornell", cornell), ("spectral caustic", caustic),
+                        ("spectral dispersive", disp)):
+        sr.render_spectral(scene, W, H, SPP, 0, cfg)                       # warm
+        (dt, img, launch), lanes = _count_lanes(lambda scene=scene: timed_counted(
+            lambda: sr.render_spectral(scene, W, H, SPP, 7, cfg)))
+        _require(bool(torch.isfinite(img).all()) and launch["intersect_dense"]["closest"] > 0
+                 and launch["intersect_dense"]["any_hit"] > 0, f"{name} pass failed: {launch}")
+        rays = lanes["closest"] + lanes["any_hit"]
+        imgs[name] = img.cpu().numpy()
+        runs[name] = dict(dt=dt, rays=rays, mrays=rays / dt / 1e6, mean=float(img.mean()),
+                          launches=launch)
+        add(launch_all, launch)
+        print(f"[main path] {name} {W}x{H} spp {SPP} depth {DEPTH}, seed 7: {dt:.4f} s, "
+              f"{rays} ray lanes traced ({lanes}), {rays / dt / 1e6:.3f} Mrays/s, mean "
+              f"{runs[name]['mean']:.6f}; launches {json.dumps(launch)}; {smi}")
+    ch_a, ch_d = _chroma(imgs["spectral caustic"]), _chroma(imgs["spectral dispersive"])
+    _require(ch_d > 1.35 * ch_a, f"dispersion does not separate red and blue: chroma {ch_d} "
+                                 f"dispersive vs {ch_a} achromatic (gate 1.35x)")
+    print(f"[check] dispersion separates the channels: chroma {ch_d:.5f} dispersive vs "
+          f"{ch_a:.5f} achromatic ({ch_d / ch_a:.3f}x, gate 1.35x)")
+    with torch.no_grad():   # the dispersive pass's lanes, with the gate's count
+        o, d, _, smp, lam, _ = sr._camera_lam(disp, W, H, SPP, 7)
+        n_gate = sr.trace_radiance_spectral(disp, o, d, lam, smp, pt.specialize_config(disp, cfg),
+                                            with_gate=True)[2]
+        del o, d, smp, lam
+    print(f"[check] guarded continue gate on the dispersive pass: {int(n_gate)} lanes stopped "
+          f"where JAX's gate continues them")
+    prof = _profile("spectral dispersive pass", lambda: sr.render_spectral(disp, W, H, SPP, 7,
+                                                                           cfg), top_n=6)
+    runs["spectral dispersive"]["idle"] = prof["idle"]
+    _, cap = _capture_intersects(lambda: sr.render_spectral(disp, W, H, SPP, 0, cfg), limit=2)
+    for (kind, args), label in zip(cap, ("spectral caustic camera rays",
+                                         "spectral caustic shadow rays")):
+        woop, o, d, t_min, t_max, _, boxes = args
+        dense_r[label] = _compare(label, woop, o, d, t_min, t_max, 10, boxes)
+    del cap
+    part("a")
+
+    # (b) spectral gradients: pins, the sigma_s central difference, full-size walls
+    q = ec.PIN["grad_radiance"]
+    cfg_g = PTC(max_depth=q["max_depth"], rr_start=q["rr_start"])
+    rad = cornell.lights.radiance.clone().requires_grad_()
+    sr.render_spectral(cornell._replace(lights=cornell.lights._replace(radiance=rad)), q["size"],
+                       q["size"], q["spp"], q["seed"], cfg_g).mean().backward()
+    g = rad.grad.reshape(-1).cpu().numpy()
+    err_rad = float(np.abs(g - np.asarray(REF_SPECTRAL_GRAD_RADIANCE)).max()
+                    / np.abs(REF_SPECTRAL_GRAD_RADIANCE).max())
+    _require(err_rad <= SPECTRAL_GRAD_TOL,
+             f"d mean / d radiance {g.tolist()} is not within {SPECTRAL_GRAD_TOL} of JAX's "
+             f"{REF_SPECTRAL_GRAD_RADIANCE} ({err_rad:.3g})")
+    q = ec.PIN["grad_cauchy"]
+    cfg_c = PTC(max_depth=q["max_depth"], rr_start=q["rr_start"])
+
+    def cauchy_loss(c, size, spp, seed):
+        return (sr.render_spectral(ec.with_cauchy(caustic, c), size, size, spp, seed, cfg_c)
+                * torch.from_numpy(ec.weight_ramp(size)).cuda()).mean()
+
+    c = torch.tensor(q["c"], device="cuda", requires_grad=True)
+    loss_c = cauchy_loss(c, q["size"], q["spp"], q["seed"])
+    loss_c.backward()
+    err_c = abs(float(c.grad) - REF_SPECTRAL_GRAD_CAUCHY) / abs(REF_SPECTRAL_GRAD_CAUCHY)
+    _require(err_c <= SPECTRAL_GRAD_TOL,
+             f"d loss / d cauchy_c {float(c.grad)} is not within {SPECTRAL_GRAD_TOL} of JAX's "
+             f"{REF_SPECTRAL_GRAD_CAUCHY} ({err_c:.3g})")
+    print(f"[grad] spectral pins: d mean / d radiance {g.tolist()} (JAX "
+          f"{REF_SPECTRAL_GRAD_RADIANCE}, max error {err_rad:.3g} of the largest), cauchy loss "
+          f"{float(loss_c.detach()):.9f} (JAX {REF_SPECTRAL_CAUCHY_LOSS}), d/dc {float(c.grad):.9g} (JAX "
+          f"{REF_SPECTRAL_GRAD_CAUCHY}, {err_c:.3g} relative)")
+    furnace = shapes.furnace_scene(albedo=0.5, env_radiance=1.0)
+    fmed = media_mod.Media.build(ec.furnace_medium(furnace))
+    cfg_v = PTC(max_depth=3, rr_start=99)
+
+    def vol_loss(s):
+        return sr.render_spectral_vol(furnace, fmed._replace(sigma_s=fmed.sigma_s * s), 16, 16, 12,
+                                      2, cfg_v).mean()
+
+    s = torch.tensor(1.0, device="cuda", requires_grad=True)
+    vol_loss(s).backward()
+    with torch.no_grad():
+        fd = (float(vol_loss(1.05)) - float(vol_loss(0.95))) / 0.1
+    g_s = float(s.grad)
+    _require(np.isfinite(g_s) and abs(fd) > 1e-5 and abs(g_s - fd) <= 0.35 * abs(fd),
+             f"d / d sigma_s scale {g_s} against its central difference {fd} (rtol 0.35)")
+    print(f"[grad] spectral volume d mean / d sigma_s scale {g_s:.6g}, central difference "
+          f"{fd:.6g} ({abs(g_s / fd - 1):.3f} apart, JAX's gate 0.35)")
+    gsize, gspp = W, 4
+    reset_counts()
+    cg = torch.tensor(q["c"], device="cuda", requires_grad=True)
+    torch.cuda.reset_peak_memory_stats()
+    cauchy_loss(cg, gsize, gspp, 7).backward()
+    torch.cuda.synchronize()
+    glaunch = counts()
+    peak = torch.cuda.max_memory_allocated()
+    _require(glaunch["shade_gather"]["gather_bwd_tile"] > 0 and bool(torch.isfinite(cg.grad)),
+             f"the spectral gradient pass launched no gather backward: {glaunch}")
+    fwd, fb = _paired_walls_ms(
+        lambda: cauchy_loss(torch.tensor(q["c"], device="cuda"), gsize, gspp, 7),
+        lambda: cauchy_loss(torch.tensor(q["c"], device="cuda", requires_grad=True), gsize, gspp,
+                            7).backward(), 3)
+    runs["spectral grad"] = dict(fwd_ms=_median(fwd), fb_ms=_median(fb), peak=peak,
+                                 launches=glaunch, grad=float(cg.grad))
+    add(launch_all, glaunch)
+    print(f"[grad pass] spectral dispersive d (ramp-weighted mean) / d cauchy_c at {gsize}x{gsize}, "
+          f"{gspp} spp, depth {q['max_depth']}: forward {_median(fwd):.1f} ms, forward+backward "
+          f"{_median(fb):.1f} ms (medians of 3 pairs, ratio {_median(fb) / _median(fwd):.2f}), "
+          f"peak {peak / 1e9:.2f} GB, d/dc {float(cg.grad):.6g}; launches over one "
+          f"forward+backward {json.dumps(glaunch)}; {smi}")
+    part("b")
+
+    # (c) the spectral volume: pin within three seed spreads, then bench config 4's size
+    v = ec.PIN["spectral_vol"]
+    med = media_mod.Media.build(ec.cornell_medium(cornell))
+    cfg_vol = PTC(max_depth=v["max_depth"])
+    img = sr.render_spectral_vol(cornell, med, v["size"], v["size"], v["spp"], v["seeds"][0],
+                                 cfg_vol)
+    pins["spectral_vol"] = pin(f"spectral_vol ({v['size']}^2, {v['spp']} spp, seed "
+                               f"{v['seeds'][0]}, three seed spreads)", float(img.mean()),
+                               ENGINE_PINS["spectral_vol"], 3 * REF_SPECTRAL_VOL_SPREAD)
+    sr.render_spectral_vol(cornell, med, VOL_W, VOL_H, VOL_SPP, 0, cfg_vol)
+    (dt, img, launch), lanes = _count_lanes(lambda: timed_counted(
+        lambda: sr.render_spectral_vol(cornell, med, VOL_W, VOL_H, VOL_SPP, 7, cfg_vol)))
+    _require(bool(torch.isfinite(img).all()) and launch["intersect_dense"]["any_hit"] > 0,
+             f"the spectral volume pass failed: {launch}")
+    rays = lanes["closest"] + lanes["any_hit"]
+    runs["spectral volume"] = dict(dt=dt, rays=rays, mrays=rays / dt / 1e6,
+                                   mean=float(img.mean()), launches=launch,
+                                   idle=_profile("spectral volume pass", lambda: sr.render_spectral_vol(
+                                       cornell, med, VOL_W, VOL_H, VOL_SPP, 7, cfg_vol),
+                                       top_n=4)["idle"])
+    add(launch_all, launch)
+    print(f"[main path] spectral volume {VOL_W}x{VOL_H} spp {VOL_SPP} depth {v['max_depth']}, "
+          f"seed 7: {dt:.4f} s, {rays} ray lanes, {rays / dt / 1e6:.3f} Mrays/s, mean "
+          f"{float(img.mean()):.6f}; launches {json.dumps(launch)}; {smi}")
+    part("c")
+
+    # (d) guiding: pins, then 4 batches of 2^17 photons and a 256^2, 16-spp guided pass
+    gp = ec.PIN["guided"]
+    gd = guided.make_guiding(caustic, res=gp["res"])
+    for i in range(gp["batches"]):
+        gd = guided.train_guiding(caustic, gd, gp["n_photons"], i, PTC(**ec.TRAIN_CFG))
+    hsum = float(gd.hist.double().sum())
+    _require(abs(hsum - REF_GUIDED_HIST_SUM) <= 1e-5 * REF_GUIDED_HIST_SUM,
+             f"the pinned histogram's sum {hsum} is not within 1e-5 of JAX's "
+             f"{REF_GUIDED_HIST_SUM}")
+    img = guided.render_guided(caustic, gd, gp["size"], gp["size"], gp["spp"], gp["seed"],
+                               PTC(**ec.GUIDED_CFG))
+    pins["guided"] = pin(f"guided ({gp['size']}^2, {gp['spp']} spp, seed {gp['seed']}; "
+                         f"histogram sum {hsum:.7f}, JAX {REF_GUIDED_HIST_SUM})",
+                         float(img.mean()), ENGINE_PINS["guided"], ENGINE_TOL)
+    gd = guided.make_guiding(caustic, res=GUIDE_RES)
+    n_rows = GUIDE_RES ** 3 * guided.N_DIR_BINS ** 2
+    train_s, deposit = [], None
+    for i in range(GUIDE_BATCHES):
+        if deposit is None:
+            (deposit, (dt, gd, launch)) = _capture_bwd(
+                lambda: timed_counted(lambda: guided.train_guiding(
+                    caustic, gd, GUIDE_PHOTONS, i, PTC(**ec.TRAIN_CFG))),
+                lambda g_, idx_, n_: g_.shape[1] == 1 and n_ == n_rows)
+            tlaunch = launch
+        else:
+            dt, gd = _timed(lambda: guided.train_guiding(caustic, gd, GUIDE_PHOTONS, i,
+                                                         PTC(**ec.TRAIN_CFG)))
+        train_s.append(dt)
+    _require(tlaunch["shade_gather"]["gather_bwd_tile"] == 1
+             and tlaunch["intersect_dense"]["closest"] > 0,
+             f"a training batch did not launch its kernels: {tlaunch}")
+    add(launch_all, tlaunch)
+    print(f"[main path] guiding: {GUIDE_BATCHES} batches of {GUIDE_PHOTONS} photons (res "
+          f"{GUIDE_RES}, {n_rows} histogram rows): {', '.join(f'{t:.4f}' for t in train_s)} s; "
+          f"{int((gd.hist.sum(1) > 0).sum())} of {GUIDE_RES ** 3} cells hold data; the first "
+          f"batch's launches {json.dumps(tlaunch)}")
+    deposit_r = _check_bwd_captured("guided deposit", *deposit, caustic.bvh.woop.device)
+    del deposit
+    gcfg = PTC(**ec.GUIDED_CFG)
+    guided.render_guided(caustic, gd, W, H, SPP, 0, gcfg)
+    (dt, img_g, launch), lanes = _count_lanes(lambda: timed_counted(
+        lambda: guided.render_guided(caustic, gd, W, H, SPP, 7, gcfg)))
+    _require(bool(torch.isfinite(img_g).all()) and launch["shade_gather"]["gather"] > 0
+             and launch["intersect_dense"]["any_hit"] > 0,
+             f"the guided pass did not launch its kernels: {launch}")
+    rays = lanes["closest"] + lanes["any_hit"]
+    runs["guided"] = dict(dt=dt, rays=rays, mrays=rays / dt / 1e6, mean=float(img_g.mean()),
+                          launches=launch, train_s=train_s, train_launches=tlaunch,
+                          idle=_profile("guided caustic pass", lambda: guided.render_guided(
+                              caustic, gd, W, H, SPP, 7, gcfg), top_n=4)["idle"])
+    add(launch_all, launch)
+    # tests/test_guided.py's protocol: 4 passes each, guided at seeds i, the path tracer at
+    # i + 100; a second path-traced set (i + 200) gives the gap's noise floor
+    with torch.no_grad():
+        means = [sum(fn(i + k).cpu().numpy() for i in range(4)) / 4 for fn, k in (
+            (lambda s: guided.render_guided(caustic, gd, W, H, SPP, s, gcfg), 0),
+            (lambda s: pt.render(caustic, W, H, SPP, s, gcfg), 100),
+            (lambda s: pt.render(caustic, W, H, SPP, s, gcfg), 200))]
+    gap, floor = _block_gap(means[0], means[1]), _block_gap(means[2], means[1])
+    _require(gap < 0.1, f"guided vs path-traced block means {gap} apart (JAX's gate 0.1; two "
+                        f"path-traced sets {floor} apart)")
+    print(f"[main path] guided caustic {W}x{H} spp {SPP} depth {gcfg.max_depth}, seed 7: "
+          f"{dt:.4f} s, {rays} ray lanes, {rays / dt / 1e6:.3f} Mrays/s, mean "
+          f"{float(img_g.mean()):.6f}; over 4 passes each, the path tracer's 4x4 block means "
+          f"{gap:.4f} apart (gate 0.1; two path-traced sets {floor:.4f} apart); launches "
+          f"{json.dumps(launch)}; {smi}")
+    _require(shade_pack.pack_enabled(caustic), "the caustic scene is outside the pack's band")
+    _, gath = _capture_gathers(lambda: guided.render_guided(caustic, gd, W, H, SPP, 0, gcfg))
+    gather_r = _check_gather_at("guided caustic pack", *gath[0])
+    del gath
+    part("d")
+
+    # (e) render_fast on the bigscene at 1024^2: one BVH launch of 2^20 rays
+    fw = FAST_SIZE
+    realtime.render_fast(big, fw, fw)
+    reps = []
+    for _ in range(5):
+        dt, (img_k, depth_k), launch = timed_counted(lambda: realtime.render_fast(big, fw, fw))
+        reps.append(dt)
+    _require(launch["intersect_bvh"]["closest"] == 1 and sum(launch["intersect_dense"].values())
+             == 0, f"render_fast did not make one BVH launch: {launch}")
+    add(launch_all, launch)
+    _, cap = _capture_intersects(lambda: realtime.render_fast(big, fw, fw), limit=1)
+    _, (bb, bo, bd, btmin, btmax, _) = cap[0]
+    del cap
+    ms_fast = _bvh_kernel_ms(bb, bo, bd, btmin, btmax, 20)
+    plain_out, real_bvh = {}, bvh_ops.intersect_bvh
+
+    def plain_route(b, o, d, t_min=1e-4, t_max=torch.inf, any_hit=False):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        hit, n_inner, n_leaf, n_tpass = bvh_ops.intersect_bvh_plain(b, o, d, t_min, t_max,
+                                                                    any_hit=any_hit,
+                                                                    with_counts=True)
+        torch.cuda.synchronize()
+        plain_out.update(ms=(time.perf_counter() - t0) * 1e3, inner=int(n_inner.sum()),
+                         leaf=int(n_leaf.sum()), tpass=int(n_tpass.sum()))
+        return hit
+
+    bvh_ops.intersect_bvh = plain_route
+    try:
+        img_p, depth_p = realtime.render_fast(big, fw, fw)
+    finally:
+        bvh_ops.intersect_bvh = real_bvh
+    dimg = (img_k - img_p).abs().amax(-1)
+    ddep = (depth_k - depth_p).abs()
+    off = (dimg > 1e-5) | (ddep > 1e-4 * torch.clamp(depth_p, min=1.0))
+    n_off = int(off.sum())
+    _require(n_off <= FAST_OFF_MAX, f"render_fast: {n_off} pixels differ from the plain route "
+                                    f"(at most {FAST_OFF_MAX}, coincident ties)")
+    err_fast = float(torch.where(off, 0.0, ddep).max())
+    flops = (FLOPS_BVH_INNER * plain_out["inner"] + FLOPS_WOOP_T * LEAF_SIZE * plain_out["leaf"]
+             + FLOPS_WOOP_UV * plain_out["tpass"])
+    nbytes = fw * fw * (24 + 8 + 16) + 4 * (bb.nodes.numel() + bb.woop.numel())
+    bound_fast = _bound(flops, nbytes)
+    best = min(reps)
+    prof_fast = _profile("render_fast bigscene 1024^2", lambda: realtime.render_fast(big, fw, fw),
+                         top_n=6)
+    runs["fast"] = dict(idle=prof_fast["idle"], dt=best, mrays=fw * fw / best / 1e6, ms=ms_fast, plain_ms=plain_out["ms"],
+                        bound=bound_fast, off=n_off, err=err_fast, launches=launch)
+    print(f"[main path] render_fast bigscene {fw}x{fw} ({fw * fw} rays, {int(bb.woop.shape[0])} "
+          f"Woop rows): pass {best * 1e3:.3f} ms (best of 5; {', '.join(f'{r * 1e3:.2f}' for r in reps)}), "
+          f"{fw * fw / best / 1e6:.2f} Mrays/s; kernel alone {ms_fast:.4f} ms "
+          f"({fw * fw / ms_fast / 1e3:.1f} Mrays/s), plain route {plain_out['ms']:.1f} ms, bound "
+          f"{bound_fast[0]:.5f} ms ({bound_fast[1]}); image and depth vs the plain route: "
+          f"{n_off} pixels differ, max depth error elsewhere {err_fast:.3g}; launches "
+          f"{json.dumps(launch)}; {smi}")
+    del img_k, depth_k, img_p, depth_p, bo, bd
+    part("e")
+
+    # (f) render_game: the pin (64^2, 8 frames), then 8 frames at 256^2
+    gm = ec.PIN["game"]
+    psf = None
+    for f in range(gm["frames"]):
+        frame, psf = realtime.render_game(cornell, psf, gm["size"], gm["size"], f)
+    pins["game"] = pin(f"game (Cornell {gm['size']}^2, frame {gm['frames'] - 1})",
+                       float(frame.mean()), ENGINE_PINS["game"], ENGINE_TOL)
+    psf, frame_s = None, []
+    reset_counts()
+    for f in range(gm["frames"]):
+        dt, (frame, psf) = _timed(lambda f=f, psf=psf: realtime.render_game(cornell, psf, W, H, f))
+        frame_s.append(dt)
+    launch = counts()
+    _require(bool(torch.isfinite(frame).all()) and float(frame.mean()) > 0.01
+             and launch["intersect_dense"]["closest"] > 0, f"render_game failed: {launch}")
+    add(launch_all, launch)
+    gcfg_t = realtime.GTConfig()
+    it_p = psf.p
+    lo, hi = cornell.bvh.world_min - 1e-3, cornell.bvh.world_max + 1e-3
+    build_ms = _time_ms(lambda: hashgrid.build_grid(psf.p, lo, hi, gcfg_t.grid_res,
+                                                    valid=psf.valid), 20)
+    grid = hashgrid.build_grid(psf.p, lo, hi, gcfg_t.grid_res, valid=psf.valid)
+    query_ms = _time_ms(lambda: hashgrid.query_sphere(grid, it_p, gcfg_t.radius,
+                                                      gcfg_t.max_gather), 20)
+    runs["game"] = dict(frame_s=frame_s, build_ms=build_ms, query_ms=query_ms, launches=launch,
+                        mean=float(frame.mean()),
+                        idle=_profile("render_game frame", lambda: realtime.render_game(
+                            cornell, psf, W, H, 8), top_n=4)["idle"])
+    print(f"[main path] render_game Cornell {W}x{H}, {gm['frames']} frames: "
+          f"{', '.join(f'{t * 1e3:.1f}' for t in frame_s)} ms a frame, the last's mean "
+          f"{float(frame.mean()):.6f}; hash grid build {build_ms:.3f} ms and query "
+          f"{query_ms:.3f} ms ({W * H} points, res {gcfg_t.grid_res}, max_gather "
+          f"{gcfg_t.max_gather}); launches over the frames {json.dumps(launch)}; {smi}")
+    part("f")
+
+    # (g) render_aovs: every channel's mean against JAX's
+    a = ec.PIN["aovs"]
+    dt, aovs, launch = timed_counted(lambda: prim_tracer.render_aovs(cornell, a["size"],
+                                                                     a["size"], a["seed"]))
+    add(launch_all, launch)
+    _require(set(aovs) == set(REF_AOV_MEANS), f"AOV channels {sorted(aovs)}")
+    errs = {}
+    for k, ref in REF_AOV_MEANS.items():
+        m = float(aovs[k].double().mean())
+        errs[k] = abs(m - ref) / max(abs(ref), 1e-6)
+        _require(errs[k] <= AOV_TOL, f"AOV {k} mean {m} is not within {AOV_TOL} of JAX's {ref}")
+    worst = max(errs.values())
+    print("[check] render_aovs channel means, relative from JAX's: "
+          + ", ".join(f"{k} {e:.3g}" for k, e in sorted(errs.items(), key=lambda x: -x[1])))
+    runs["aovs"] = dict(dt=dt, worst=worst, launches=launch,
+                        idle=_profile("render_aovs 256^2", lambda: prim_tracer.render_aovs(
+                            cornell, a["size"], a["size"], a["seed"]), top_n=4)["idle"])
+    print(f"[main path] render_aovs Cornell {a['size']}^2: {dt * 1e3:.1f} ms, 17 channels, the "
+          f"worst mean {worst:.3g} relative from JAX's (gate {AOV_TOL}); launches "
+          f"{json.dumps(launch)}")
+    part("g")
+
+    # (h) generate_fits over the full grid on the card
+    dt, (ct, cf, (r1, r2)) = _timed(lambda: rt.generate_fits(device="cuda"))
+    E, A, C = np.meshgrid(rt._ETAS, rt._ALPHAS, rt._COSINES, indexing="ij")
+    X = rt._basis(E.reshape(-1), A.reshape(-1), C.reshape(-1))
+    fit_t = float(np.abs(X @ rt.COEFS_T.astype(np.float64) - X @ ct).max())
+    e, al = E[:, :, 0].reshape(-1) - 1.5, A[:, :, 0].reshape(-1)
+    Xf = np.stack([al, al * e, al * e * e, al * al, al * al * e, al * al * e * e], -1)
+    fit_f = float(np.abs(Xf @ rt.COEFS_FDR.astype(np.float64) - Xf @ cf).max())
+    _require(fit_t <= 2e-3 and fit_f <= 2e-3 and max(r1, r2) <= rt.FIT_RESIDUAL + 2e-3,
+             f"generate_fits: surfaces {fit_t:.3g} / {fit_f:.3g} from the baked ones (2e-3), "
+             f"residuals {r1:.5f} / {r2:.5f} (baked {rt.FIT_RESIDUAL} + 2e-3)")
+    runs["fits"] = dict(dt=dt, fit_t=fit_t, fit_f=fit_f, resid=(r1, r2))
+    print(f"[main path] generate_fits on the card (7 x 9 x 18 grid at 72^2 strata, "
+          f"{7 * 9 * 18 * 72 * 72} lanes at eta and at 1/eta): {dt:.2f} s; fitted surfaces "
+          f"within {fit_t:.3g} (T) and {fit_f:.3g} (fdr) of the baked coefficients' (gate 2e-3); "
+          f"residuals {r1:.6f} / {r2:.6f} against FIT_RESIDUAL {rt.FIT_RESIDUAL}")
+    part("h")
+    print(f"[main path] phase 25 launches over its runs {json.dumps(launch_all)}")
+    return dict(pins=pins, runs=runs, dense=dense_r, gather=gather_r, deposit=deposit_r,
+                launches=launch_all, grad_launches=glaunch)
+
+
 def _capture_gathers(fn):
     """(fn's result, [(table, idx)]) of the first packed_gather in one call of `fn`."""
     from cudatracerlib_tpu_torch.ops import shade_gather as sg_ops
@@ -3719,8 +4249,13 @@ def main():
     # ---- 24. dynamic and instanced scenes, refit and skinning, adaptive sampling, counters ----
     dy = _dynamic_phase(smi, reset_counts)
     lap(24)
-    print(f"[wall] chip_smoke.py phases 1-24: {time.perf_counter() - t_start:.1f} s after the "
+
+    # ---- 25. the spectral, guided, realtime and AOV engines, generate_fits ----
+    en = _engines_phase(big, smi, reset_counts)
+    lap(25)
+    print(f"[wall] chip_smoke.py phases 1-25: {time.perf_counter() - t_start:.1f} s after the "
           f"imports")
+    enl, enr = en["launches"], en["runs"]
     dyr = dy["runs"]
     dy_dense = lambda *names: sum(sum(dyr[k]["launches"]["intersect_dense"].values())  # noqa: E731
                                   for k in names)
@@ -3751,7 +4286,8 @@ def main():
             "max_abs_err": max(dense_err, *(r["err"] for r in (
                 *bdpt_r.values(), *vol_r.values(), *vg["dense"].values(),
                 *sp_c["dense"].values(), *sp_v["dense"].values(), *sh["dense"].values(),
-                *md["dense"].values(), *tx["dense"].values(), *dy["dense"].values()))),
+                *md["dense"].values(), *tx["dense"].values(), *dy["dense"].values(),
+                *en["dense"].values()))),
             "ms": cam["ms"],
             "plain_ms": cam["plain_ms"],
             "bound_ms": cam["bound"][0],
@@ -3818,6 +4354,16 @@ def main():
             **{f"{k.replace(' ', '_')}_{f}": (r[v][0] if v == "bound" else r[v])
                for k, r in dy["dense"].items()
                for f, v in (("ms", "ms"), ("plain_ms", "plain_ms"), ("bound_ms", "bound"))},
+            "engines_launches": sum(enl["intersect_dense"].values()),
+            "spectral_launches": sum(sum(enr[k]["launches"]["intersect_dense"].values())
+                                     for k in ("spectral cornell", "spectral caustic",
+                                               "spectral dispersive")),
+            "guided_launches": sum(enr["guided"]["launches"]["intersect_dense"].values()),
+            "engines_max_abs_err": max(r["err"] for r in en["dense"].values()),
+            **{f"{k.replace(' rays', '').replace(' ', '_')}_{f}": (r[v][0] if v == "bound"
+                                                                   else r[v])
+               for k, r in en["dense"].items()
+               for f, v in (("ms", "ms"), ("plain_ms", "plain_ms"), ("bound_ms", "bound"))},
         },
         {
             "name": "intersect_bvh",
@@ -3826,7 +4372,7 @@ def main():
             "replaces": "cudatracerlib_tpu/ops/cluster_trace.py:411",
             "launches": glaunch["intersect_bvh"]["closest"] + glaunch["intersect_bvh"]["any_hit"],
             "max_abs_err": max(err_g, err_g1, err_s65, big_cam["err"], big_b1["err"],
-                               *(r["err"] for r in dy["bvh"].values())),
+                               *(r["err"] for r in dy["bvh"].values()), enr["fast"]["err"]),
             "ms": ms_bvh,
             "plain_ms": plain_ms_bvh,
             "bound_ms": bvh_bound[0],
@@ -3853,6 +4399,15 @@ def main():
             "refitted_visits": dy["anim"]["bvh"]["visits_refit"],
             "rebuilt_visits": dy["anim"]["bvh"]["visits_rebuilt"],
             "rebuilt_ms": dy["anim"]["bvh"]["ms_rebuilt"],
+            "engines_launches": sum(enl["intersect_bvh"].values()),
+            "render_fast_launches": enr["fast"]["launches"]["intersect_bvh"]["closest"],
+            "render_fast_max_abs_err": enr["fast"]["err"],
+            "render_fast_differing_pixels": enr["fast"]["off"],
+            "render_fast_ms": enr["fast"]["ms"],
+            "render_fast_plain_ms": enr["fast"]["plain_ms"],
+            "render_fast_bound_ms": enr["fast"]["bound"][0],
+            "render_fast_bound_by": enr["fast"]["bound"][1],
+            "render_fast_pass_ms": enr["fast"]["dt"] * 1e3,
         },
         {
             "name": "packed_gather",
@@ -3861,7 +4416,8 @@ def main():
             "replaces": "cudatracerlib_tpu/ops/shade_gather.py:69",
             "launches": glaunch["packed_gather"]["gather"],
             "max_abs_err": max(gather_err, sp_c["gather"]["err"], sh["gather"]["err"],
-                               md["gather"]["err"], tx["gather"]["err"], dy["gather"]["err"]),
+                               md["gather"]["err"], tx["gather"]["err"], dy["gather"]["err"],
+                               en["gather"]["err"]),
             "ms": ms_g,
             "plain_ms": plain_ms_g,
             "bound_ms": gather_bound[0],
@@ -3897,6 +4453,12 @@ def main():
             **{f"forest_{f}": (dy["gather"][v][0] if v == "bound" else dy["gather"][v])
                for f, v in (("ms", "ms"), ("plain_ms", "plain_ms"), ("library_ms", "lib_ms"),
                             ("bound_ms", "bound"))},
+            "engines_launches": enl["shade_gather"]["gather"],
+            "guided_launches": enr["guided"]["launches"]["shade_gather"]["gather"],
+            "guided_max_abs_err": en["gather"]["err"],
+            **{f"guided_{f}": (en["gather"][v][0] if v == "bound" else en["gather"][v])
+               for f, v in (("ms", "ms"), ("plain_ms", "plain_ms"), ("library_ms", "lib_ms"),
+                            ("bound_ms", "bound"))},
         },
         {
             "name": "packed_gather_bwd",
@@ -3907,7 +4469,7 @@ def main():
             "max_abs_err": max(*(b["err"] for b in bwd.values()), splat_bdpt["err"],
                                splat_lt["err"], vg["grid"]["err"], vg["table"]["err"],
                                sh["splat"]["err"], md["bwd"]["err"], tx["atlas"]["err"],
-                               dy["woop"]["err"], dy["verts"]["err"]),
+                               dy["woop"]["err"], dy["verts"]["err"], en["deposit"]["err"]),
             "ms": bwd["pack"]["ms"],
             "plain_ms": bwd["pack"]["plain_ms"],
             "bound_ms": bwd["pack"]["bound"][0],
@@ -3970,6 +4532,16 @@ def main():
             "dynamic_max_abs_err": max(dy["woop"]["err"], dy["verts"]["err"]),
             **{f"pose_{k}_{f}": (dy[k][v][0] if v == "bound" else dy[k][v])
                for k in ("woop", "verts")
+               for f, v in (("lanes", "lanes"), ("rows", "rows"), ("ms", "ms"),
+                            ("wrapper_ms", "wrap_ms"), ("plain_ms", "plain_ms"),
+                            ("library_ms", "lib_ms"), ("bound_ms", "bound"),
+                            ("max_abs_err", "err"), ("captured_rel_err", "captured_rel"))},
+            "engines_launches": enl["shade_gather"]["gather_bwd_tile"],
+            "spectral_grad_launches": en["grad_launches"]["shade_gather"]["gather_bwd_tile"],
+            "guided_deposit_launches": enr["guided"]["train_launches"]["shade_gather"][
+                "gather_bwd_tile"],
+            "engines_max_abs_err": en["deposit"]["err"],
+            **{f"guided_deposit_{f}": (en["deposit"][v][0] if v == "bound" else en["deposit"][v])
                for f, v in (("lanes", "lanes"), ("rows", "rows"), ("ms", "ms"),
                             ("wrapper_ms", "wrap_ms"), ("plain_ms", "plain_ms"),
                             ("library_ms", "lib_ms"), ("bound_ms", "bound"),

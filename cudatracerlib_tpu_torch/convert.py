@@ -11,7 +11,10 @@ the TPU kernel's layout, is dropped: the port's BLAS is its BVH alone), each
 BLAS's chunk boxes rebuilt from its Woop rows, and the scene's
 specialization set as JAX registers it for instanced scenes.
 `skinned_from_numpy` and `refit_plan_from_numpy` carry a JAX `SkinnedMesh`
-and `RefitPlan` across.
+and `RefitPlan` across; `guiding_from_numpy`, `model_grid_from_numpy`,
+`gmm_from_numpy`, `discretized_from_numpy` and `psf_from_numpy` the state of
+the guided and game tracers and of the parametric models (a trained
+histogram, a PSF cache), so both packages can render from the same state.
 `flatten` does that flattening for any tree of NamedTuples (and plain
 tuples of them, by index) whose leaves numpy can read: the JAX Scene, a JAX gradient pytree (`jax.grad` of a function of
 the Scene, whose leaves are the gradients), or a port Scene for the way
@@ -28,6 +31,11 @@ import torch
 
 from .accel.bvh import BVH, chunk_boxes_from_woop
 from .accel.refit import RefitPlan
+from .models.discretized import DiscretizedModel
+from .models.gmm import GMM
+from .models.grid import ModelGrid
+from .render.guided import Guiding
+from .render.realtime import PSFBuffer
 from .scene import media as media_mod
 from .scene.animation import SkinnedMesh
 from .scene.dynamic import instanced_spec
@@ -170,6 +178,39 @@ def media_from_numpy(arrays: dict[str, np.ndarray], device="cuda") -> media_mod.
     CPU) from a JAX Media's arrays flattened by field name (`flatten`); its
     `modes` are rebuilt from the arrays."""
     return media_mod.from_arrays(arrays, device)
+
+
+def model_grid_from_numpy(arrays: dict[str, np.ndarray], prefix: str = "",
+                          device="cuda") -> ModelGrid:
+    """A port ModelGrid on `device` from a JAX ModelGrid's arrays flattened
+    under `prefix` (`box_min`, `inv_cell`, `res`)."""
+    return ModelGrid(box_min=_tensor(arrays, prefix + "box_min", device),
+                     inv_cell=_tensor(arrays, prefix + "inv_cell", device),
+                     res=int(arrays[prefix + "res"]))
+
+
+def guiding_from_numpy(arrays: dict[str, np.ndarray], device="cuda") -> Guiding:
+    """A port Guiding on `device` from a JAX Guiding's arrays (`grid.*`,
+    `hist`)."""
+    return Guiding(grid=model_grid_from_numpy(arrays, "grid.", device),
+                   hist=_tensor(arrays, "hist", device))
+
+
+def gmm_from_numpy(arrays: dict[str, np.ndarray], device="cuda") -> GMM:
+    """A port GMM on `device` from a JAX GMM's arrays."""
+    return GMM(**{f: _tensor(arrays, f, device) for f in GMM._fields})
+
+
+def discretized_from_numpy(arrays: dict[str, np.ndarray], device="cuda") -> DiscretizedModel:
+    """A port DiscretizedModel on `device` from a JAX one's arrays (`hist`,
+    and its `lo` / `hi` bounds as floats)."""
+    return DiscretizedModel(hist=_tensor(arrays, "hist", device), lo=float(arrays["lo"]),
+                            hi=float(arrays["hi"]))
+
+
+def psf_from_numpy(arrays: dict[str, np.ndarray], device="cuda") -> PSFBuffer:
+    """A port PSFBuffer on `device` from a JAX PSFBuffer's arrays."""
+    return PSFBuffer(**{f: _tensor(arrays, f, device) for f in PSFBuffer._fields})
 
 
 def get_field(tree, path: str):

@@ -1,5 +1,5 @@
 """Film: sample accumulation and splatting (port of
-cudatracerlib_tpu/image/film.py:16-44, 80-101).
+cudatracerlib_tpu/image/film.py).
 
 `add_samples`, the scatter film of the photon-mapping eye pass, turns the
 JAX package's deterministic `.at[].add` into `index_add_`, which on the card
@@ -160,7 +160,35 @@ def add_samples_filtered(film: Film, sx, sy, value, ftype: int, radius: float = 
                          weight=film.weight + sums[:, 3].reshape(H, W))
 
 
-def develop(film: Film) -> torch.Tensor:
-    """Resolve to an (H, W, 3) radiance image."""
+def add_splats(film: Film, pixel_id, value, mask=None) -> Film:
+    """Accumulate light-tracing splats (reference Image::Splat): value (B,
+    3) onto flat pixel ids (B,) in [0, H W), non-finite values and lanes
+    outside `mask` counting 0; summed by `splat_sum`, so the splat buffer
+    is the same on every run."""
+    H, W = film.weight.shape
+    value = torch.nan_to_num(value, nan=0.0, posinf=0.0, neginf=0.0)
+    if mask is not None:
+        value = torch.where(mask[..., None], value, 0.0)
+    sums = splat_sum(pixel_id, value.to(torch.float32), H * W)
+    return film._replace(splat=film.splat + sums.reshape(H, W, 3))
+
+
+def finish_pass(film: Film, n: float = 1.0) -> Film:
+    """Count `n` more passes toward the splat normalization."""
+    return film._replace(n_passes=film.n_passes + n)
+
+
+def develop(film: Film, splat_scale: float = 1.0) -> torch.Tensor:
+    """Resolve to an (H, W, 3) radiance image: rgb / weight plus the splats
+    times splat_scale / max(passes, 1)."""
     img = film.rgb / torch.clamp(film.weight, min=1e-8)[..., None]
-    return img + film.splat / torch.clamp(film.n_passes, min=1.0)
+    return img + film.splat * (splat_scale / torch.clamp(film.n_passes, min=1.0))
+
+
+def luminance_stats(image) -> dict:
+    """Image-wide luminance statistics (reference Engine/Image.cu:112-126):
+    {"mean", "max", "min", "var"}, 0-dim tensors (var the population
+    variance)."""
+    lum = 0.212671 * image[..., 0] + 0.715160 * image[..., 1] + 0.072169 * image[..., 2]
+    return {"mean": lum.mean(), "max": lum.amax(), "min": lum.amin(),
+            "var": lum.var(unbiased=False)}

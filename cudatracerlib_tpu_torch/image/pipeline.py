@@ -1,12 +1,18 @@
-"""Reconstruction filters (port of cudatracerlib_tpu/image/pipeline.py:22-106).
+"""The image pipeline: reconstruction filters, tone mapping, gamma and
+non-local-means denoising (port of cudatracerlib_tpu/image/pipeline.py;
+reference Kernel/ImagePipeline/).
 
 `filter_eval_1d` is the continuous 1-D filter that filter-importance
 splatting (`image/film.add_samples_filtered`) weighs each sample's taps
 with; `filter_kernel_1d` and `apply_filter` are the discrete post-process
 blur over a finished image, the baseline that splatting is compared
-against. The separable blur is written as shifted, weighted sums in tap
-order, so no convolution library (and no TF32 path on the card) is
-involved. Tone mapping and denoising are not ported.
+against. `reinhard_tonemap` is the global Reinhard operator
+(ToneMapPostProcess.h:8-31), `nlm_denoise` the variance-driven non-local
+means (NonLocalMeansFilter.h:13-50) as dense shifted sums over the search
+window, and `apply_pipeline` chains the stages in the reference's order
+(ImagePipeline.cu:14-52). The blurs (the separable filter and the NLM
+patch box) are written as shifted, weighted sums in tap order, so no
+convolution library (and no TF32 path on the card) is involved.
 """
 from __future__ import annotations
 
@@ -96,3 +102,68 @@ def apply_filter(image, ftype: int = GAUSSIAN, radius: float = 2.0, taps: int = 
         return image
     k = filter_kernel_1d(ftype, radius, taps, device=image.device)
     return _blur_axis(_blur_axis(image, k, 0), k, 1)
+
+
+def reinhard_tonemap(image, key: float = 0.18, burn: float = 1.0):
+    """Reinhard global operator (ToneMapPostProcess.h:8-31): the luminance
+    scaled to `key` by its log average, white at burn times the largest."""
+    lum = 0.212671 * image[..., 0] + 0.715160 * image[..., 1] + 0.072169 * image[..., 2]
+    log_avg = torch.exp(torch.log(torch.clamp(lum, min=1e-6)).mean())
+    scaled = key / torch.clamp(log_avg, min=1e-9) * lum
+    lwhite2 = torch.clamp(burn * scaled.amax(), min=1e-6) ** 2
+    mapped = scaled * (1.0 + scaled / lwhite2) / (1.0 + scaled)
+    return image * (mapped / torch.clamp(lum, min=1e-9))[..., None]
+
+
+def gamma_correct(image, gamma: float = 2.2):
+    return torch.pow(torch.clamp(image, min=0.0), 1.0 / gamma)
+
+
+def _box_same(img, patch: int):
+    """The mean over each pixel's patch x patch window, zero-padded to the
+    same size (a box convolution), taps summed row-major."""
+    pr = (patch - 1) // 2
+    H, W = img.shape[:2]
+    padded = torch.nn.functional.pad(img, (0, 0, pr, patch - 1 - pr, pr, patch - 1 - pr))
+    out = None
+    for i in range(patch):
+        for j in range(patch):
+            term = padded[i:i + H, j:j + W] * (1.0 / (patch * patch))
+            out = term if out is None else out + term
+    return out
+
+
+def nlm_denoise(image, variance, strength: float = 0.5, patch: int = 3, window: int = 7):
+    """Non-local means weighted by per-pixel variance estimates
+    (NonLocalMeansFilter.h:13-50): over the window's (wrapped) shifts, the
+    patch distance of the variance-normalised squared differences sets each
+    shifted image's weight."""
+    wr = window // 2
+    var = torch.clamp(variance, min=1e-8)[..., None]
+    acc = torch.zeros_like(image)
+    wacc = torch.zeros(image.shape[:2] + (1,), device=image.device)
+    for dy in range(-wr, wr + 1):
+        for dx in range(-wr, wr + 1):
+            shifted = torch.roll(image, (dy, dx), dims=(0, 1))
+            d2 = _box_same((image - shifted) ** 2 / var, patch)
+            w = torch.exp(-d2.mean(-1, keepdim=True)
+                          / max(2.0 * strength * strength, 1e-6))
+            acc = acc + w * shifted
+            wacc = wacc + w
+    return acc / torch.clamp(wacc, min=1e-9)
+
+
+def apply_pipeline(image, variance=None, filter_type: int = BOX, tonemap: bool = False,
+                   denoise: bool = False, gamma: float | None = None):
+    """The stage chain in the reference's order (ImagePipeline.cu:14-52):
+    filter, denoise (with a variance), tone map, gamma."""
+    out = image
+    if filter_type != BOX:
+        out = apply_filter(out, filter_type)
+    if denoise and variance is not None:
+        out = nlm_denoise(out, variance)
+    if tonemap:
+        out = reinhard_tonemap(out)
+    if gamma is not None:
+        out = gamma_correct(out, gamma)
+    return out

@@ -1,2 +1,3 @@
-from . import fresnel, frame, microfacet, montecarlo, rough_transmittance, vecmath, warp  # noqa: F401
+from . import (dispersion, fresnel, frame, microfacet, montecarlo, rough_transmittance,  # noqa: F401
+               spectral, spectrum, vecmath, warp)
 from .frame import Frame  # noqa: F401

@@ -137,6 +137,59 @@ def _light_select_pmf(scene: Scene, lid, like):
     return torch.clamp(hi - lo, min=0.0)
 
 
+# ---- the bounce's light terms, shared by every engine that weights them with MIS ----
+
+def has_env(config: PTConfig) -> bool:
+    """The scene's specialization holds an environment light."""
+    return bool({lights_mod.INFINITE, lights_mod.CONSTANT_ENV} & set(config.light_types))
+
+
+def _has_delta(config: PTConfig) -> bool:
+    return bool(set(lights_mod.DELTA) & set(config.light_types))
+
+
+def env_term(scene: Scene, d, prev_pdf, no_mis):
+    """(environment radiance (B, 3), its MIS weight) along d."""
+    env_id = torch.clamp(scene.env_light_id, min=0).long()
+    env_L = lights_mod.eval_env(scene.lights, env_id, d)
+    pdf_l = lights_mod.pdf_env_dir(scene.lights, env_id, d) * _light_select_pmf(scene, env_id,
+                                                                                prev_pdf)
+    return env_L, torch.where(no_mis, 1.0, mc.mis_weight(prev_pdf, pdf_l))
+
+
+def emission_term(scene: Scene, it, o, d, prev_pdf, no_mis):
+    """(material light id (B,), emitted radiance (B, 3), its MIS weight)."""
+    mat_light = scene.materials.light_id[it.mat_id.long()]
+    lid = 0 if scene.n_lights == 1 else torch.clamp(mat_light, min=0).long()
+    Le = lights_mod.eval_area_emission(scene.lights, lid, it.n_geo, -d)
+    pdf_hit = (lights_mod.pdf_direct_area(scene.lights, lid, o, it.p, it.n_geo)
+               * _light_select_pmf(scene, lid, prev_pdf))
+    return mat_light, Le, torch.where(no_mis, 1.0, mc.mis_weight(prev_pdf, pdf_hit))
+
+
+def nee_light_sample(scene: Scene, config: PTConfig, p, u_sel, u_l2):
+    """The NEE light sample: (DirectSample, radiance, light pdf, selection
+    pmf). The pdf is the solid-angle pdf times the pmf, the pmf alone for a
+    delta light (DISCRETE measure, pdf 1); both are detached (JAX
+    path_tracer.py:491-492)."""
+    lsel, lpmf, _ = _select_light(scene, u_sel)
+    ds, Lrad = lights_mod.sample_direct(scene.lights, lsel, p, u_l2, active=config.light_types)
+    lpmf = lpmf.detach()
+    pdf_l = ds.pdf.detach() * lpmf
+    if _has_delta(config):
+        pdf_l = torch.where(ds.measure == DISCRETE, lpmf, pdf_l)
+    return ds, Lrad, pdf_l, lpmf
+
+
+def nee_weight(config: PTConfig, ds, pdf_l, pdf_fwd):
+    """The NEE estimate's factor w / pdf_l (B,): w the MIS weight against
+    the forward pdf, 1 for a delta light."""
+    w = mc.mis_weight(pdf_l, pdf_fwd)
+    if _has_delta(config):
+        w = torch.where(ds.measure == DISCRETE, 1.0, w)
+    return w / torch.clamp(pdf_l, min=1e-12)
+
+
 def _regularize(mp: bsdf_mod.MatParams, depth, alpha: float) -> bsdf_mod.MatParams:
     """Mollify delta lobes into rough microfacet lobes of roughness `alpha`
     after the first bounce (path-space regularization): CONDUCTOR becomes
@@ -337,24 +390,15 @@ def surface_bounce(scene: Scene, config: PTConfig, *, o, d, active, throughput,
     no_mis = prev_delta if config.direct else torch.ones_like(prev_delta)
 
     # ---- environment on escape (PathTracer.cu:98-111) ----
-    if {lights_mod.INFINITE, lights_mod.CONSTANT_ENV} & set(config.light_types):
-        env_id = torch.clamp(scene.env_light_id, min=0).long()
-        env_L = lights_mod.eval_env(scene.lights, env_id, d)
-        env_pdf_l = (lights_mod.pdf_env_dir(scene.lights, env_id, d)
-                     * _light_select_pmf(scene, env_id, prev_pdf))
-        w_env = torch.where(no_mis, 1.0, mc.mis_weight(prev_pdf, env_pdf_l))
+    if has_env(config):
+        env_L, w_env = env_term(scene, d, prev_pdf, no_mis)
         escaped = active & ~hit.valid & (scene.env_light_id >= 0)
         L = L + torch.where(escaped[..., None], throughput * env_L * w_env[..., None], 0.0)
 
     # ---- emission at the hit (MIS against NEE) ----
     if lights_mod.AREA_LIGHT in config.light_types:
-        mat_light = scene.materials.light_id[it.mat_id.long()]
+        mat_light, Le, w_hit = emission_term(scene, it, o, d, prev_pdf, no_mis)
         emissive = found & (mat_light >= 0)
-        lid = 0 if scene.n_lights == 1 else torch.clamp(mat_light, min=0).long()
-        Le = lights_mod.eval_area_emission(scene.lights, lid, it.n_geo, wo_world)
-        pdf_light_hit = (lights_mod.pdf_direct_area(scene.lights, lid, o, it.p, it.n_geo)
-                         * _light_select_pmf(scene, lid, prev_pdf))
-        w_hit = torch.where(no_mis, 1.0, mc.mis_weight(prev_pdf, pdf_light_hit))
         L = L + torch.where(emissive[..., None], throughput * Le * w_hit[..., None], 0.0)
 
     wo_local = it.frame.to_local(wo_world)
@@ -363,9 +407,7 @@ def surface_bounce(scene: Scene, config: PTConfig, *, o, d, active, throughput,
     s, u_sel = s.next_1d()
     s, u_l2 = s.next_2d()
     if config.direct and scene.n_lights > 0:
-        lsel, lpmf, _ = _select_light(scene, u_sel)
-        ds, Lrad = lights_mod.sample_direct(scene.lights, lsel, it.p, u_l2,
-                                            active=config.light_types)
+        ds, Lrad, pdf_l, lpmf = nee_light_sample(scene, config, it.p, u_sel, u_l2)
         wi_l = it.frame.to_local(ds.d)
         if nested:
             f_l, pdf_b_l = bsdf_mod.eval_bsdf_nested(mp, mp_in, wo_local, wi_l,
@@ -375,17 +417,7 @@ def surface_bounce(scene: Scene, config: PTConfig, *, o, d, active, throughput,
         sh_o = _offset_ray(it.p, it.n_geo, ds.d, config.ray_eps)
         blocked = scene_mod.scene_occluded(scene, sh_o, ds.d, t_min=config.ray_eps,
                                            t_max=ds.dist - 2.0 * config.ray_eps)
-        # the light's pdf and pmf are detached (JAX path_tracer.py:491-492);
-        # a delta light (DISCRETE measure) takes weight 1 and pdf 1
-        lpmf = lpmf.detach()
-        pdf_l_sa = ds.pdf.detach() * lpmf
-        w_nee = mc.mis_weight(pdf_l_sa, pdf_b_l)
-        if set(lights_mod.DELTA) & set(config.light_types):
-            is_delta_l = ds.measure == DISCRETE
-            pdf_l_sa = torch.where(is_delta_l, lpmf, pdf_l_sa)
-            w_nee = torch.where(is_delta_l, 1.0, w_nee)
-        contrib = (throughput * f_l * Lrad
-                   * (w_nee / torch.clamp(pdf_l_sa, min=1e-12))[..., None])
+        contrib = throughput * f_l * Lrad * nee_weight(config, ds, pdf_l, pdf_b_l)[..., None]
         nee_ok = found & ~blocked & (ds.pdf > 0) & (lpmf > 0)
         L = L + torch.where(nee_ok[..., None], contrib, 0.0)
         n_shadow = found.sum()
@@ -511,15 +543,24 @@ def trace_radiance(scene: Scene, o, d, sampler: Sampler, config: PTConfig, cone=
     return L, Sampler(state=state)
 
 
+def block_order(width: int, height: int, device, block: int = 32):
+    """Block-major pixel order (32x32 screen tiles, each row-major), built
+    on `device`: (pid, pos), pid (W H,) int64 the pixel ids in that order
+    and pos its inverse, pixel id -> slot."""
+    y = torch.arange(height, device=device)[:, None]
+    x = torch.arange(width, device=device)[None, :]
+    by, bx = y // block, x // block
+    bh = torch.clamp(height - by * block, max=block)   # the block's rows, columns
+    bw = torch.clamp(width - bx * block, max=block)
+    pos = (by * block * width + bx * block * bh + (y % block) * bw + x % block).reshape(-1)
+    pid = torch.empty_like(pos)
+    pid[pos] = torch.arange(width * height, device=device)
+    return pid, pos
+
+
 def block_order_pixels_np(width: int, height: int, block: int = 32) -> np.ndarray:
     """Pixel ids in block-major order (32x32 screen tiles)."""
-    ids = []
-    for by in range(0, height, block):
-        for bx in range(0, width, block):
-            Y, X = np.meshgrid(np.arange(by, min(by + block, height)),
-                               np.arange(bx, min(bx + block, width)), indexing="ij")
-            ids.append((Y * width + X).reshape(-1))
-    return np.concatenate(ids).astype(np.int64)
+    return block_order(width, height, "cpu", block)[0].numpy()
 
 
 def _camera_samples(scene: Scene, width: int, height: int, spp: int, seed):
@@ -528,7 +569,7 @@ def _camera_samples(scene: Scene, width: int, height: int, spp: int, seed):
     camera rays. Returns (o, d, w_cam, sampler, sx, sy), (sx, sy) the
     samples' continuous film positions in pixels."""
     dev = scene.light_cdf.device
-    pixel_id = torch.from_numpy(block_order_pixels_np(width, height)).to(dev).repeat(spp)
+    pixel_id = block_order(width, height, dev)[0].repeat(spp)
     sample_idx = torch.arange(spp, device=dev).repeat_interleave(width * height)
     sampler = Sampler.create(int(seed) & MASK, pixel_id, sample_idx)
     px = (pixel_id % width).to(torch.float32)
@@ -567,8 +608,7 @@ def _render_body(scene: Scene, width: int, height: int, spp: int, seed,
     # the film is a reshape-sum plus a static inverse-permutation gather
     n_px = width * height
     slot_sum = L.reshape(spp, n_px, 3).sum(0) / spp
-    inv_perm = torch.from_numpy(np.argsort(block_order_pixels_np(width, height))).to(o.device)
-    img = slot_sum[inv_perm].reshape(height, width, 3)
+    img = slot_sum[block_order(width, height, o.device)[1]].reshape(height, width, 3)
     return (img, stats) if with_stats else img
 
 

@@ -41,7 +41,7 @@ from ..scene import sensors
 from ..scene.scene import Scene, gather_mat_params, make_interaction
 from ..scene.shade_pack import build_shade_pack, hit_shading, pack_enabled
 from .light_tracer import emit_particles
-from .path_tracer import PTConfig, _offset_ray, _select_light, specialize_config
+from .path_tracer import PTConfig, _offset_ray, nee_light_sample, specialize_config
 
 PPM_ALPHA = 0.75  # reference PhotonMapHelper.h ALPHA
 EYE_DEPTH = 5     # specular bounces the camera walk may take to its gather vertex
@@ -226,15 +226,12 @@ def ppm_eye_pass(scene: Scene, pm: PhotonMap, grids, pixel_id, sample_idx, seed,
     s, u_sel = s.next_1d()
     s, u_l2 = s.next_2d()
     if scene.n_lights > 0:
-        lsel, lpmf, _ = _select_light(scene, u_sel)
-        ds, Lrad = lights_mod.sample_direct(scene.lights, lsel, gp, u_l2,
-                                            active=cfg.light_types)
+        ds, Lrad, pdf_l, lpmf = nee_light_sample(scene, cfg, gp, u_sel, u_l2)
         f_l, _ = bsdf_mod.eval_bsdf(mp_g, it_g.frame.to_local(gwo), it_g.frame.to_local(ds.d),
                                     active=cfg.bsdf_types)
         sh_o = _offset_ray(gp, gn, ds.d, cfg.ray_eps)
         blocked = scene_mod.scene_occluded(scene, sh_o, ds.d, cfg.ray_eps,
                                            ds.dist - 2 * cfg.ray_eps)
-        pdf_l = torch.where(ds.measure == 2, 1.0, ds.pdf) * lpmf
         ok = gathered & ~blocked & (ds.pdf > 0) & (lpmf > 0)
         L = L + torch.where(ok[..., None],
                             w * f_l * Lrad / torch.clamp(pdf_l, min=1e-12)[..., None], 0.0)

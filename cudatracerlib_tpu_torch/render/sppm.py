@@ -49,7 +49,7 @@ from ..scene import sensors
 from ..scene.scene import Scene, gather_mat_params, make_interaction
 from ..scene.shade_pack import build_shade_pack, hit_shading, pack_enabled
 from .light_tracer import emit_particles
-from .path_tracer import PTConfig, _offset_ray, _select_light, specialize_config
+from .path_tracer import PTConfig, _offset_ray, nee_light_sample, specialize_config
 from .ppm import EYE_DEPTH, PPM_ALPHA, PhotonMap, _grid_box, trace_photons
 
 VOL_NONE = 0
@@ -348,8 +348,7 @@ def _direct_light(scene, media, has_media, cfg, mp, frame, p, n_geo, wo_world, g
     s, u_l2 = s.next_2d()
     if scene.n_lights == 0:
         return torch.zeros(p.shape[:-1] + (3,), device=p.device), s
-    lsel, lpmf, _ = _select_light(scene, u_sel)
-    ds, Lrad = lights_mod.sample_direct(scene.lights, lsel, p, u_l2, active=cfg.light_types)
+    ds, Lrad, pdf_l, lpmf = nee_light_sample(scene, cfg, p, u_sel, u_l2)
     f_l, _ = bsdf_mod.eval_bsdf(mp, frame.to_local(wo_world), frame.to_local(ds.d),
                                 active=cfg.bsdf_types)
     sh_o = _offset_ray(p, n_geo, ds.d, cfg.ray_eps)
@@ -359,7 +358,6 @@ def _direct_light(scene, media, has_media, cfg, mp, frame, p, n_geo, wo_world, g
     if has_media:
         tr_sh = media_mod.transmittance(media, sh_o, ds.d, cfg.ray_eps,
                                         ds.dist - 2.0 * cfg.ray_eps)
-    pdf_l = torch.where(ds.measure == 2, 1.0, ds.pdf) * lpmf
     ok = gathered & ~blocked & (ds.pdf > 0) & (lpmf > 0)
     return torch.where(ok[..., None],
                        f_l * Lrad * tr_sh / torch.clamp(pdf_l, min=1e-12)[..., None], 0.0), s

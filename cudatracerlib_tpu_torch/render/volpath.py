@@ -40,7 +40,6 @@ from torch.utils.checkpoint import checkpoint
 
 from ..math import montecarlo as mc
 from ..ops.shade_gather import gather_rows
-from ..sampling.records import DISCRETE
 from ..sampling.rng import MASK, Sampler, draws_between
 from ..scene import bsdf as bsdf_mod
 from ..scene import lights as lights_mod
@@ -49,7 +48,8 @@ from ..scene import phase as phase_mod
 from ..scene import scene as scene_mod
 from ..scene import sensors
 from ..scene.scene import Scene, gather_mat_params, make_interaction
-from .path_tracer import PTConfig, _light_select_pmf, _offset_ray, _select_light, specialize_config
+from .path_tracer import (PTConfig, _offset_ray, emission_term, env_term, has_env,
+                          nee_light_sample, nee_weight, specialize_config)
 
 
 # a bounce's draws besides delta tracking: NEE 3, phase 2, BSDF 3, roulette 1, volume choice 1
@@ -92,24 +92,16 @@ def vol_bounce(scene: Scene, media: media_mod.Media, config: PTConfig, carry: Vo
     L = carry.L
 
     # ---- escaped to the environment (no medium scatter, no surface) ----
-    if {lights_mod.INFINITE, lights_mod.CONSTANT_ENV} & set(config.light_types):
-        env_id = torch.clamp(scene.env_light_id, min=0).long()
-        env_L = lights_mod.eval_env(scene.lights, env_id, carry.d)
-        w_env = torch.where(carry.prev_delta, 1.0, mc.mis_weight(
-            carry.prev_pdf, lights_mod.pdf_env_dir(scene.lights, env_id, carry.d)
-            * _light_select_pmf(scene, env_id, carry.prev_pdf)))
+    if has_env(config):
+        env_L, w_env = env_term(scene, carry.d, carry.prev_pdf, carry.prev_delta)
         escaped = carry.active & ~hit.valid & ~scat & (scene.env_light_id >= 0)
         L = L + torch.where(escaped[..., None], throughput * env_L * w_env[..., None], 0.0)
 
     # ---- surface emission with MIS ----
     if lights_mod.AREA_LIGHT in config.light_types:
-        mat_light = scene.materials.light_id[it.mat_id.long()]
+        mat_light, Le, w_hit = emission_term(scene, it, carry.o, carry.d, carry.prev_pdf,
+                                             carry.prev_delta)
         emissive = found & ~scat & (mat_light >= 0)
-        lid = 0 if scene.n_lights == 1 else torch.clamp(mat_light, min=0).long()
-        Le = lights_mod.eval_area_emission(scene.lights, lid, it.n_geo, -carry.d)
-        pdf_hit = (lights_mod.pdf_direct_area(scene.lights, lid, carry.o, it.p, it.n_geo)
-                   * _light_select_pmf(scene, lid, carry.prev_pdf))
-        w_hit = torch.where(carry.prev_delta, 1.0, mc.mis_weight(carry.prev_pdf, pdf_hit))
         L = L + torch.where(emissive[..., None], throughput * Le * w_hit[..., None], 0.0)
 
     # ---- medium emission (v_emit carries Tr * Le / pdf of this segment) ----
@@ -126,10 +118,7 @@ def vol_bounce(scene: Scene, media: media_mod.Media, config: PTConfig, carry: Vo
     s, u_sel = s.next_1d()
     s, u_l2 = s.next_2d()
     if config.direct and scene.n_lights > 0:
-        lsel, lpmf, _ = _select_light(scene, u_sel)
-        lpmf = lpmf.detach()
-        ds, Lrad = lights_mod.sample_direct(scene.lights, lsel, nee_p, u_l2,
-                                            active=config.light_types)
+        ds, Lrad, pdf_l, lpmf = nee_light_sample(scene, config, nee_p, u_sel, u_l2)
         f_surf, pdf_b_surf = bsdf_mod.eval_bsdf(mp, wo_local, it.frame.to_local(ds.d),
                                                 active=config.bsdf_types)
         ph = phase_mod.eval_phase(ptype, pg, wo_world, ds.d)
@@ -140,11 +129,8 @@ def vol_bounce(scene: Scene, media: media_mod.Media, config: PTConfig, carry: Vo
         t_sh = ds.dist - 2.0 * config.ray_eps
         blocked = scene_mod.scene_occluded(scene, sh_o, ds.d, config.ray_eps, t_sh)
         tr_shadow = media_mod.transmittance(media, sh_o, ds.d, config.ray_eps, t_sh, modes)
-        is_delta_l = ds.measure == DISCRETE
-        pdf_l = torch.where(is_delta_l, 1.0, ds.pdf.detach()) * lpmf
-        w_nee = torch.where(is_delta_l, 1.0, mc.mis_weight(pdf_l, pdf_fwd))
         contrib = (throughput * f_val * Lrad * tr_shadow
-                   * (w_nee / torch.clamp(pdf_l, min=1e-12))[..., None])
+                   * nee_weight(config, ds, pdf_l, pdf_fwd)[..., None])
         ok = (found | medium_event) & ~blocked & (ds.pdf > 0) & (lpmf > 0)
         L = L + torch.where(ok[..., None], contrib, 0.0)
         n_shadow = (found | medium_event).sum()

@@ -25,7 +25,9 @@ film's splat sum as the gather backward's. The port's TestFurnace runs
 here at the JAX test's sizes (on the CPU it is `slow`). The textured and
 subsurface renders and their gradients (the atlas, the colours, the
 sigmas) against the CPU's: means within 1%, gradients within 1% of the
-largest entry.
+largest entry. The spectral renders and their cauchy gradient, the guided
+render and its deposit's row sum, the realtime and AOV tracers and
+generate_fits' quadrature against the CPU port's as each test states.
 """
 import _torch_threads  # noqa: F401  (caps torch's CPU threads under xdist)
 import numpy as np
@@ -1030,3 +1032,143 @@ def test_refitted_mesh_kernels_match_plain(dev, n_theta, n_phi):
     both = a.valid & b.valid
     assert agree >= 0.9999 and int(both.sum()) > 1000
     assert float(((a.t - b.t).abs()[both] / b.t[both].abs().clamp(min=1.0)).max()) <= 1e-4
+
+
+
+def _tools_on_path():
+    """Put tools/ (engines_cases.py, numpy only) on sys.path."""
+    import os
+    import sys
+
+    tools = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "tools")
+    if tools not in sys.path:
+        sys.path.insert(0, tools)
+
+def test_spectral_renders_on_card_match_cpu(dev):
+    """`render_spectral` on Cornell and the dispersive caustic scene
+    (cauchy_c 0.03), 32x32, 4 spp, depth 5, seed 3, and `render_spectral_vol`
+    with a homogeneous medium filling the Cornell box: the card's means
+    within 1% of the CPU port's (the dense kernel is bit-equal to its plain
+    version; the card's transcendentals round otherwise), launching both
+    kinds of `intersect_dense`."""
+    from cudatracerlib_tpu_torch.render import spectral as sr
+    from cudatracerlib_tpu_torch.scene import media
+
+    _tools_on_path()
+    import engines_cases as ec
+
+    means = {}
+    for device in ("cpu", "cuda"):
+        cornell, caustic = cornell_box(device=device), caustic_scene(device=device)
+        med = media.Media.build(ec.cornell_medium(cornell), device=device)
+        before = dict(ops.launches)
+        means[device] = [float(sr.render_spectral(s, 32, 32, 4, 3, pt.PTConfig(max_depth=5)).mean())
+                         for s in (cornell, ec.with_cauchy(caustic, ec.DISP_C))]
+        means[device].append(float(sr.render_spectral_vol(cornell, med, 32, 32, 4, 3,
+                                                          pt.PTConfig(max_depth=5)).mean()))
+    torch.cuda.synchronize()
+    assert ops.launches["closest"] > before["closest"] and ops.launches["any_hit"] > before["any_hit"]
+    for got, ref in zip(means["cuda"], means["cpu"]):
+        assert abs(got - ref) <= 0.01 * ref, (means)
+
+
+
+def test_spectral_gradient_on_card_matches_cpu(dev):
+    """d (ramp-weighted mean) / d cauchy_c on the caustic scene (16x16, 4
+    spp, depth 5, rr_start 99, seed 3) on the card within 1% of the CPU
+    port's, its cotangents summed by the gather backward's kernels."""
+    from cudatracerlib_tpu_torch.render import spectral as sr
+
+    _tools_on_path()
+    import engines_cases as ec
+
+    grads_ = {}
+    for device in ("cpu", "cuda"):
+        caustic = caustic_scene(device=device)
+        c = torch.tensor(0.01, device=device, requires_grad=True)
+        img = sr.render_spectral(ec.with_cauchy(caustic, c), 16, 16, 4, 3,
+                                 pt.PTConfig(max_depth=5, rr_start=99))
+        before = sg_ops.launches["gather_bwd_tile"]
+        (img * torch.from_numpy(ec.weight_ramp(16)).to(device)).mean().backward()
+        grads_[device] = float(c.grad)
+    assert sg_ops.launches["gather_bwd_tile"] > before
+    assert abs(grads_["cuda"] - grads_["cpu"]) <= 0.01 * abs(grads_["cpu"]), grads_
+
+
+def test_guiding_on_card_matches_cpu(dev):
+    """Guiding on the caustic scene (res 8): the deposit's row sum at its
+    shape (2^14 photons x 5 slots x 1 onto 32,768 rows) on the card within
+    1e-5 relative of the float64 plain sum, twice bit-equal; a batch trained
+    on the card within 1e-4 of the CPU's histogram sum; the guided render
+    from the CPU's histogram (32x32, 4 spp) within 1% of the CPU's, through
+    the pack gather and both kinds of `intersect_dense`."""
+    from cudatracerlib_tpu_torch.render import guided
+    from cudatracerlib_tpu_torch.render import ppm as ppm_mod
+
+    cfg_t = pt.PTConfig(max_depth=5, rr_start=2)
+    caustic = caustic_scene(device="cuda")
+    gd = guided.make_guiding(caustic, res=8)
+    pm = ppm_mod.trace_photons(caustic, 1 << 14, 0, pt.specialize_config(caustic, cfg_t))
+    flat, lum = guided.deposit_rows(gd, pm)
+    g = lum.reshape(-1, 1).contiguous()
+    k1 = sg_ops.packed_gather_bwd(g, flat, gd.hist.numel())
+    k2 = sg_ops.packed_gather_bwd(g, flat, gd.hist.numel())
+    plain = sg_ops.packed_gather_bwd_plain(g, flat, gd.hist.numel())
+    assert torch.equal(k1, k2)
+    assert float((k1 - plain).abs().max()) <= 1e-5 * float(plain.abs().max())
+    gd = guided.train_guiding(caustic, gd, 1 << 14, 0, cfg_t)
+    cpu = caustic_scene(device="cpu")
+    gd_cpu = guided.train_guiding(cpu, guided.make_guiding(cpu, res=8), 1 << 14, 0, cfg_t)
+    assert abs(float(gd.hist.sum()) - float(gd_cpu.hist.sum())) <= 1e-4 * float(gd_cpu.hist.sum())
+    moved = gd_cpu._replace(grid=gd.grid, hist=gd_cpu.hist.to("cuda"))
+    cfg = pt.PTConfig(max_depth=5, rr_start=99)
+    before = dict(sg_ops.launches)
+    img = guided.render_guided(caustic, moved, 32, 32, 4, 3, cfg)
+    ref = guided.render_guided(cpu, gd_cpu, 32, 32, 4, 3, cfg)
+    torch.cuda.synchronize()
+    assert sg_ops.launches["gather"] > before["gather"]
+    assert abs(float(img.mean()) - float(ref.mean())) <= 0.01 * float(ref.mean())
+
+
+def test_realtime_and_aovs_on_card_match_cpu(dev, glossy):
+    """`render_fast` on the glossy scene (the BVH kernel, 6,624 rows) at
+    128x128 against the plain route on the card (image and depth within
+    1e-5 on all but 4 pixels); 3 `render_game` frames and `render_aovs` on
+    Cornell at 64x64 against the CPU port's means: the frame within 1e-3,
+    each AOV channel within 2e-3 (pixel-centre rays on a quad's diagonal
+    cross the Woop test's crack, an open fault of the port, on one device
+    only: mat_id's mean 1.8e-3 apart)."""
+    from cudatracerlib_tpu_torch.render import prim_tracer, realtime
+
+    img, depth = realtime.render_fast(glossy, 128, 128)
+    real = bvh_ops.intersect_bvh
+    bvh_ops.intersect_bvh = bvh_ops.intersect_bvh_plain
+    try:
+        img_p, depth_p = realtime.render_fast(glossy, 128, 128)
+    finally:
+        bvh_ops.intersect_bvh = real
+    off = ((img - img_p).abs().amax(-1) > 1e-5) | ((depth - depth_p).abs() > 1e-5)
+    assert int(off.sum()) <= 4
+    means = {}
+    for device in ("cpu", "cuda"):
+        scene = cornell_box(device=device)
+        psf = None
+        for f in range(3):
+            frame, psf = realtime.render_game(scene, psf, 64, 64, f)
+        aovs = prim_tracer.render_aovs(scene, 64, 64, 0)
+        means[device] = {"frame": float(frame.mean()),
+                         **{k: float(v.double().mean()) for k, v in aovs.items()}}
+    rel = {k: abs(means["cuda"][k] - ref) / max(abs(ref), 1e-3) for k, ref in means["cpu"].items()}
+    assert rel["frame"] <= 1e-3, rel
+    assert max(rel.values()) <= 2e-3, rel
+
+
+def test_transmittance_grid_on_card_matches_cpu(dev):
+    """generate_fits' quadrature on a reduced grid (2 x 2 x 3 at 16^2
+    strata) on the card within 1e-5 of the CPU's."""
+    import numpy as np
+    from cudatracerlib_tpu_torch.math import rough_transmittance as rt
+
+    args = (np.asarray([1.3, 1.8]), np.asarray([0.1, 0.45]), np.asarray([0.2, 0.6, 0.95]), 16)
+    np.testing.assert_allclose(rt._transmittance_grid(*args, device="cuda"),
+                               rt._transmittance_grid(*args, device="cpu"), rtol=0, atol=1e-5)

@@ -21,13 +21,20 @@ MODULES = [
     "cudatracerlib_tpu_torch.image.film",
     "cudatracerlib_tpu_torch.image.pipeline",
     "cudatracerlib_tpu_torch.image.variance",
+    "cudatracerlib_tpu_torch.math.dispersion",
     "cudatracerlib_tpu_torch.math.frame",
     "cudatracerlib_tpu_torch.math.fresnel",
     "cudatracerlib_tpu_torch.math.microfacet",
     "cudatracerlib_tpu_torch.math.montecarlo",
     "cudatracerlib_tpu_torch.math.rough_transmittance",
+    "cudatracerlib_tpu_torch.math.spectral",
+    "cudatracerlib_tpu_torch.math.spectrum",
     "cudatracerlib_tpu_torch.math.vecmath",
     "cudatracerlib_tpu_torch.math.warp",
+    "cudatracerlib_tpu_torch.models",
+    "cudatracerlib_tpu_torch.models.discretized",
+    "cudatracerlib_tpu_torch.models.gmm",
+    "cudatracerlib_tpu_torch.models.grid",
     "cudatracerlib_tpu_torch.native",
     "cudatracerlib_tpu_torch.ops.intersect_bvh",
     "cudatracerlib_tpu_torch.ops.intersect_dense",
@@ -38,9 +45,13 @@ MODULES = [
     "cudatracerlib_tpu_torch.parallel.shard",
     "cudatracerlib_tpu_torch.render.adaptive",
     "cudatracerlib_tpu_torch.render.bdpt",
+    "cudatracerlib_tpu_torch.render.guided",
     "cudatracerlib_tpu_torch.render.light_tracer",
     "cudatracerlib_tpu_torch.render.path_tracer",
     "cudatracerlib_tpu_torch.render.ppm",
+    "cudatracerlib_tpu_torch.render.prim_tracer",
+    "cudatracerlib_tpu_torch.render.realtime",
+    "cudatracerlib_tpu_torch.render.spectral",
     "cudatracerlib_tpu_torch.render.sppm",
     "cudatracerlib_tpu_torch.render.vcm",
     "cudatracerlib_tpu_torch.render.volpath",
