@@ -20,11 +20,16 @@ It imports nothing of JAX. Phases, each of which raises on failure:
      hit at equal Woop rows, t within 1e-4 * max(1, t) and the barycentrics
      within 1e-4. The wrapper, the kernel alone (prebuilt ranges and
      outputs) and the plain version are timed with CUDA events. The bound
-     counts every box test plus the rows of the chunks each ray's box test
-     passes at its final t (`cull_sweep`, the plain cull emulation); the
-     all-rows figure of the old sweep is printed beside it. As a yardstick,
-     not gated, `intersect_bvh` is timed on the PPM rays over the caustic
-     BVH;
+     counts every box test, FLOPS_WOOP_T for each row of the chunks each
+     ray's box test passes at its final t (`cull_sweep`, the plain cull
+     emulation), FLOPS_EDGE for each of those rows whose t lies below the
+     ray's final t (each is edge-tested) and FLOPS_UV for each hit; the
+     all-rows figure of the old sweep is printed beside it; the bytes are
+     each ray's once and each row's 48 Woop bytes and 36 vertex bytes once.
+     Every dense comparison also counts the rays the watertight test decides
+     otherwise than the Woop test's own u, v (`woop_decision` of
+     tools/crack_cases.py). As a yardstick, not gated, `intersect_bvh` is
+     timed on the PPM rays over the caustic BVH;
   4. Cornell path: the Cornell box at bench config 1 (256x256, 16 spp, depth
      5), built on the card by default: one counted pass at seed 3, whose
      image mean must be within 0.5% of 0.13256 (the JAX package's CPU value,
@@ -216,9 +221,9 @@ It imports nothing of JAX. Phases, each of which raises on failure:
      (ROUGHDIFFUSE, THINDIELECTRIC, PLASTIC, PHONG, WARD, HK, NULL_BSDF) and
      for COATING, ROUGHCOATING and BLEND over DIFFUSE, each mean below 1.1
      (no type gains energy), both kinds of intersect_dense and the
-     shade-pack gather launched; intersect_dense's camera, first-bounce and
-     shadow rays and the pack gather of the PLASTIC pass held to their plain
-     versions as in 3 and 6; (b) the Cornell box through THINLENS,
+     shade-pack gather launched; intersect_dense's camera and shadow rays
+     (a convex sphere's first bounce hits nothing) and the pack gather of
+     the PLASTIC pass held to their plain versions as in 3 and 6; (b) the Cornell box through THINLENS,
      ORTHOGRAPHIC, SPHERICAL and TELECENTRIC cameras; (c) the Gaussian film
      (rec_radius 1.5) beside the box film, its taps (9 x 2^20 lanes x
      (rgb w, w) onto 65,537 rows, the last the dropped out-of-image row)
@@ -279,7 +284,7 @@ It imports nothing of JAX. Phases, each of which raises on failure:
      `_build(8)` scene (3 meshes, 10 instances, the dense band), its pin
      within 0.5% and rays within 1e-3; its 2^20 camera rays instanced
      against flattened (valid equal and t within 2e-4 on >= 99.9% of them,
-     rays through cracks of a closed mesh counted against the share; the
+     rays through the Woop test's cracks counted against the share; the
      launches of a bounce); intersect_dense held to its plain version as in
      3 on one instance's captured per-lane ranges; 5 passes at bench config
      1's size through `render_progressive`, instanced and flattened, means
@@ -342,13 +347,42 @@ It imports nothing of JAX. Phases, each of which raises on failure:
      the bound from the oracle's visits; (f) `render_game`: the pin (64x64,
      frame 7) within 0.5%, then 8 frames of Cornell at 256x256 with the hash
      grid's build and query timed; (g) `render_aovs` on Cornell at 256x256:
-     each of the 17 channels' means within 2e-3 of JAX's (pixel-centre rays
-     on a quad's diagonal cross the port's Woop test's crack, an open fault:
-     mat_id's mean 1.87e-3 on the card); (c)-(g) each profiled once; (h)
+     each of the 17 channels' means within AOV_TOL of JAX's (pixel-centre
+     rays on a quad's diagonal cross JAX's Woop test's crack, which the
+     port's watertight test closes); (c)-(g) each profiled once; (h)
      `generate_fits` on the card over the full grid (5,878,656 lanes at eta
      and at 1/eta): the fitted surfaces within 2e-3 of the baked
      coefficients' (JAX's test_baked_constants_match_regeneration gate) and
-     the residuals beside FIT_RESIDUAL, timed.
+     the residuals beside FIT_RESIDUAL, timed;
+  26. the watertight test, scene files and the entry points
+     (tools/crack_cases.py, tools/io_cases.py; pins from
+     tools/io_reference_mean.py): (a) Cornell's 256x256 pixel-centre rays
+     (as render_aovs makes them) through intersect_dense and through
+     intersect_bvh over the same rows, each bit-equal to its plain version,
+     none through a wall (a miss that a float64 test tolerant by 1e-6 in
+     the barycentrics hits), the rays the Woop decision loses there
+     counted; 64 random quads x 32 rays aimed at their shared diagonals at
+     three scales, through both kernels: every ray hits its own quad; rows
+     1-2's times at the main-path shapes of phases 3, 5 and 15 and the AOV
+     deviation of 25 (g) printed; (b) bench config 3's scene
+     (`_big_geometry`, the area light, the camera) written as binary PLY and
+     as `.serialized` files (one shape a material) with a Mitsuba XML each,
+     loaded on the card through `load_mitsuba` (each write and load timed),
+     the loaded triangles and materials held to the written ones and every
+     difference from `build_big_scene`'s arrays listed (the light's two
+     triangles are geometry in the file, so BSDF-sampled paths reach it);
+     one pass at config 3's settings (512x512, 16 spp, depth 5, seed 7,
+     the wavefront engine) within BIG_TOL of phase 15's pass, its launches
+     counted; the OBJ loader at BIG_PIN's size (pure-Python parsing), timed;
+     (c) the media-and-maps XML (a coating nested over a diffuse sphere, a
+     PNG bump map, the sunsky, a heterogeneous `.vol` medium inside an
+     index-matched dielectric box) loaded on the card, `render` and
+     `render_vol` (64x64, 4 spp, seed 3) within IO_PINS of JAX's CPU means;
+     (d) as subprocesses, in parallel: `python -m cudatracerlib_tpu_torch.cli
+     cornell 2 PT --size 256 --spp 16` and the (b) XML with `fast` (exit 0, a
+     PNG, pass times printed), `--checkpoint` 2 passes resumed to 4 against
+     a straight 4 (bit-equal), and `examples/inverse_rendering_torch.py
+     --steps 5` (its loss falling).
 Each phase's seconds are printed as it ends.
 
 Before its last line it prints one JSON object describing each kernel; the
@@ -575,8 +609,8 @@ INSTANCE_AGREE = 0.999     # phase 24: instanced vs flattened camera rays (tests
 # Phase 25's pins: `JAX_PLATFORMS=cpu python tools/engines_reference_mean.py` (the JAX package
 # on the CPU at tools/engines_cases.PIN's sizes; --port for the CPU port's, equal to 9 digits
 # but the dispersive caustic 1.9e-7, the volume 1.2e-7 and the AOV means, which differ where
-# pixel-centre rays cross a quad's diagonal: 66 of 65,536 rays hit in JAX and miss in the port,
-# through the crack of its Woop test, an open fault of the port)
+# pixel-centre rays cross a quad's diagonal: there JAX's Woop test lets rays through a closed
+# wall that the port's watertight test hits)
 ENGINE_PINS = {"spectral_cornell": 0.132589474, "spectral_caustic": 0.317814916,
                "spectral_vol": 0.127622664, "guided": 0.297794133, "game": 0.095883340}
 ENGINE_TOL = 0.005
@@ -593,7 +627,17 @@ REF_AOV_MEANS = {"albedo": 0.409643412, "albedo_non_delta": 0.409643412, "bary":
                  "normal_geo": 0.310933441, "normal_sh": 0.310933441, "prim_id": 18.8756561,
                  "uv": 0.160925373, "v_absdot_n_geo": 0.412555635, "v_dot_n_geo": 0.575342119,
                  "v_dot_n_shade": 0.575342119}
-AOV_TOL = 0.002            # the crack's rays move mat_id's mean by 1.87e-3 on the card (the rest <= 7e-4)
+# Phase 26 (c)'s pins: `JAX_PLATFORMS=cpu python tools/io_reference_mean.py` (the JAX package on
+# the CPU at tools/io_cases.PIN's size; --port for the CPU port's: render 3.5e-5 below, its
+# watertight test hitting rays JAX's Woop test loses). render within 0.5% as phase 21's pins;
+# render_vol within 1%, a sixth of its seeds 3-5 spread (5.7%).
+IO_PINS = {"render": (0.256625742, 0.005), "render_vol": (0.257475942, 0.01)}
+CRACK_SIZE = 256           # phase 26 (a): Cornell's pixel-centre rays, as render_aovs makes them
+CRACK_QUADS, CRACK_QUAD_RAYS = 64, 32   # shared-diagonal rays a scale (tools/crack_cases.py)
+# JAX's means keep its Woop test's crack: pixel-centre rays through a quad's diagonal miss in JAX
+# and hit in the port, moving albedo's mean by 1.06e-3, mat_id's by 6.2e-4, the rest <= 5.4e-4
+# (the card equals the CPU port to 7.3e-8)
+AOV_TOL = 0.0011
 GUIDE_RES, GUIDE_BATCHES, GUIDE_PHOTONS = 8, 4, 1 << 17   # phase 25 (d): bench config 5's photons
 FAST_SIZE = 1024           # phase 25 (e): render_fast's 2^20 rays, one BVH launch
 FAST_OFF_MAX = 16          # pixels whose hit may differ from the plain route's (coincident ties)
@@ -611,11 +655,15 @@ PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
 # operations per unit of work, counted from the kernels' sources (a min,
 # max or compare counts as one, as a multiply or an add does)
-FLOPS_DENSE_PAIR = 30      # one ray / Woop-row test, t and u, v
 FLOPS_BOX_TEST = 25        # one ray / chunk-box slab test (6 sub, 6 mul, 10 min/max, 3 compare)
 FLOPS_BVH_INNER = 50       # two slab tests
-FLOPS_WOOP_T = 17          # per leaf row: t and its test
-FLOPS_WOOP_UV = 31         # per leaf row that passed the t test: u, v and their tests
+FLOPS_WOOP_T = 17          # per row tested: t from the Woop rows and its range test
+FLOPS_EDGE = 39            # per row whose t is in range: the watertight edge test, what it needs
+#                            (3 vertices translated, 3 sub, and sheared, a[kx] - Sx a[kz] and
+#                            a[ky] - Sy a[kz], 2 mul 2 sub: 3 x 7; 3 edge functions, 3 x 3; 3 zero
+#                            tests for the float64 fallback and 6 sign tests)
+FLOPS_UV = 26              # per row taken: u, v from the Woop rows
+ROW_BYTES = 48 + 36        # a Woop row and the 9 floats of its vertex row that the test reads
 FLOPS_PHOTON_PAIR = 32     # per (valid query, photon) pair weighed (an FMA counts two)
 LEAF_SIZE = 4
 PORT_KERNELS = ("dense_kernel", "bvh_kernel", "gather_kernel", "gather_bwd_tile_kernel",
@@ -649,6 +697,7 @@ def _bound(flops, nbytes):
 
 
 def _check_hits(label, mode, r, t_scale):
+    """Gates of a kernel vs plain comparison (a batch in which no ray hits fails)."""
     print(f"[kernel vs plain] {label} {mode}: {json.dumps(r)}")
     _require(r["valid_mismatch"] <= (1.0 - VALID_AGREE) * r["rays"],
              f"{label} {mode}: valid disagrees on {r['valid_mismatch']} of {r['rays']} rays")
@@ -680,63 +729,99 @@ def _time_kernel_ms(prepared, launch):
     return start.elapsed_time(end) / (len(prepared) - 1)
 
 
-def _dense_work(woop, boxes, o, d, t_min, t_max):
+def _woop_t(woop, o, d):
+    """(rays, rows) t of every ray against every Woop row from the rows'
+    third line (the count's t; the kernels round it in their own order)."""
+    import torch
+
+    r = woop[:, 8:12]
+    oz = o @ r[:, :3].T + r[:, 3]
+    dz = d @ r[:, :3].T
+    return -oz / torch.where(dz.abs() < 1e-20, 1e-20, dz)
+
+
+def _dense_work(woop, boxes, o, d, t_min, t_max, verts):
     """Operations the dense query needs on these inputs: every ray's box
-    tests plus FLOPS_DENSE_PAIR for each row of the chunks its box test
-    passes at its final t (the plain cull emulation's count); also the
-    all-rows figure of the old sweep and how far the emulation's hits
-    differ from the plain version's (0 expected)."""
+    tests, FLOPS_WOOP_T for each row of the chunks its box test passes at
+    its final t (the plain cull emulation's count), FLOPS_EDGE for each of
+    those rows whose t lies in (t_min, final t] (each such row is edge-tested
+    whatever order the sweep takes) and FLOPS_UV for each hit; also the
+    all-rows figure of the old sweep and how far the emulation's hits differ
+    from the plain version's (0 expected)."""
     from cudatracerlib_tpu_torch.ops import intersect_dense as ops
 
     import torch
     from cudatracerlib_tpu_torch.accel.traversal import _slab_test
 
-    hit, n_chunks, n_rows = ops.cull_sweep(woop, boxes, o, d, t_min, t_max)
-    plain = ops.intersect_dense_plain(woop, o, d, t_min, t_max)
+    hit, n_chunks, n_rows = ops.cull_sweep(woop, boxes, o, d, t_min, t_max, verts=verts)
+    plain = ops.intersect_dense_plain(woop, o, d, t_min, t_max, verts=verts)
     off = int((hit.prim != plain.prim).sum()) + int((hit.t != plain.t).sum())
     B, C, T = o.shape[0], boxes.shape[0], woop.shape[0]
     rows = int(n_rows.sum())
-    flops = FLOPS_BOX_TEST * B * C + FLOPS_DENSE_PAIR * rows
     # what a warp sweeps: the union of its 32 lanes' chunks (at the final t,
-    # so a floor of what the running t enters)
+    # so a floor of what the running t enters); and the rows edge-tested
     t_lo = torch.as_tensor(t_min, dtype=torch.float32, device=o.device).expand(B)
     inv_d = 1.0 / torch.where(d.abs() < 1e-20, torch.where(d < 0, -1e-20, 1e-20), d)
-    union = 0
-    for s in range(0, B - B % 32, 1 << 15):
-        sl = slice(s, min(s + (1 << 15), B - B % 32))
+    chunk_of = torch.arange(T, device=o.device) // 32
+    union, edge_rows = 0, 0
+    step = max(32, ((1 << 25) // max(T, C)) // 32 * 32)
+    for s in range(0, B, step):
+        sl = slice(s, min(s + step, B))
         enter, _ = _slab_test(boxes[None, :, 0:3], boxes[None, :, 4:7], o[sl, None],
                               inv_d[sl, None], t_lo[sl, None], hit.t[sl, None])
-        union += int(enter.reshape(-1, 32, C).any(1).sum())
-    return dict(flops=flops, all_rows_flops=FLOPS_DENSE_PAIR * B * T, rows=rows,
+        enter = enter & (t_lo[sl, None] < hit.t[sl, None])
+        n32 = (enter.shape[0] // 32) * 32
+        union += int(enter[:n32].reshape(-1, 32, C).any(1).sum())
+        t = _woop_t(woop, o[sl], d[sl])
+        in_range = (t > t_lo[sl, None]) & (t <= hit.t[sl, None]) & torch.isfinite(t)
+        edge_rows += int((in_range & enter[:, chunk_of]).sum())
+    flops = (FLOPS_BOX_TEST * B * C + FLOPS_WOOP_T * rows + FLOPS_EDGE * edge_rows
+             + FLOPS_UV * int(hit.valid.sum()))
+    return dict(flops=flops, all_rows_flops=FLOPS_WOOP_T * B * T + FLOPS_EDGE * edge_rows
+                + FLOPS_UV * int(hit.valid.sum()), rows=rows, edge_rows=edge_rows,
                 mean_chunks=float(n_chunks.double().mean()), emulation_off=off,
                 warp_chunks=union / max(1, B // 32),
-                nbytes=B * (24 + 8 + 16) + (woop.numel() + boxes.numel()) * 4)
+                nbytes=B * (24 + 8 + 16) + ROW_BYTES * T + boxes.numel() * 4)
 
 
-def _compare(label, woop, o, d, t_min, t_max, reps, boxes=None):
+def _bvh_flops(inner, leaf, tpass, hits):
+    """Operations of a BVH query from the oracle's counts: inner-node visits,
+    leaf visits (LEAF_SIZE rows each), rows whose t passed the range test
+    (each edge-tested) and hits (u, v)."""
+    return (FLOPS_BVH_INNER * inner + FLOPS_WOOP_T * LEAF_SIZE * leaf + FLOPS_EDGE * tpass
+            + FLOPS_UV * hits)
+
+
+def _compare(label, woop, o, d, t_min, t_max, reps, boxes, verts):
     """intersect_dense vs its plain version on the same CUDA tensors, closest
     and any-hit; times the wrapper, the kernel alone and the plain version,
-    and counts the work for the bound. Returns a dict."""
+    and counts the work for the bound. `boxes` are the rows' chunk boxes
+    (derived from the Woop rows when None), `verts` their vertex rows.
+    Returns a dict."""
     import torch
     from cudatracerlib_tpu_torch.accel.bvh import chunk_boxes_from_woop
     from cudatracerlib_tpu_torch.ops import intersect_dense as ops
 
     if boxes is None:
         boxes = chunk_boxes_from_woop(woop)
-    plain = ops.intersect_dense_plain(woop, o, d, t_min, t_max)
-    t_scale = float(torch.clamp(plain.t[plain.valid].abs().max(), min=1.0))
+    plain = ops.intersect_dense_plain(woop, o, d, t_min, t_max, verts=verts)
+    t_scale = float(torch.clamp(plain.t[plain.valid].abs().amax(), min=1.0)) \
+        if bool(plain.valid.any()) else 1.0
+    changed = _crack_changed(label, woop, o, d, t_min, t_max, plain)
     worst = 0.0
     for any_hit in (False, True):
-        kern = ops.intersect_dense(woop, o, d, t_min, t_max, any_hit=any_hit, boxes=boxes)
+        kern = ops.intersect_dense(woop, o, d, t_min, t_max, any_hit=any_hit, boxes=boxes,
+                                   verts=verts)
         torch.cuda.synchronize()
         r = ops.compare_hits(kern, plain, woop, t_min, t_max, any_hit=any_hit)
         worst = max(worst, _check_hits(label, "any_hit" if any_hit else "closest", r, t_scale))
-    wrap_ms = _time_ms(lambda: ops.intersect_dense(woop, o, d, t_min, t_max, boxes=boxes), reps)
-    prepared, _ = ops.launch_args(woop, o, d, t_min, t_max, boxes=boxes)
+    wrap_ms = _time_ms(lambda: ops.intersect_dense(woop, o, d, t_min, t_max, boxes=boxes,
+                                                   verts=verts), reps)
+    prepared, _ = ops.launch_args(woop, o, d, t_min, t_max, boxes=boxes, verts=verts)
     ms = _time_kernel_ms([prepared] * (reps + 1), ops.launch)
-    plain_ms = _time_ms(lambda: ops.intersect_dense_plain(woop, o, d, t_min, t_max),
+    plain_ms = _time_ms(lambda: ops.intersect_dense_plain(woop, o, d, t_min, t_max, verts=verts),
                         max(1, reps // 10))
-    work = _dense_work(woop, boxes, o, d, t_min, t_max)
+    work = _dense_work(woop, boxes, o, d, t_min, t_max, verts)
     bound = _bound(work["flops"], work["nbytes"])
     old_bound = _bound(work["all_rows_flops"], work["nbytes"])
     print(f"[time] {label}: {o.shape[0]} rays x {woop.shape[0]} rows ({boxes.shape[0]} chunks): "
@@ -748,7 +833,28 @@ def _compare(label, woop, o, d, t_min, t_max, reps, boxes=None):
           f"{work['all_rows_flops']} operations, {old_bound[0]:.5f} ms; cull emulation vs "
           f"plain: {work['emulation_off']} differing t / prim")
     return dict(err=worst, ms=ms, wrap_ms=wrap_ms, plain_ms=plain_ms, bound=bound,
-                old_bound=old_bound)
+                old_bound=old_bound, changed=changed)
+
+
+def _crack_changed(label, woop, o, d, t_min, t_max, plain):
+    """The rays of one dense comparison that the watertight test decides
+    otherwise than the Woop test's own u, v did (`woop_decision` of
+    tools/crack_cases.py, the decision the JAX package and the port before
+    the repair take): hit by one and missed by the other, or hit on another
+    row."""
+    import torch
+    from cudatracerlib_tpu_torch.ops import intersect_dense as ops
+
+    t_hi = torch.clamp(torch.as_tensor(t_max, dtype=torch.float32, device=o.device),
+                       max=ops.T_MAX_CLAMP)
+    valid, prim = _crack_cases().woop_decision(woop, o, d, t_min, t_hi)
+    gained, lost = int((plain.valid & ~valid).sum()), int((valid & ~plain.valid).sum())
+    moved = int((valid & plain.valid & (prim != plain.prim)).sum())
+    out = dict(gained=gained, lost=lost, moved=moved, woop_hits=int(valid.sum()))
+    print(f"[crack] {label}: the watertight test against the Woop decision: {gained} rays "
+          f"gained, {lost} lost, {moved} on another row, of {o.shape[0]} "
+          f"({out['woop_hits']} Woop hits)")
+    return out
 
 
 def _compare_bvh(label, bvh, o, d, t_min, t_max, reps):
@@ -767,9 +873,8 @@ def _compare_bvh(label, bvh, o, d, t_min, t_max, reps):
         overflow += int((n_over > 0).sum())
         if not any_hit:
             t_scale = float(torch.clamp(plain.t[plain.valid].abs().max(), min=1.0))
-            flops = (FLOPS_BVH_INNER * int(n_inner.sum())
-                     + FLOPS_WOOP_T * LEAF_SIZE * int(n_leaf.sum())
-                     + FLOPS_WOOP_UV * int(n_tpass.sum()))
+            flops = _bvh_flops(int(n_inner.sum()), int(n_leaf.sum()), int(n_tpass.sum()),
+                               int(plain.valid.sum()))
             print(f"[work] {label}: {o.shape[0]} rays, inner visits {int(n_inner.sum())} "
                   f"(mean {float(n_inner.double().mean()):.2f}), leaf visits "
                   f"{int(n_leaf.sum())} (mean {float(n_leaf.double().mean()):.2f}), rows "
@@ -789,7 +894,7 @@ def _compare_bvh(label, bvh, o, d, t_min, t_max, reps):
     wrap_ms = _time_ms(lambda: bvh_ops.intersect_bvh(bvh, o, d, t_min, t_max), reps)
     ms = _bvh_kernel_ms(bvh, o, d, t_min, t_max, reps)
     plain_ms = _time_ms(lambda: bvh_ops.intersect_bvh_plain(bvh, o, d, t_min, t_max), 1)
-    nbytes = o.shape[0] * (24 + 8 + 16) + 4 * (bvh.nodes.numel() + bvh.woop.numel())
+    nbytes = o.shape[0] * (24 + 8 + 16) + 4 * bvh.nodes.numel() + ROW_BYTES * bvh.woop.shape[0]
     print(f"[time] {label}: {o.shape[0]} rays x {bvh.woop.shape[0]} rows: kernel {ms:.4f} ms, "
           f"wrapper {wrap_ms:.4f} ms, plain {plain_ms:.4f} ms; oracle stack overflowed on "
           f"{overflow} lanes")
@@ -822,10 +927,12 @@ def _capture_ppm(caustic, pcfg):
     dense_calls, density_calls = [], []
     real_dense, real_density = ops.intersect_dense, pg_ops.photon_density
 
-    def capture_dense(woop, o, d, t_min=1e-4, t_max=ops.T_MAX_CLAMP, any_hit=False, boxes=None):
+    def capture_dense(woop, o, d, t_min=1e-4, t_max=ops.T_MAX_CLAMP, any_hit=False, boxes=None,
+                      *, verts):
         keep = lambda x: x.clone() if isinstance(x, torch.Tensor) else x  # noqa: E731
-        dense_calls.append((woop, keep(o), keep(d), keep(t_min), keep(t_max), any_hit, boxes))
-        return real_dense(woop, o, d, t_min, t_max, any_hit=any_hit, boxes=boxes)
+        dense_calls.append((woop, keep(o), keep(d), keep(t_min), keep(t_max), any_hit, boxes,
+                                verts))
+        return real_dense(woop, o, d, t_min, t_max, any_hit=any_hit, boxes=boxes, verts=verts)
 
     def capture_density(*args):
         density_calls.append(args)
@@ -1270,10 +1377,12 @@ def _capture_bdpt(caustic, bcfg):
     dense_calls, gather_calls, splat_calls = [], [], []
     real_dense, real_gather, real_splat = ops.intersect_dense, sg_ops._gather, film_mod.splat_sum
 
-    def capture_dense(woop, o, d, t_min=1e-4, t_max=ops.T_MAX_CLAMP, any_hit=False, boxes=None):
+    def capture_dense(woop, o, d, t_min=1e-4, t_max=ops.T_MAX_CLAMP, any_hit=False, boxes=None,
+                      *, verts):
         keep = lambda x: x.clone() if isinstance(x, torch.Tensor) else x  # noqa: E731
-        dense_calls.append((woop, keep(o), keep(d), keep(t_min), keep(t_max), any_hit, boxes))
-        return real_dense(woop, o, d, t_min, t_max, any_hit=any_hit, boxes=boxes)
+        dense_calls.append((woop, keep(o), keep(d), keep(t_min), keep(t_max), any_hit, boxes,
+                                verts))
+        return real_dense(woop, o, d, t_min, t_max, any_hit=any_hit, boxes=boxes, verts=verts)
 
     def capture_gather(table, idx):
         gather_calls.append((table, idx.clone()))
@@ -1461,12 +1570,14 @@ def _capture_volume(fn):
     closest, shadow = [], []
     real = ops.intersect_dense
 
-    def capture(woop, o, d, t_min=1e-4, t_max=ops.T_MAX_CLAMP, any_hit=False, boxes=None):
+    def capture(woop, o, d, t_min=1e-4, t_max=ops.T_MAX_CLAMP, any_hit=False, boxes=None,
+                      *, verts):
         keep = lambda x: x.clone() if isinstance(x, torch.Tensor) else x  # noqa: E731
         calls = shadow if any_hit else closest
         if len(calls) < 2:
-            calls.append((woop, keep(o), keep(d), keep(t_min), keep(t_max), any_hit, boxes))
-        return real(woop, o, d, t_min, t_max, any_hit=any_hit, boxes=boxes)
+            calls.append((woop, keep(o), keep(d), keep(t_min), keep(t_max), any_hit, boxes,
+                                verts))
+        return real(woop, o, d, t_min, t_max, any_hit=any_hit, boxes=boxes, verts=verts)
 
     ops.intersect_dense = capture
     try:
@@ -1532,7 +1643,7 @@ def _volume_phase(scene, smi, reset_counts):
     # seed 3, the render timed at seed 7, 3 passes each
     vol_args = _capture_volume(lambda: volpath.render_vol_stepwise(
         scene, plume, VOL_W, VOL_H, VOL_SPP, VOL_PASSES, 0, vcfg))
-    vol_r = {label: _compare(label, c[0], c[1], c[2], c[3], c[4], 20, c[6])
+    vol_r = {label: _compare(label, c[0], c[1], c[2], c[3], c[4], 20, c[6], c[7])
              for label, c in vol_args.items()}
     _, vol_rays = volpath.render_vol_stepwise(scene, plume, VOL_W, VOL_H, VOL_SPP, VOL_PASSES, 3,
                                               vcfg, with_stats=True)
@@ -1813,7 +1924,7 @@ def _volume_grad_phase(scene, smi, reset_counts):
           f"({100 * abs(fd - ad) / max(abs(fd), 1e-30):.2f}% apart; within JAX's "
           f"{VGRAD_FD_TOL:.0%}: {'yes' if fd_ok else 'no'}, not gated)")
     dense_r = {f"vgrad {label.split(' ', 1)[1]}": _compare(f"vgrad {label.split(' ', 1)[1]}",
-                                                            c[0], c[1], c[2], c[3], c[4], 20, c[6])
+                                                            c[0], c[1], c[2], c[3], c[4], 20, c[6], c[7])
                for label, c in dense_args.items()}
 
     # (c) the gather backward at the grid shape, then at a per-volume table's
@@ -1883,11 +1994,13 @@ def _capture_sppm(fn):
     dense, gathers = [], []
     real_dense, real_gather = ops.intersect_dense, sg_ops._gather
 
-    def capture_dense(woop, o, d, t_min=1e-4, t_max=ops.T_MAX_CLAMP, any_hit=False, boxes=None):
+    def capture_dense(woop, o, d, t_min=1e-4, t_max=ops.T_MAX_CLAMP, any_hit=False, boxes=None,
+                      *, verts):
         keep = lambda x: x.clone() if isinstance(x, torch.Tensor) else x  # noqa: E731
         if len(dense) < 64:
-            dense.append((woop, keep(o), keep(d), keep(t_min), keep(t_max), any_hit, boxes))
-        return real_dense(woop, o, d, t_min, t_max, any_hit=any_hit, boxes=boxes)
+            dense.append((woop, keep(o), keep(d), keep(t_min), keep(t_max), any_hit, boxes,
+                                verts))
+        return real_dense(woop, o, d, t_min, t_max, any_hit=any_hit, boxes=boxes, verts=verts)
 
     def capture_gather(table, idx):
         if not gathers:
@@ -1946,7 +2059,7 @@ def _sppm_phase(cornell, caustic, smi, reset_counts):
         dense_args, gathers = _capture_sppm(
             lambda: _sppm_runs(scene, media, size, passes, 0, cfg))  # noqa: B023 (warm, seed 0)
         dense_r = {f"sppm {label} {k}": _compare(f"sppm {label} {k}", c[0], c[1], c[2], c[3],
-                                                 c[4], 10, c[6])
+                                                 c[4], 10, c[6], c[7])
                    for k, c in dense_args.items()}
         gather_r = _check_gather_at(f"sppm {label}", *gathers[0]) if gathers else None
         torch.cuda.synchronize()
@@ -1988,11 +2101,13 @@ def _capture_render(fn):
     dense, gathers = [], []
     real_dense, real_gather = ops.intersect_dense, sg_ops._gather
 
-    def capture_dense(woop, o, d, t_min=1e-4, t_max=ops.T_MAX_CLAMP, any_hit=False, boxes=None):
+    def capture_dense(woop, o, d, t_min=1e-4, t_max=ops.T_MAX_CLAMP, any_hit=False, boxes=None,
+                      *, verts):
         keep = lambda x: x.clone() if isinstance(x, torch.Tensor) else x  # noqa: E731
         if len(dense) < 3:
-            dense.append((woop, keep(o), keep(d), keep(t_min), keep(t_max), any_hit, boxes))
-        return real_dense(woop, o, d, t_min, t_max, any_hit=any_hit, boxes=boxes)
+            dense.append((woop, keep(o), keep(d), keep(t_min), keep(t_max), any_hit, boxes,
+                                verts))
+        return real_dense(woop, o, d, t_min, t_max, any_hit=any_hit, boxes=boxes, verts=verts)
 
     def capture_gather(table, idx):
         if not gathers:
@@ -2088,9 +2203,10 @@ def _shading_phase(cornell, caustic, smi, reset_counts):
         if name == "plastic":   # the kernels at the furnace's shapes, from a warm pass
             dense, gathers, _ = _capture_render(
                 lambda: pt.render_counted(scene, W, H, SPP, 0, cfg))  # noqa: B023
+            # not the first-bounce rays: a convex sphere's bounces have nothing to hit
             checks["dense"] = {f"furnace {k}": _compare(f"furnace {k}", c[0], c[1], c[2], c[3],
-                                                        c[4], 10, c[6])
-                               for k, c in dense.items()}
+                                                        c[4], 10, c[6], c[7])
+                               for k, c in dense.items() if k != "first-bounce rays"}
             checks["gather"] = _check_gather_at("furnace pack", *gathers[0])
         bench(f"furnace {name}", scene, require_pack=True, energy=True)
 
@@ -2406,7 +2522,7 @@ def _texture_phase(smi, reset_counts):
     # (f) the kernels at the new shapes: intersect_dense and the pack gather on a warm deluxe
     # pass, the gather backward on an atlas lookup's cotangent from a deluxe gradient pass
     dense, gathers, _ = _capture_render(lambda: pt.render_counted(deluxe, W, H, SPP, 0, cfg))
-    dense_r = {f"deluxe {k}": _compare(f"deluxe {k}", c[0], c[1], c[2], c[3], c[4], 10, c[6])
+    dense_r = {f"deluxe {k}": _compare(f"deluxe {k}", c[0], c[1], c[2], c[3], c[4], 10, c[6], c[7])
                for k, c in dense.items()}
     gather_r = _check_gather_at("deluxe pack", *gathers[0])
     n_atlas = deluxe.textures.atlas.shape[0] * tex_mod.ATLAS_TOTAL
@@ -2430,11 +2546,366 @@ def _dynamic_cases():
     return dynamic_cases
 
 
+def _crack_cases():
+    """tools/crack_cases.py, imported from the checkout."""
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools"))
+    import crack_cases
+
+    return crack_cases
+
+
+def _crack_part(smi):
+    """Phase 26 (a): the watertight test on the card. Cornell's CRACK_SIZE^2
+    pixel-centre rays (as render_aovs makes them) through intersect_dense
+    and through intersect_bvh over the same rows, each bit-equal to its
+    plain version, with no ray through a wall (a miss that a float64 test,
+    tolerant by 1e-6 in the barycentrics, hits); the rays the Woop test's
+    own decision loses there counted; and rays aimed at the shared
+    diagonals of random quads at three scales through both kernels: each
+    hits its own quad. Returns the counts and the worst error."""
+    import numpy as np
+    import torch
+    from cudatracerlib_tpu_torch.accel.bvh import build_bvh, vertex_rows, woop_transform
+    from cudatracerlib_tpu_torch.ops import intersect_bvh as bvh_ops
+    from cudatracerlib_tpu_torch.ops import intersect_dense as ops
+    from cudatracerlib_tpu_torch.scene import sensors
+    from cudatracerlib_tpu_torch.scene.shapes import cornell_box
+
+    cc = _crack_cases()
+    dev = torch.device("cuda:0")
+
+    def same(a, b):
+        """lanes where two Hits differ (prim, or t / bary on a hit)"""
+        v = a.valid & b.valid
+        return int(((a.prim != b.prim) | (v & ((a.t != b.t) | (a.bary != b.bary).any(-1)))).sum())
+
+    scene = cornell_box()
+    n = CRACK_SIZE * CRACK_SIZE
+    pid = torch.arange(n, device=dev)
+    uv = torch.stack([((pid % CRACK_SIZE).float() + 0.5) / CRACK_SIZE,
+                      ((pid // CRACK_SIZE).float() + 0.5) / CRACK_SIZE], -1)
+    o, d, _ = sensors.sample_ray(scene.camera, uv, torch.full_like(uv, 0.5))
+    bvh = scene.bvh
+    kd = ops.intersect_dense(bvh.woop, o, d, boxes=bvh.chunk_boxes, verts=bvh.tri_verts)
+    pd = ops.intersect_dense_plain(bvh.woop, o, d, verts=bvh.tri_verts)
+    kb = bvh_ops.intersect_bvh(bvh, o, d)
+    pb = bvh_ops.intersect_bvh_plain(bvh, o, d)
+    torch.cuda.synchronize()
+    tris = scene.shading.verts.detach().cpu().numpy()
+    on, dn = o.cpu().numpy(), d.cpu().numpy()
+    covered = cc.through_wall(tris, on, dn)
+    woop_hit = cc.woop_decision(bvh.woop, o, d)[0].cpu().numpy()
+    out = dict(rays=n, dense_off=same(kd, pd), bvh_off=same(kb, pb),
+               dense_through_wall=int((covered & ~kd.valid.cpu().numpy()).sum()),
+               bvh_through_wall=int((covered & ~kb.valid.cpu().numpy()).sum()),
+               woop_test_through_wall=int((covered & ~woop_hit).sum()),
+               dense_vs_bvh_tri=int((kd.valid != kb.valid).sum() + (kd.valid & kb.valid & (
+                   bvh.tri_index[kd.prim.clamp(min=0).long()]
+                   != bvh.tri_index[kb.prim.clamp(min=0).long()])).sum()))
+    diag = {}
+    for k, scale in enumerate(cc.SCALES):
+        tq, qo, qd, quad = cc.diagonal_quads(CRACK_QUADS, CRACK_QUAD_RAYS, scale, k)
+        woop = torch.from_numpy(woop_transform(tq[:, 0], tq[:, 1], tq[:, 2])).to(dev)
+        verts = vertex_rows(torch.from_numpy(tq)).to(dev)
+        qo_t, qd_t = torch.from_numpy(qo).to(dev), torch.from_numpy(qd).to(dev)
+        qb = build_bvh(tq)
+        hd = ops.intersect_dense(woop, qo_t, qd_t, verts=verts)
+        hp = ops.intersect_dense_plain(woop, qo_t, qd_t, verts=verts)
+        hb = bvh_ops.intersect_bvh(qb, qo_t, qd_t)
+        hbp = bvh_ops.intersect_bvh_plain(qb, qo_t, qd_t)
+        torch.cuda.synchronize()
+        own = torch.from_numpy(quad).to(dev)
+        own_b = qb.tri_index[torch.clamp(hb.prim, min=0).long()] // 2
+        diag[scale] = dict(
+            rays=int(qo.shape[0]), dense_missed=int((~hd.valid | (hd.prim // 2 != own)).sum()),
+            bvh_missed=int((~hb.valid | (own_b != own)).sum()), dense_off=same(hd, hp),
+            bvh_off=same(hb, hbp),
+            woop_test_missed=int((~cc.woop_decision(woop, qo_t, qd_t)[0]).sum()))
+    out["diagonals"] = diag
+    print(f"[crack] Cornell {CRACK_SIZE}x{CRACK_SIZE} pixel-centre rays and shared-diagonal "
+          f"rays ({CRACK_QUADS} quads x {CRACK_QUAD_RAYS} rays a scale): {json.dumps(out)}; {smi}")
+    _require(out["dense_off"] == 0 and out["bvh_off"] == 0,
+             f"the kernels differ from the plain watertight test on Cornell's rays: {out}")
+    _require(out["dense_through_wall"] == 0 and out["bvh_through_wall"] == 0,
+             f"rays pass through Cornell's walls: {out}")
+    for scale, r in diag.items():
+        _require(r["dense_missed"] == 0 and r["bvh_missed"] == 0,
+                 f"shared-diagonal rays at scale {scale} missed their quad: {r}")
+        _require(r["dense_off"] == 0 and r["bvh_off"] == 0,
+                 f"shared-diagonal rays at scale {scale}: kernel vs plain differ: {r}")
+    return out
+
+
+def _io_cases():
+    """tools/io_cases.py (numpy and PIL only), imported from the checkout."""
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools"))
+    import io_cases
+
+    return io_cases
+
+
+def _run(cmd, timeout=600):
+    """(exit code, wall s, stdout) of a subprocess of this checkout's
+    Python, run from the checkout's root."""
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, *cmd], capture_output=True, text=True, timeout=timeout,
+                       cwd=os.path.dirname(os.path.abspath(__file__)))
+    if r.returncode != 0:
+        print(f"[subprocess] {' '.join(cmd)} exited {r.returncode}:\n{r.stdout[-2000:]}\n"
+              f"{r.stderr[-4000:]}")
+    return r.returncode, time.perf_counter() - t0, r.stdout
+
+
+def _io_phase(big, big_pass, smi, reset_counts):
+    """Phase 26 (b)-(d): bench config 3's scene written as PLY and
+    `.serialized` files, loaded back through a Mitsuba XML and rendered at
+    config 3's settings; the OBJ loader at BIG_PIN's size; the media-and-maps
+    XML pinned to JAX's CPU means; the CLI and the inverse example as
+    subprocesses. `big_pass` is phase 15's config-3 pass (mean, rays,
+    seconds, seed 7). Returns the readings."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from cudatracerlib_tpu_torch.io import mitsuba as tmi
+    from cudatracerlib_tpu_torch.io import serialized as tser
+    from cudatracerlib_tpu_torch.ops import intersect_bvh as bvh_ops
+    from cudatracerlib_tpu_torch.ops import intersect_dense as ops
+    from cudatracerlib_tpu_torch.ops import shade_gather as sg_ops
+    from cudatracerlib_tpu_torch.render import path_tracer as pt
+    from cudatracerlib_tpu_torch.render import volpath
+    from cudatracerlib_tpu_torch.render import wavefront as wf
+    from cudatracerlib_tpu_torch.scene import bigscene
+
+    ic = _io_cases()
+    out = {}
+    marks = [time.perf_counter()]
+
+    def part(tag):
+        marks.append(time.perf_counter())
+        print(f"[wall] phase 26 ({tag}): {marks[-1] - marks[-2]:.1f} s")
+
+    def counts():
+        return {"intersect_dense": dict(ops.launches), "intersect_bvh": dict(bvh_ops.launches),
+                "packed_gather": dict(sg_ops.launches)}
+
+    tmp = tempfile.TemporaryDirectory()
+    d = tmp.name
+    # (b) bench config 3's scene through files
+    t0 = time.perf_counter()
+    tris, mat_id = bigscene._big_geometry(1_000_000, 0)
+    written = np.concatenate([tris[mat_id == m] for m in range(3)] + [ic.BIG_LIGHT])
+    written_mat = np.concatenate([np.full(int((mat_id == m).sum()), m) for m in range(3)]
+                                 + [np.full(2, 3)])
+    t_gen = time.perf_counter() - t0
+    loads, scenes = {}, {}
+    for fmt in ("ply", "serialized"):
+        t0 = time.perf_counter()
+        path = ic.write_big_scene(d, tris, mat_id, tser.save_serialized, fmt)
+        t_write = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        scenes[fmt] = tmi.load_mitsuba(path)
+        torch.cuda.synchronize()
+        loads[fmt] = dict(write_s=t_write, load_s=time.perf_counter() - t0,
+                          bytes=sum(os.path.getsize(os.path.join(d, f)) for f in os.listdir(d)
+                                    if f.endswith(fmt)))
+        print(f"[io] bench config 3 as {fmt}: written in {t_write:.2f} s "
+              f"({loads[fmt]['bytes']} bytes), loaded through the XML on the card in "
+              f"{loads[fmt]['load_s']:.2f} s")
+    loaded = scenes["ply"]
+    _require(loaded.bvh.woop.device.type == "cuda", "load_mitsuba did not build on the card")
+    order = loaded.bvh.tri_index.long().cpu().numpy()
+    for fmt, sc in scenes.items():
+        _require(torch.equal(sc.shading.verts.cpu(), torch.from_numpy(written[order]))
+                 and torch.equal(sc.bvh.tri_index.cpu(), loaded.bvh.tri_index.cpu()),
+                 f"the {fmt} scene's triangles are not the written ones")
+    # the loader's material ids: its default material 0, then one a shape in XML order
+    mat_of = loaded.shading.mat_id.cpu().numpy()
+    _require(np.array_equal(mat_of, written_mat[order] + 1),
+             "the loaded scene's materials are not the written shapes'")
+    # every difference from build_big_scene's arrays, by field
+    def rows(v):   # triangles as sorted byte strings: equal sets of equal triangles
+        return np.sort(np.ascontiguousarray(v, np.float32).reshape(v.shape[0], -1)
+                       .view(np.dtype((np.void, 36))).ravel())
+
+    bt = big.bvh.tri_index.long().cpu().numpy()
+    same_tris = np.array_equal(rows(written[:-2]), rows(tris))
+
+    def effective(scene, mids):
+        m, tx = scene.materials, scene.textures.color_a.cpu().numpy()
+        cols = {f: getattr(m, f).cpu().numpy()[mids] for f in
+                ("bsdf_type", "dist_type", "alpha_u", "alpha_v", "cond_eta", "cond_k")}
+        cols["albedo"] = tx[m.tex_albedo.cpu().numpy()[mids]]
+        cols["specular"] = tx[m.tex_specular.cpu().numpy()[mids]]
+        return cols
+
+    first = {mm: int(np.nonzero(written_mat[order] == mm)[0][0]) for mm in range(3)}
+    big_first = {mm: int(np.nonzero(mat_id[bt] == mm)[0][0]) for mm in range(3)}
+    eff_l = effective(loaded, mat_of[[first[mm] for mm in range(3)]])
+    eff_b = effective(big, big.shading.mat_id.cpu().numpy()[[big_first[mm] for mm in range(3)]])
+    eff_diff = [f for f in eff_l if not np.array_equal(eff_l[f], eff_b[f])]
+    diffs = dict(
+        woop_rows=[int(loaded.bvh.woop.shape[0]), int(big.bvh.woop.shape[0])],
+        triangles=[int(written.shape[0]), int(tris.shape[0])],
+        same_triangles_but_the_light=bool(same_tris),
+        triangle_order="by material (one shape each), then the light's 2",
+        light_geometry="2 emitting triangles (black diffuse) in the BVH, so BSDF-sampled "
+                       "paths reach the light (MIS); build_big_scene's light is its record only",
+        materials=[int(loaded.materials.bsdf_type.shape[0]),
+                   int(big.materials.bsdf_type.shape[0])],
+        textures=[int(loaded.textures.ttype.shape[0]), int(big.textures.ttype.shape[0])],
+        effective_material_fields_differing=eff_diff,
+        lights_equal=bool(torch.equal(loaded.lights.ltype.cpu(), big.lights.ltype.cpu())
+                          and torch.equal(loaded.lights.radiance.cpu(),
+                                          big.lights.radiance.cpu())),
+        camera_equal=bool(all(torch.equal(getattr(loaded.camera, f).cpu(),
+                                          getattr(big.camera, f).cpu())
+                              for f in ("to_world", "tan_half_fov", "aspect"))))
+    print(f"[io] loaded bench config 3 vs build_big_scene: {json.dumps(diffs)}; geometry "
+          f"generated in {t_gen:.2f} s")
+    _require(same_tris and not eff_diff and diffs["camera_equal"],
+             f"the loaded bench config 3 differs from build_big_scene beyond the listed: {diffs}")
+    cfg3 = pt.specialize_config(loaded, pt.PTConfig(max_depth=DEPTH))
+    wf.render_wavefront_counted(loaded, BIG_W, BIG_H, BIG_SPP, 0, cfg3)   # warm, as phase 15
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    img, rays = wf.render_wavefront_counted(loaded, BIG_W, BIG_H, BIG_SPP, 7, cfg3)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launch = counts()
+    m = float(img.mean())
+    rel = m / big_pass["mean"] - 1
+    print(f"[main path] loaded bench config 3 {BIG_W}x{BIG_H} spp {BIG_SPP} depth {DEPTH} "
+          f"seed 7: mean {m:.6f} (build_big_scene {big_pass['mean']:.6f}, {100 * rel:+.4f}%, "
+          f"gate {BIG_TOL:.0%}), rays {int(rays)} ({big_pass['rays']}), {dt:.4f} s "
+          f"({int(rays) / dt / 1e6:.3f} Mrays/s); launches {json.dumps(launch)}; {smi}")
+    _require(bool(torch.isfinite(img).all()) and abs(rel) <= BIG_TOL,
+             f"the loaded bench config 3 pass mean {m} is not within {BIG_TOL:.0%} of "
+             f"build_big_scene's {big_pass['mean']}")
+    _require(launch["intersect_bvh"]["closest"] > 0 and launch["intersect_bvh"]["any_hit"] > 0,
+             f"the loaded scene's pass did not launch intersect_bvh for both ray kinds: {launch}")
+    out.update(big=dict(loads=loads, diffs=diffs, mean=m, rel=rel, rays=int(rays), dt=dt,
+                        launches=launch))
+    del scenes
+    # the OBJ loader at BIG_PIN's size (pure-Python parsing)
+    ptris, pmat = bigscene._big_geometry(BIG_PIN["n_tris"], 0)
+    obj_path = os.path.join(d, "pin.obj")
+    t0 = time.perf_counter()
+    with open(obj_path, "w") as f:
+        base = 0
+        for mm in range(3):
+            verts, faces = ic.indexed(ptris[pmat == mm])
+            f.write("".join(f"v {x!r} {y!r} {z!r}\n" for x, y, z in verts.tolist()))
+            f.write(f"usemtl m{mm}\n")
+            f.write("".join(f"f {a + 1 + base} {b + 1 + base} {c + 1 + base}\n"
+                            for a, b, c in faces.tolist()))
+            base += len(verts)
+    t_obj_write = time.perf_counter() - t0
+    with open(os.path.join(d, "pin.xml"), "w") as f:
+        f.write('<scene version="0.5.0"><shape type="obj"><string name="filename" '
+                'value="pin.obj"/></shape><emitter type="constant"/></scene>')
+    t0 = time.perf_counter()
+    pin_scene = tmi.load_mitsuba(os.path.join(d, "pin.xml"))
+    torch.cuda.synchronize()
+    t_obj = time.perf_counter() - t0
+    pw = np.concatenate([ptris[pmat == mm] for mm in range(3)])
+    _require(torch.equal(pin_scene.shading.verts.cpu(),
+                         torch.from_numpy(pw[pin_scene.bvh.tri_index.long().cpu().numpy()])),
+             "the OBJ scene's triangles are not the written ones")
+    print(f"[io] OBJ at {BIG_PIN['n_tris']} tris target ({pw.shape[0]} triangles): written in "
+          f"{t_obj_write:.2f} s, loaded through an XML on the card in {t_obj:.2f} s "
+          f"(load_obj parses in Python)")
+    out["obj"] = dict(tris=int(pw.shape[0]), load_s=t_obj, write_s=t_obj_write)
+    del pin_scene
+    part("b")
+
+    # (c) the media-and-maps XML against JAX's CPU means
+    path_c = ic.write_media_maps(d)
+    t0 = time.perf_counter()
+    scene_c, media_c = tmi.load_mitsuba_full(path_c)
+    torch.cuda.synchronize()
+    t_c = time.perf_counter() - t0
+    p = ic.PIN
+    reset_counts()
+    img_c = pt.render(scene_c, p["size"], p["size"], p["spp"], p["seed"],
+                      pt.PTConfig(max_depth=p["max_depth"]))
+    vol_c = volpath.render_vol(scene_c, media_c, p["size"], p["size"], p["spp"], p["seed"],
+                               pt.PTConfig(max_depth=p["vol_depth"]))
+    torch.cuda.synchronize()
+    launch_c = counts()
+    pins_c = {}
+    for name, im in (("render", img_c), ("render_vol", vol_c)):
+        ref, tol = IO_PINS[name]
+        mc = float(im.detach().mean())
+        pins_c[name] = mc / ref - 1
+        print(f"[pin] media-and-maps {name} ({p['size']}x{p['size']}, {p['spp']} spp, seed "
+              f"{p['seed']}): mean {mc:.9f} (JAX {ref}, {100 * pins_c[name]:+.5f}%, gate "
+              f"{tol:.2%})")
+        _require(bool(torch.isfinite(im).all()) and abs(pins_c[name]) <= tol,
+                 f"media-and-maps {name} mean {mc} is not within {tol:.2%} of JAX's {ref}")
+    _require(launch_c["intersect_dense"]["closest"] > 0,
+             f"the media-and-maps renders did not launch intersect_dense: {launch_c}")
+    print(f"[io] media-and-maps XML loaded in {t_c:.2f} s ({int(scene_c.bvh.woop.shape[0])} "
+          f"rows, {int(media_c.active.sum())} medium); launches {json.dumps(launch_c)}")
+    out["media"] = dict(load_s=t_c, pins=pins_c, launches=launch_c)
+    part("c")
+
+    # (d) the entry points as subprocesses, in parallel
+    big_xml = os.path.join(d, "big_ply.xml")
+    ck, ck2 = os.path.join(d, "ck.npz"), os.path.join(d, "ck_straight.npz")
+    cli = ["-m", "cudatracerlib_tpu_torch.cli"]
+    small = ["--size", "64", "--spp", "4"]
+
+    def resumed():
+        a = _run(cli + ["cornell", "2", "PT", *small, "--checkpoint", ck, "--out",
+                        os.path.join(d, "ck2.png")])
+        b = _run(cli + ["cornell", "4", "PT", *small, "--checkpoint", ck, "--out",
+                        os.path.join(d, "ck4.png")])
+        return a[0] or b[0], a[1] + b[1], a[2] + b[2]
+
+    jobs = {
+        "cornell PT": lambda: _run(cli + ["cornell", "2", "PT", "--size", "256", "--spp", "16",
+                                          "--out", os.path.join(d, "cli_pt.png")]),
+        "bench config 3 XML fast": lambda: _run(cli + [big_xml, "2", "fast", "--size", "512",
+                                                       "--out", os.path.join(d, "cli_fast.png")]),
+        "checkpoint 2 + 2": resumed,
+        "straight 4": lambda: _run(cli + ["cornell", "4", "PT", *small, "--checkpoint", ck2,
+                                          "--out", os.path.join(d, "st4.png")]),
+        "inverse example": lambda: _run(["examples/inverse_rendering_torch.py", "--steps", "5"]),
+    }
+    with ThreadPoolExecutor(len(jobs)) as pool:
+        res = dict(zip(jobs, pool.map(lambda f: f(), jobs.values())))
+    for k, (rc, wall, stdout) in res.items():
+        passes = [ln for ln in stdout.splitlines() if ln.startswith(("pass ", "step "))]
+        print(f"[cli] {k}: exit {rc}, {wall:.1f} s; {' | '.join(passes)}")
+        _require(rc == 0, f"{k} exited {rc}")
+    for png in ("cli_pt.png", "cli_fast.png", "ck4.png", "st4.png"):
+        _require(os.path.getsize(os.path.join(d, png)) > 0, f"{png} was not written")
+    _require(all(any(ln.startswith("pass ") for ln in res[k][2].splitlines())
+                 for k in ("cornell PT", "bench config 3 XML fast")),
+             "the CLI printed no pass times")
+    za, zb = np.load(ck, allow_pickle=True), np.load(ck2, allow_pickle=True)
+    ck_diff = float(np.abs(za["leaf_0"] - zb["leaf_0"]).max())
+    print(f"[cli] --checkpoint: 2 passes resumed to {int(za['leaf_1'])} vs a straight "
+          f"{int(zb['leaf_1'])}: max abs difference {ck_diff}")
+    _require(ck_diff == 0.0 and int(za["leaf_1"]) == 4, "the resumed run differs from a straight run")
+    losses = [float(x) for x in res["inverse example"][2].split("losses:")[1].split()]
+    print(f"[cli] inverse example losses {losses}")
+    _require(len(losses) == 5 and losses[-1] < losses[0], f"the inverse loss did not fall: {losses}")
+    out["cli"] = dict(walls={k: v[1] for k, v in res.items()}, checkpoint_diff=ck_diff,
+                      losses=losses)
+    tmp.cleanup()
+    part("d")
+    return out
+
+
 def _capture_intersects(fn, limit=64):
     """(fn's result, [(kind, args)]): the arguments of the first `limit`
     intersect_dense / intersect_bvh wrapper calls in one call of `fn`
     (rays and ranges cloned), kind "dense" or "bvh"; args as the wrappers
-    take them, the dense kernel's boxes last."""
+    take them, the dense kernel's boxes and vertex rows last."""
     import torch
     from cudatracerlib_tpu_torch.ops import intersect_bvh as bvh_ops
     from cudatracerlib_tpu_torch.ops import intersect_dense as ops
@@ -2442,11 +2913,12 @@ def _capture_intersects(fn, limit=64):
     seen, real_dense, real_bvh = [], ops.intersect_dense, bvh_ops.intersect_bvh
     keep = lambda x: x.clone() if isinstance(x, torch.Tensor) else x  # noqa: E731
 
-    def dense(woop, o, d, t_min=1e-4, t_max=ops.T_MAX_CLAMP, any_hit=False, boxes=None):
+    def dense(woop, o, d, t_min=1e-4, t_max=ops.T_MAX_CLAMP, any_hit=False, boxes=None,
+                      *, verts):
         if len(seen) < limit:
             seen.append(("dense", (woop, keep(o), keep(d), keep(t_min), keep(t_max), any_hit,
-                                   boxes)))
-        return real_dense(woop, o, d, t_min, t_max, any_hit=any_hit, boxes=boxes)
+                                   boxes, verts)))
+        return real_dense(woop, o, d, t_min, t_max, any_hit=any_hit, boxes=boxes, verts=verts)
 
     def bvh(b, o, d, t_min=1e-4, t_max=torch.inf, any_hit=False):
         if len(seen) < limit:
@@ -2474,10 +2946,11 @@ def _empty_share(t_min, t_max):
 def _instanced_vs_flat(label, inst, flat, o, d):
     """Camera-ray hits of an instanced scene against its flattened twin: on
     >= INSTANCE_AGREE of the rays valid equal and, where both hit, t within
-    2e-4 (rtol and atol, tests/test_instances.py's gate). The Woop test is
-    not watertight: a ray through the crack between two triangles of a
-    closed mesh can meet another surface behind in one scene and not in the
-    other, so such rays count against the share. Also the intersect
+    2e-4 (rtol and atol, tests/test_instances.py's gate). An instance's rays
+    are its object-space rays, rounded otherwise than the flattened scene's,
+    so a ray on an edge can be decided otherwise (the JAX package's test,
+    not watertight, let such rays through): they count against the share.
+    Also the intersect
     launches of one closest-hit and one any-hit query."""
     import torch
     from cudatracerlib_tpu_torch.ops import intersect_bvh as bvh_ops
@@ -2580,10 +3053,10 @@ def _dynamic_phase(smi, reset_counts):
 
     def dense_at(label, captured, reps=10):
         """intersect_dense held to its plain version on captured arguments."""
-        woop, o, d, t_min, t_max, _, boxes = captured
+        woop, o, d, t_min, t_max, _, boxes, verts = captured
         print(f"[ranges] {label}: {_empty_share(t_min, t_max):.4f} of the lanes have an empty "
               f"range (missed the instance's box)")
-        return _compare(label, woop, o, d, t_min, t_max, reps, boxes)
+        return _compare(label, woop, o, d, t_min, t_max, reps, boxes, verts)
 
     pins, runs, dense_r, bvh_r = {}, {}, {}, {}
 
@@ -2727,7 +3200,8 @@ def _dynamic_phase(smi, reset_counts):
         rebuilt = build_bvh(posed.shading.verts.detach().cpu().numpy())
         tri_re = posed.shading.verts.detach()[rebuilt.tri_index.long()]
         woop_re = refit_mod.woop_transform_device(tri_re)
-        rebuilt = rebuilt._replace(woop=woop_re, chunk_boxes=bvh_mod.chunk_boxes(tri_re, woop_re))
+        rebuilt = rebuilt._replace(woop=woop_re, chunk_boxes=bvh_mod.chunk_boxes(tri_re, woop_re),
+                                   tri_verts=bvh_mod.vertex_rows(tri_re))
         o, d, _, _ = pt.camera_rays(posed, W, H, SPP, 3)
         from cudatracerlib_tpu_torch.accel import traversal
         h_refit = traversal.intersect_auto(posed.bvh, o, d)
@@ -2744,7 +3218,7 @@ def _dynamic_phase(smi, reset_counts):
         if name == "dense":
             dense_r["refitted sphere"] = _compare("refitted sphere camera rays (refitted boxes)",
                                                   posed.bvh.woop, o, d, 1e-4, torch.inf, 10,
-                                                  posed.bvh.chunk_boxes)
+                                                  posed.bvh.chunk_boxes, posed.bvh.tri_verts)
         else:
             bvh_r["refitted sphere"] = _compare_bvh("refitted sphere camera rays", posed.bvh, o,
                                                     d, 1e-4, torch.inf, 10)
@@ -2890,9 +3364,10 @@ def _count_lanes(fn):
     lanes = {"closest": 0, "any_hit": 0}
     real_dense, real_bvh = ops.intersect_dense, bvh_ops.intersect_bvh
 
-    def dense(woop, o, d, t_min=1e-4, t_max=ops.T_MAX_CLAMP, any_hit=False, boxes=None):
+    def dense(woop, o, d, t_min=1e-4, t_max=ops.T_MAX_CLAMP, any_hit=False, boxes=None,
+                      *, verts):
         lanes["any_hit" if any_hit else "closest"] += o.shape[0]
-        return real_dense(woop, o, d, t_min, t_max, any_hit=any_hit, boxes=boxes)
+        return real_dense(woop, o, d, t_min, t_max, any_hit=any_hit, boxes=boxes, verts=verts)
 
     def bvh(b, o, d, t_min=1e-4, t_max=torch.inf, any_hit=False):
         lanes["any_hit" if any_hit else "closest"] += o.shape[0]
@@ -3025,8 +3500,8 @@ def _engines_phase(big, smi, reset_counts):
     _, cap = _capture_intersects(lambda: sr.render_spectral(disp, W, H, SPP, 0, cfg), limit=2)
     for (kind, args), label in zip(cap, ("spectral caustic camera rays",
                                          "spectral caustic shadow rays")):
-        woop, o, d, t_min, t_max, _, boxes = args
-        dense_r[label] = _compare(label, woop, o, d, t_min, t_max, 10, boxes)
+        woop, o, d, t_min, t_max, _, boxes, verts = args
+        dense_r[label] = _compare(label, woop, o, d, t_min, t_max, 10, boxes, verts)
     del cap
     part("a")
 
@@ -3223,7 +3698,8 @@ def _engines_phase(big, smi, reset_counts):
                                                                     with_counts=True)
         torch.cuda.synchronize()
         plain_out.update(ms=(time.perf_counter() - t0) * 1e3, inner=int(n_inner.sum()),
-                         leaf=int(n_leaf.sum()), tpass=int(n_tpass.sum()))
+                         leaf=int(n_leaf.sum()), tpass=int(n_tpass.sum()),
+                         hits=int(hit.valid.sum()))
         return hit
 
     bvh_ops.intersect_bvh = plain_route
@@ -3238,9 +3714,9 @@ def _engines_phase(big, smi, reset_counts):
     _require(n_off <= FAST_OFF_MAX, f"render_fast: {n_off} pixels differ from the plain route "
                                     f"(at most {FAST_OFF_MAX}, coincident ties)")
     err_fast = float(torch.where(off, 0.0, ddep).max())
-    flops = (FLOPS_BVH_INNER * plain_out["inner"] + FLOPS_WOOP_T * LEAF_SIZE * plain_out["leaf"]
-             + FLOPS_WOOP_UV * plain_out["tpass"])
-    nbytes = fw * fw * (24 + 8 + 16) + 4 * (bb.nodes.numel() + bb.woop.numel())
+    flops = _bvh_flops(plain_out["inner"], plain_out["leaf"], plain_out["tpass"],
+                       plain_out["hits"])
+    nbytes = fw * fw * (24 + 8 + 16) + 4 * bb.nodes.numel() + ROW_BYTES * bb.woop.shape[0]
     bound_fast = _bound(flops, nbytes)
     best = min(reps)
     prof_fast = _profile("render_fast bigscene 1024^2", lambda: realtime.render_fast(big, fw, fw),
@@ -3508,7 +3984,7 @@ def _multidevice_phase(cornell, caustic, smi):
                                        with_stats=True)
         dense_args, _, _ = _capture_render(lambda: fn(cornell, 0))
         dense = {f"sharded {k}": _compare(f"sharded cornell {k}", c[0], c[1], c[2], c[3], c[4],
-                                          20, c[6])
+                                          20, c[6], c[7])
                  for k, c in dense_args.items() if k != "first-bounce rays"}
         dt_a, (img_a, rays_a), launch_a = _counted(lambda: fn(cornell, SHARD_SEED))
         mean_a, rays_a = float(img_a.mean()), int(rays_a)
@@ -3600,7 +4076,7 @@ def _multidevice_phase(cornell, caustic, smi):
                  f"the sharded PPM pass called photon_density {len(density_calls)} times and "
                  f"packed_gather {len(ppm_gathers)} times")
         dense.update({f"sharded ppm {k}": _compare(f"sharded ppm {k}", c[0], c[1], c[2], c[3],
-                                                   c[4], 10, c[6])
+                                                   c[4], 10, c[6], c[7])
                       for k, c in ppm_dense.items()})
         dens_err = max(_check_density(f"sharded ppm {m}", a)
                        for m, a in zip(("global map", "caustic map"), density_calls))
@@ -3735,7 +4211,7 @@ def main():
     from cudatracerlib_tpu_torch import entry as entry_mod
     from cudatracerlib_tpu_torch import native
     from cudatracerlib_tpu_torch.accel import bvh as bvh_mod
-    from cudatracerlib_tpu_torch.accel.bvh import build_bvh, tree_depth, woop_transform
+    from cudatracerlib_tpu_torch.accel.bvh import build_bvh, tree_depth, vertex_rows, woop_transform
     from cudatracerlib_tpu_torch.accel.traversal import STACK_DEPTH
     from cudatracerlib_tpu_torch.ops import intersect_bvh as bvh_ops
     from cudatracerlib_tpu_torch.ops import intersect_dense as ops
@@ -3794,14 +4270,16 @@ def main():
     _require(scene.bvh.woop.device.type == "cuda", "cornell_box() did not build on the card")
     cfg = pt.specialize_config(scene, pt.PTConfig(max_depth=DEPTH))
     o, d, _, sampler = pt.camera_rays(scene, W, H, SPP, 3)
-    woop, boxes = scene.bvh.woop, scene.bvh.chunk_boxes
-    cam = _compare("cornell camera rays", woop, o, d, 1e-4, torch.inf, 50, boxes)
+    woop, boxes, verts = scene.bvh.woop, scene.bvh.chunk_boxes, scene.bvh.tri_verts
+    cam = _compare("cornell camera rays", woop, o, d, 1e-4, torch.inf, 50, boxes, verts)
     bounce = _compare("cornell first-bounce rays", woop,
-                      *_first_bounce(scene, cfg, o, d, sampler), 1e-4, torch.inf, 50, boxes)
+                      *_first_bounce(scene, cfg, o, d, sampler), 1e-4, torch.inf, 50, boxes,
+                      verts)
 
     tris, so, sd = _soup(0, 4096, 0.08, dev)
     soup = torch.from_numpy(woop_transform(tris[:, 0], tris[:, 1], tris[:, 2])).to(dev)
-    soup_r = _compare("soup4096", soup, so, sd, 1e-4, 2.0, 10)
+    soup_r = _compare("soup4096", soup, so, sd, 1e-4, 2.0, 10, None,
+                      vertex_rows(torch.from_numpy(tris)).to(dev))
 
     # the PPM path: intersect_dense's and photon_density's arguments, captured
     # in bench config 5's warm pass (seed 0; 9 times the pass at seed 7)
@@ -3809,7 +4287,7 @@ def main():
     _require(caustic.bvh.woop.device.type == "cuda", "caustic_scene() did not build on the card")
     pcfg = ppm.PPMConfig()
     ppm_args, captured = _capture_ppm(caustic, pcfg)
-    ppm_r = {label: _compare(label, c[0], c[1], c[2], c[3], c[4], 20, c[6])
+    ppm_r = {label: _compare(label, c[0], c[1], c[2], c[3], c[4], 20, c[6], c[7])
              for label, c in ppm_args.items()}
     for label in ("ppm photon rays", "ppm eye rays"):  # yardstick, not gated
         c = ppm_args[label]
@@ -4145,7 +4623,7 @@ def main():
     print(f"[main path] bdpt pinned {bp}: mean {bd_mean:.9f} (ref {REF_BDPT_MEAN}, "
           f"{100 * (bd_mean / REF_BDPT_MEAN - 1):+.5f}%), rays {int(bd_rays)} (ref {REF_BDPT_RAYS})")
     bdpt_args, bdpt_gathers, bdpt_splats = _capture_bdpt(caustic, bcfg)
-    bdpt_r = {label: _compare(label, c[0], c[1], c[2], c[3], c[4], 20, c[6])
+    bdpt_r = {label: _compare(label, c[0], c[1], c[2], c[3], c[4], 20, c[6], c[7])
               for label, c in bdpt_args.items()}
     S = bcfg.s_max
     g_eye = _check_gather_at("bdpt eye hits", *bdpt_gathers[2 * S])
@@ -4253,7 +4731,21 @@ def main():
     # ---- 25. the spectral, guided, realtime and AOV engines, generate_fits ----
     en = _engines_phase(big, smi, reset_counts)
     lap(25)
-    print(f"[wall] chip_smoke.py phases 1-25: {time.perf_counter() - t_start:.1f} s after the "
+
+    # ---- 26. the watertight test; scene files loaded and rendered; the entry points ----
+    crack = _crack_part(smi)
+    print(f"[time] rows 1-2 at their main-path shapes (repaired test): intersect_dense Cornell "
+          f"2^20 x 60 {cam['ms']:.4f} ms, PPM photon 2^17 x 3,160 "
+          f"{ppm_r['ppm photon rays']['ms']:.4f} ms; intersect_bvh glossy camera "
+          f"{ms_bvh:.4f} ms, bigscene camera {big_cam['ms']:.4f} ms; AOV means worst "
+          f"{en['runs']['aovs']['worst']:.3g} from JAX's (gate {AOV_TOL}); {smi}")
+    part26 = time.perf_counter()
+    io = _io_phase(big, dict(mean=float(img3.mean()), rays=int(rays3), dt=dt3), smi,
+                   reset_counts)
+    print(f"[wall] phase 26 (a) and (b)-(d): {part26 - marks[-1]:.1f} s and "
+          f"{time.perf_counter() - part26:.1f} s")
+    lap(26)
+    print(f"[wall] chip_smoke.py phases 1-26: {time.perf_counter() - t_start:.1f} s after the "
           f"imports")
     enl, enr = en["launches"], en["runs"]
     dyr = dy["runs"]
@@ -4364,6 +4856,12 @@ def main():
                                                                    else r[v])
                for k, r in en["dense"].items()
                for f, v in (("ms", "ms"), ("plain_ms", "plain_ms"), ("bound_ms", "bound"))},
+            "crack_rays_through_wall": crack["dense_through_wall"],
+            "crack_woop_test_through_wall": crack["woop_test_through_wall"],
+            "crack_diagonal_rays_missed": sum(r["dense_missed"]
+                                              for r in crack["diagonals"].values()),
+            "crack_off_plain": crack["dense_off"],
+            "media_maps_launches": sum(io["media"]["launches"]["intersect_dense"].values()),
         },
         {
             "name": "intersect_bvh",
@@ -4408,6 +4906,10 @@ def main():
             "render_fast_bound_ms": enr["fast"]["bound"][0],
             "render_fast_bound_by": enr["fast"]["bound"][1],
             "render_fast_pass_ms": enr["fast"]["dt"] * 1e3,
+            "crack_rays_through_wall": crack["bvh_through_wall"],
+            "crack_diagonal_rays_missed": sum(r["bvh_missed"] for r in crack["diagonals"].values()),
+            "crack_off_plain": crack["bvh_off"],
+            "loaded_bigscene_launches": sum(io["big"]["launches"]["intersect_bvh"].values()),
         },
         {
             "name": "packed_gather",

@@ -12,6 +12,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import subprocess
 import threading
 
@@ -23,9 +24,16 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 def build_shared(src: str, name: str, cmd_prefix: list[str]) -> str:
     """Compile `src` into `_build/<name>-<hash>.so` with
-    `cmd_prefix + [src, "-o", out]`; returns the library path."""
+    `cmd_prefix + [src, "-o", out]`; returns the library path. The hash
+    covers the source, the headers it includes by quoted name from its own
+    directory, and the command."""
     with open(src, "rb") as f:
-        key = hashlib.sha256(f.read() + " ".join(cmd_prefix).encode()).hexdigest()[:16]
+        text = f.read()
+    h = hashlib.sha256(text + " ".join(cmd_prefix).encode())
+    for inc in re.findall(rb'#include "([^"]+)"', text):
+        with open(os.path.join(os.path.dirname(src), inc.decode()), "rb") as f:
+            h.update(f.read())
+    key = h.hexdigest()[:16]
     os.makedirs(BUILD_DIR, exist_ok=True)
     so = os.path.join(BUILD_DIR, f"{name}-{key}.so")
     if not os.path.exists(so):

@@ -19,3 +19,44 @@ def tree_map(fn, obj):
 def tree_to(obj, device):
     """Copy of `obj` with every tensor leaf moved to `device`."""
     return tree_map(lambda t: t.to(device), obj)
+
+
+def tree_leaves_with_paths(obj, prefix: tuple = ()):
+    """[(path, leaf)] in the JAX package's `jax.tree_util` order: a dict's
+    items by sorted key, a NamedTuple's fields, a tuple's or list's items in
+    order; None has no leaves; anything else is a leaf. A path is the JAX
+    key strings joined by "/" ("['film']", ".woop", "[0]")."""
+    if obj is None:
+        return []
+    if isinstance(obj, dict):
+        items = [(f"[{k!r}]", obj[k]) for k in sorted(obj)]
+    elif isinstance(obj, tuple) and hasattr(obj, "_fields"):
+        items = [(f".{f}", v) for f, v in zip(obj._fields, obj)]
+    elif isinstance(obj, (tuple, list)):
+        items = [(f"[{i}]", v) for i, v in enumerate(obj)]
+    else:
+        return [("/".join(prefix), obj)]
+    out = []
+    for key, v in items:
+        out += tree_leaves_with_paths(v, prefix + (key,))
+    return out
+
+
+def tree_unflatten(like, leaves):
+    """`like` with its leaves (in `tree_leaves_with_paths` order) replaced
+    by `leaves`, in order."""
+    it = iter(leaves)
+
+    def build(obj):
+        if obj is None:
+            return None
+        if isinstance(obj, dict):
+            new = {k: build(obj[k]) for k in sorted(obj)}
+            return {k: new[k] for k in obj}
+        if isinstance(obj, tuple) and hasattr(obj, "_fields"):
+            return type(obj)(*(build(v) for v in obj))
+        if isinstance(obj, (tuple, list)):
+            return type(obj)(build(v) for v in obj)
+        return next(it)
+
+    return build(like)

@@ -5,7 +5,10 @@ result is a NamedTuple of flat tensors with the JAX package's layout:
 16-float inner nodes holding both child boxes (child codes bitcast in lanes
 12/13), and leaves of exactly LEAF_SIZE triangles padded by duplicating the
 first one, so duplicate Woop rows are common. The dense intersector's chunk
-boxes (one padded AABB per CHUNK_ROWS consecutive Woop rows) ride along.
+boxes (one padded AABB per CHUNK_ROWS consecutive Woop rows) ride along, and
+so do the rows' own vertices (`tri_verts`), which the watertight edge test
+reads: two rows that share an edge hold its two vertices bit for bit, so
+their edge functions are exact negatives of each other.
 """
 from __future__ import annotations
 
@@ -40,6 +43,8 @@ class BVH(NamedTuple):
     world_min: np.ndarray     # (3,) host-side bounds
     world_max: np.ndarray     # (3,)
     chunk_boxes: torch.Tensor | None = None  # (ceil(T_padded / CHUNK_ROWS), 8) float32
+    tri_verts: torch.Tensor | None = None    # (T_padded, 12) float32 `vertex_rows` of the rows;
+    #                                          set wherever a BVH is made (build_bvh, refit, convert)
 
     def to(self, device) -> "BVH":
         return tree_to(self, device)
@@ -129,6 +134,13 @@ def chunk_boxes_from_woop(woop: torch.Tensor) -> torch.Tensor:
     return chunk_boxes(woop_vertices(woop)[0], woop)
 
 
+def vertex_rows(tris: torch.Tensor) -> torch.Tensor:
+    """(T, 12) float32 vertex rows of (T, 3, 3) triangles: v0, v1, v2 in
+    lanes 0-2, 4-6 and 8-10 (a float4 each), zeros in lanes 3, 7, 11."""
+    t = tris.detach().to(torch.float32)
+    return torch.cat([t, t.new_zeros(t.shape[0], 3, 1)], -1).reshape(-1, 12).contiguous()
+
+
 def build_bvh(vertices: np.ndarray, with_host: bool = False, device="cuda"):
     """Binned-SAH BVH over triangles given as (T, 3, 3) vertices, built by
     the native SBVH builder on the host, its tensors on `device` (the card
@@ -150,6 +162,7 @@ def build_bvh(vertices: np.ndarray, with_host: bool = False, device="cuda"):
         world_max=tris.max(axis=1).max(axis=0),
         chunk_boxes=chunk_boxes(torch.from_numpy(tris[order]),
                                 torch.from_numpy(woop)).to(device),
+        tri_verts=vertex_rows(torch.from_numpy(tris[order])).to(device),
     )
     if with_host:
         return bvh, {"nodes": node_arr, "woop": woop, "root": root,

@@ -9,10 +9,11 @@ which keeps the whole animate -> refit -> trace step on the card and
 differentiable in the vertices.
 
 The port's BVH also carries the dense kernel's chunk boxes, which JAX's
-lacks: a refit that moved the vertices but kept the old boxes would lose
-hits without an error, so `refit_bvh` rebuilds them from the refitted rows
-on the device (`bvh.chunk_boxes`; an ill-conditioned row opens its chunk's
-box to all of space, the safe side). `world_min` / `world_max` stay host
+lacks, and the rows' vertices for the watertight test: a refit that moved
+the vertices but kept the old boxes would lose hits without an error, so
+`refit_bvh` rebuilds both from the refitted vertices on the device
+(`bvh.chunk_boxes`, `bvh.tri_verts`; an ill-conditioned row opens its
+chunk's box to all of space, the safe side). `world_min` / `world_max` stay host
 numpy arrays, as the photon engines read them there: one read of 6 floats
 from the device a refit.
 """
@@ -23,7 +24,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from .bvh import BVH, LEAF_SIZE, chunk_boxes
+from .bvh import BVH, LEAF_SIZE, chunk_boxes, vertex_rows
 
 
 def _cross(a, b):
@@ -113,4 +114,4 @@ def refit_bvh(bvh: BVH, plan: RefitPlan, tri_verts) -> BVH:
 
     bounds = torch.stack([lo_t.amin(0), hi_t.amax(0)]).cpu().numpy()
     return bvh._replace(nodes=nodes, woop=woop, world_min=bounds[0], world_max=bounds[1],
-                        chunk_boxes=chunk_boxes(v, woop.detach()))
+                        chunk_boxes=chunk_boxes(v, woop.detach()), tri_verts=vertex_rows(v))

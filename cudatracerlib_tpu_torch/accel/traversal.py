@@ -2,6 +2,13 @@
 (port of cudatracerlib_tpu/accel/traversal.py: Hit, intersect_woop,
 intersect, intersect_brute_force, refine_hit, intersect_auto, occluded).
 
+Whether a ray crosses a triangle is decided by the watertight edge test of
+Woop, Benthin and Wald (JCGT 2013) on the triangle's vertex rows
+(`BVH.tri_verts`), and t, u, v are the Woop rows', as in the JAX package.
+The JAX package decides with the Woop rows' u, v, which two triangles round
+apart: a ray on a quad's shared diagonal can fail `u + v <= 1` in both and
+pass through a closed wall. The port deliberately differs from it there.
+
 Scenes up to DENSE_MAX_TRIS padded triangles go through the dense
 intersector (ops/intersect_dense.py), larger ones through the BVH stack walk
 (ops/intersect_bvh.py); each runs its CUDA kernel on the card and its plain
@@ -35,31 +42,109 @@ class Hit(NamedTuple):
     valid: torch.Tensor  # (B,) bool
 
 
-def _woop_test(r, o, d, t_min, t_max):
-    """Woop test on components: r is 12 broadcastable tensors (rows u, v, w
-    of the Woop matrix), o and d are 3 each."""
+def _shear(d):
+    """The watertight test's per-ray frame (Woop, Benthin and Wald, JCGT
+    2013), on the 3 components of d: kz the axis of the largest |d[k]| (the
+    first on a tie), kx and ky the next two in cyclic order, swapped where
+    d[kz] < 0, Sx = d[kx] / d[kz] and Sy = d[ky] / d[kz]. Returns the two
+    rows (cx, cy) of the shear, 3 coefficients each: 1 at kx (ky), -Sx (-Sy)
+    at kz, 0 at the third axis, so that cx . a is the paper's a[kx] - Sx a[kz]
+    (products with 1 and 0 are exact)."""
+    ax, ay, az = (c.abs() for c in d)
+    kz = torch.where((ax >= ay) & (ax >= az), 0, torch.where(ay >= az, 1, 2))
+    kx = torch.where(kz == 2, 0, kz + 1)
+    ky = torch.where(kx == 2, 0, kx + 1)
+
+    def pick(k):
+        return torch.where(k == 0, d[0], torch.where(k == 1, d[1], d[2]))
+
+    dz = pick(kz)
+    flip = dz < 0
+    kx, ky = torch.where(flip, ky, kx), torch.where(flip, kx, ky)
+    sx, sy = pick(kx) / dz, pick(ky) / dz
+    cx = [torch.where(kx == c, 1.0, torch.where(kz == c, -sx, 0.0)) for c in range(3)]
+    cy = [torch.where(ky == c, 1.0, torch.where(kz == c, -sy, 0.0)) for c in range(3)]
+    return cx, cy
+
+
+def _edge_functions(p, o, cx, cy):
+    """The three edge functions U, V, W of the sheared triangle; p is the 12
+    components of a vertex row (`accel/bvh.vertex_rows`), o the ray origin's
+    3. Each vertex is translated by -o and sheared, ((c0 a0 + c1 a1) + c2 a2);
+    U = Cx By - Cy Bx, V = Ax Cy - Ay Cx, W = Bx Ay - By Ax. Two triangles
+    that share an edge share its sheared vertices, so the edge's function is
+    the same number in both, or its exact negative."""
+    def project(v):
+        a = [v[k] - o[k] for k in range(3)]
+        return (cx[0] * a[0] + cx[1] * a[1] + cx[2] * a[2],
+                cy[0] * a[0] + cy[1] * a[1] + cy[2] * a[2])
+
+    (Ax, Ay), (Bx, By), (Cx, Cy) = project(p[0:3]), project(p[4:7]), project(p[8:11])
+    return (Ax, Ay, Bx, By, Cx, Cy), (Cx * By - Cy * Bx, Ax * Cy - Ay * Cx, Bx * Ay - By * Ax)
+
+
+def _watertight(p, o, d, need):
+    """Whether each ray crosses its row's triangle: the watertight test's
+    decision with the paper's double-precision fallback. A float32 edge
+    function that is not zero has the sign of the exact one (each product is
+    rounded the same way); one that is zero is recomputed in float64, where
+    the products of float32 values are exact. So the signs are exact, and a
+    ray that crosses an edge two triangles share is inside one of them, or
+    on the edge of both. Inside means no two signs are opposite and not all
+    three are zero (a triangle seen edge-on). `need` masks the lanes whose
+    decision is read (the fallback runs only on those)."""
+    cx, cy = _shear(d)
+    xy, (U, V, W) = _edge_functions(p, o, cx, cy)
+    zero = ((U == 0) | (V == 0) | (W == 0)) & need
+    if bool(zero.any()):
+        Ax, Ay, Bx, By, Cx, Cy = (torch.broadcast_to(c, zero.shape)[zero].double() for c in xy)
+        U, V, W = (torch.broadcast_to(x, zero.shape).clone() for x in (U, V, W))
+        U[zero] = torch.sign(Cx * By - Cy * Bx).float()
+        V[zero] = torch.sign(Ax * Cy - Ay * Cx).float()
+        W[zero] = torch.sign(Bx * Ay - By * Ax).float()
+    inside = ((U >= 0) & (V >= 0) & (W >= 0)) | ((U <= 0) & (V <= 0) & (W <= 0))
+    return inside & ((U != 0) | (V != 0) | (W != 0))
+
+
+def woop_tuv(r, o, d):
+    """t, u, v of the Woop rows on components: r is 12 broadcastable tensors
+    (rows u, v, w of the Woop matrix), o and d 3 each."""
     oz = r[8] * o[0] + r[9] * o[1] + r[10] * o[2] + r[11]
     dz = r[8] * d[0] + r[9] * d[1] + r[10] * d[2]
     inv_dz = 1.0 / torch.where(dz.abs() < 1e-20, 1e-20, dz)
     t = -oz * inv_dz
     u = r[0] * o[0] + r[1] * o[1] + r[2] * o[2] + r[3] + t * (r[0] * d[0] + r[1] * d[1] + r[2] * d[2])
     v = r[4] * o[0] + r[5] * o[1] + r[6] * o[2] + r[7] + t * (r[4] * d[0] + r[5] * d[1] + r[6] * d[2])
-    hit = ((t > t_min) & (t < t_max) & (u >= 0.0) & (v >= 0.0)
-           & (u + v <= 1.0) & torch.isfinite(t))
-    return t, u, v, hit
+    return t, u, v
 
 
-def intersect_woop(woop_rows, o, d, t_min, t_max):
-    """Woop ray/triangle test, broadcast over leading dims.
+def _woop_test(r, p, o, d, t_min, t_max):
+    """Ray / triangle test on components: r is 12 broadcastable tensors (rows
+    u, v, w of the Woop matrix), p the 12 of the vertex row, o and d 3 each.
+    t, u and v are the Woop rows' (what `refine_hit` differentiates); whether
+    the ray crosses the triangle is the watertight edge test's, so that no
+    ray slips between two triangles that share an edge (the Woop test's
+    u >= 0, v >= 0, u + v <= 1 rounds each triangle's u and v on its own,
+    and both could reject a ray on their shared diagonal)."""
+    t, u, v = woop_tuv(r, o, d)
+    t_ok = (t > t_min) & (t < t_max) & torch.isfinite(t)
+    return t, u, v, t_ok & _watertight(p, o, d, t_ok)
 
-    woop_rows: (..., 12); o, d: (..., 3). Returns (t, u, v, hit_mask)."""
-    return _woop_test(woop_rows.unbind(-1), o.unbind(-1), d.unbind(-1), t_min, t_max)
+
+def intersect_woop(woop_rows, o, d, t_min, t_max, verts):
+    """Ray / triangle test, broadcast over leading dims.
+
+    woop_rows: (..., 12); verts: their (..., 12) vertex rows
+    (`accel/bvh.vertex_rows`); o, d: (..., 3). Returns (t, u, v, hit_mask)."""
+    return _woop_test(woop_rows.unbind(-1), verts.unbind(-1), o.unbind(-1), d.unbind(-1),
+                      t_min, t_max)
 
 
-def intersect_brute_force(woop, o, d, t_min=1e-4, t_max=torch.inf) -> Hit:
-    """O(B*T) all-triangles closest hit over a (T, 12) woop table; the
-    lowest triangle index wins a tie. Rays are swept in chunks so the
-    (rays, triangles) temporaries stay bounded."""
+def intersect_brute_force(woop, o, d, t_min=1e-4, t_max=torch.inf, *, verts) -> Hit:
+    """O(B*T) all-triangles closest hit over a (T, 12) woop table and its
+    (T, 12) vertex rows (`accel/bvh.vertex_rows`); the lowest triangle index
+    wins a tie. Rays are swept in chunks so the (rays,
+    triangles) temporaries stay bounded."""
     B, T = o.shape[0], woop.shape[0]
     t_min = torch.as_tensor(t_min, dtype=torch.float32, device=o.device).expand(B)
     t_max = torch.as_tensor(t_max, dtype=torch.float32, device=o.device).expand(B)
@@ -69,12 +154,13 @@ def intersect_brute_force(woop, o, d, t_min=1e-4, t_max=torch.inf) -> Hit:
                    valid=empty.to(torch.bool))
     # contiguous columns: the (chunk, T) products then read unit-stride rows
     r = [c[None, :] for c in woop.t().contiguous()]
+    p = [c[None, :] for c in verts.t().contiguous()]
     oc, dc = o.t().contiguous(), d.t().contiguous()
     chunk = max(1, _CHUNK_ELEMS.get(o.device.type, _CHUNK_ELEMS_DEFAULT) // max(T, 1))
     out_t, out_p, out_b = [], [], []
     for s in range(0, B, chunk):
         sl = slice(s, s + chunk)
-        t, u, v, h = _woop_test(r, [x[sl, None] for x in oc], [x[sl, None] for x in dc],
+        t, u, v, h = _woop_test(r, p, [x[sl, None] for x in oc], [x[sl, None] for x in dc],
                                 t_min[sl, None], t_max[sl, None])
         best = torch.where(h, t, torch.inf).argmin(-1, keepdim=True)
         hit_any = h.any(-1)
@@ -117,7 +203,7 @@ def intersect(bvh, o, d, t_min=1e-4, t_max=torch.inf, any_hit: bool = False,
     t_min = torch.as_tensor(t_min, dtype=torch.float32, device=dev).expand(B)
     t_max = torch.as_tensor(t_max, dtype=torch.float32, device=dev).expand(B)
     inv_d = 1.0 / torch.where(d.abs() < 1e-20, torch.where(d < 0, -1e-20, 1e-20), d)
-    nodes, woop = bvh.nodes, bvh.woop
+    nodes, woop, verts = bvh.nodes, bvh.woop, bvh.tri_verts
     codes = nodes[:, 12:14].contiguous().view(torch.int32)
     n_rows = woop.shape[0]
     leaf_offsets = torch.arange(LEAF_SIZE, device=dev)
@@ -172,7 +258,7 @@ def intersect(bvh, o, d, t_min=1e-4, t_max=torch.inf, any_hit: bool = False,
         first = torch.where(is_leaf, -(node.long() + 1), 0)
         tri_ids = torch.clamp(first[:, None] + leaf_offsets, 0, n_rows - 1)
         t, u, v, h = intersect_woop(woop[tri_ids], lo[:, None], ld[:, None],
-                                    ltmin[:, None], t_hit[:, None])
+                                    ltmin[:, None], t_hit[:, None], verts=verts[tri_ids])
         if with_counts:
             t_ok = (t > ltmin[:, None]) & (t < t_hit[:, None]) & torch.isfinite(t)
             n_tpass += (t_ok & is_leaf[:, None]).sum(-1)
@@ -305,7 +391,7 @@ def wants_grad(*xs) -> bool:
 def intersect_auto(bvh, o, d, t_min=1e-4, t_max=torch.inf, any_hit: bool = False) -> Hit:
     """Closest-hit (or any-hit) query against the scene BVH's triangles:
     the dense intersector up to DENSE_MAX_TRIS Woop rows (with the BVH's
-    chunk boxes), the BVH walk above (each a CUDA kernel for CUDA tensors,
+    chunk boxes and vertex rows), the BVH walk above (each a CUDA kernel for CUDA tensors,
     its plain version for CPU tensors), on detached inputs. A closest hit
     goes through `refine_hit`."""
     sg = lambda x: x.detach() if isinstance(x, torch.Tensor) else x  # noqa: E731
@@ -314,7 +400,7 @@ def intersect_auto(bvh, o, d, t_min=1e-4, t_max=torch.inf, any_hit: bool = False
         from ..ops.intersect_dense import intersect_dense
 
         raw = intersect_dense(bvh_r.woop, sg(o), sg(d), sg(t_min), sg(t_max), any_hit=any_hit,
-                              boxes=bvh_r.chunk_boxes)
+                              boxes=bvh_r.chunk_boxes, verts=bvh_r.tri_verts)
     else:
         from ..ops.intersect_bvh import intersect_bvh
 

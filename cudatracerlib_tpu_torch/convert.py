@@ -29,7 +29,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .accel.bvh import BVH, chunk_boxes_from_woop
+from .accel.bvh import BVH, chunk_boxes_from_woop, vertex_rows
 from .accel.refit import RefitPlan
 from .models.discretized import DiscretizedModel
 from .models.gmm import GMM
@@ -53,9 +53,10 @@ _TENSOR_GROUPS = {
     "camera": Camera,
 }
 # port-only leaves derived from others: left out of `flatten`, rebuilt by
-# `scene_from_numpy` (the dense intersector's boxes, from the Woop rows;
-# also each BLAS's, `blas.<i>.bvh.chunk_boxes`)
-_DERIVED = "bvh.chunk_boxes"
+# `scene_from_numpy` (the dense intersector's boxes, from the Woop rows, and
+# the rows' vertices, from the shading vertices; also each BLAS's,
+# `blas.<i>.bvh.chunk_boxes` and `blas.<i>.bvh.tri_verts`)
+_DERIVED = ("bvh.chunk_boxes", "bvh.tri_verts")
 # leaves the port keeps on the host as ints (scene-static: the camera
 # model), int32 arrays in `flatten` as in the JAX Scene
 _HOST_INTS = {"camera.ctype"}
@@ -69,7 +70,7 @@ def flatten(tree, prefix: str = "") -> dict[str, np.ndarray]:
     out: dict[str, np.ndarray] = {}
     for name, v in zip(tree._fields, tree):
         key = prefix + name
-        if key == _DERIVED or key.endswith("." + _DERIVED):
+        if any(key == k or key.endswith("." + k) for k in _DERIVED):
             continue
         if isinstance(v, tuple) and hasattr(v, "_fields"):
             out.update(flatten(v, key + "."))
@@ -101,10 +102,13 @@ def _tensor(arrays, path, device):
     return torch.from_numpy(np.array(arrays[path])).to(device)
 
 
-def bvh_from_numpy(arrays: dict[str, np.ndarray], prefix: str = "", device="cuda") -> BVH:
+def bvh_from_numpy(arrays: dict[str, np.ndarray], tris: np.ndarray, prefix: str = "",
+                   device="cuda") -> BVH:
     """A port BVH on `device` from a JAX BVH's arrays flattened under
-    `prefix`, its chunk boxes rebuilt from the Woop rows."""
+    `prefix`, its chunk boxes rebuilt from the Woop rows and its vertex rows
+    from `tris`, the rows' (T, 3, 3) leaf-order vertices."""
     woop = _tensor(arrays, prefix + "woop", device)
+    verts = vertex_rows(torch.from_numpy(np.array(tris, np.float32))).to(device)
     return BVH(
         nodes=_tensor(arrays, prefix + "nodes", device),
         woop=woop,
@@ -113,6 +117,7 @@ def bvh_from_numpy(arrays: dict[str, np.ndarray], prefix: str = "", device="cuda
         world_min=np.array(arrays[prefix + "world_min"]),
         world_max=np.array(arrays[prefix + "world_max"]),
         chunk_boxes=chunk_boxes_from_woop(woop),
+        tri_verts=verts,
     )
 
 
@@ -132,17 +137,24 @@ def scene_from_numpy(arrays: dict[str, np.ndarray], device="cuda") -> Scene:
     JAX registers it (`dynamic.instanced_spec`: every material's, light's
     and texture's type, shading never flat)."""
     groups = {name: _group(cls, arrays, name, device) for name, cls in _TENSOR_GROUPS.items()}
-    blas = tuple(BlasEntry(bvh=bvh_from_numpy(arrays, f"blas.{i}.bvh.", device))
-                 for i in range(_count(arrays, "blas.")))
     instances = tuple(InstanceGroup(**{f: _tensor(arrays, f"instances.{i}.{f}", device)
                                        for f in InstanceGroup._fields})
                       for i in range(_count(arrays, "instances.")))
+    sh_verts = np.asarray(arrays["shading.verts"])
+
+    def blas_tris(i):   # a mesh's rows in the concatenated object-space shading tables
+        base = int(np.asarray(arrays[f"instances.{i}.prim_base"]).reshape(-1)[0])
+        return sh_verts[base:base + np.asarray(arrays[f"blas.{i}.bvh.woop"]).shape[0]]
+
+    blas = tuple(BlasEntry(bvh=bvh_from_numpy(arrays, blas_tris(i), f"blas.{i}.bvh.", device))
+                 for i in range(_count(arrays, "blas.")))
     spec = None
     if instances:
         spec = instanced_spec(arrays["materials.bsdf_type"], arrays["lights.ltype"],
                               arrays["textures.ttype"])
+    bvh_tris = blas_tris(0) if blas else sh_verts   # an instanced scene's bvh is mesh 0's BLAS
     return Scene(
-        bvh=bvh_from_numpy(arrays, "bvh.", device),
+        bvh=bvh_from_numpy(arrays, bvh_tris, "bvh.", device),
         light_cdf=_tensor(arrays, "light_cdf", device),
         env_light_id=_tensor(arrays, "env_light_id", device),
         spec=spec,

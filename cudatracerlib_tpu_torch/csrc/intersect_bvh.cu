@@ -22,13 +22,19 @@
 //   * a leaf tests its LEAF_SIZE rows against the ray's current t, strict
 //     `t < t_hit`, lowest row first on a tie; any-hit rays end at their
 //     first leaf with a hit; no ray takes more than max_steps node visits;
-//   * the Woop test is written with __fmul_rn / __fadd_rn in the oracle's
-//     order ((x0 y0 + x1 y1) + x2 y2) + w, so no FMA contraction moves t:
-//     on the row both pick, t, u, v equal the plain version's bit for bit.
+//   * t, u, v come from the Woop rows; whether the ray crosses the triangle
+//     is the watertight edge test (watertight.cuh) on the row's vertex row,
+//     read only for rows whose t is in range: two triangles that share an
+//     edge get its edge function with opposite signs, so no ray slips
+//     between them. Both are written with __fmul_rn / __fadd_rn in the
+//     oracle's order ((x0 y0 + x1 y1) + x2 y2) + w, so no FMA contraction
+//     moves a value: on the row both pick, t, u, v equal the plain
+//     version's bit for bit, and so does every decision.
 //
 // What bounds it on the H100: the data it must move is small (48 bytes a
-// ray, plus the node and Woop tables once), so the floor is the arithmetic,
-// about 50 operations per inner-node visit and 17-48 per leaf row. What
+// ray, plus the node, Woop and vertex tables once), so the floor is the
+// arithmetic, about 50 operations per inner-node visit, 17 per leaf row and
+// about 70 more per leaf row whose t is in range. What
 // limits it is latency and divergence: each step is a dependent load, and
 // neighbouring rays take different paths. The design follows the reference
 // library's own traversal (Aila and Laine's persistent while-while loop,
@@ -56,6 +62,8 @@
 
 #include <cuda_runtime.h>
 
+#include "watertight.cuh"
+
 namespace {
 
 constexpr int BLOCK = 128;
@@ -66,12 +74,6 @@ constexpr unsigned FULL = 0xffffffffu;
 
 __device__ __forceinline__ float inv_dir(float x) {
   return 1.0f / (fabsf(x) < 1e-20f ? (x < 0.f ? -1e-20f : 1e-20f) : x);
-}
-
-// ((a0 b0 + a1 b1) + a2 b2), each operation rounded on its own
-__device__ __forceinline__ float dot3(float a0, float a1, float a2, float b0, float b1,
-                                      float b2) {
-  return __fadd_rn(__fadd_rn(__fmul_rn(a0, b0), __fmul_rn(a1, b1)), __fmul_rn(a2, b2));
 }
 
 // slab test of one box against the ray; returns the hit, sets the entry t
@@ -93,7 +95,8 @@ __device__ __forceinline__ bool is_inner(int node) {
 }
 
 __global__ void __launch_bounds__(BLOCK)
-bvh_kernel(const float4* __restrict__ nodes, const float4* __restrict__ woop, int n_rows,
+bvh_kernel(const float4* __restrict__ nodes, const float4* __restrict__ woop,
+           const float4* __restrict__ verts, int n_rows,
            int root, const float* __restrict__ o, const float* __restrict__ d,
            float tmin_val, const float* __restrict__ tmin_in, float tmax_val,
            const float* __restrict__ tmax_in, int n_ray, int any_hit, int max_steps,
@@ -112,6 +115,7 @@ bvh_kernel(const float4* __restrict__ nodes, const float4* __restrict__ woop, in
       const float ox = o[3 * i], oy = o[3 * i + 1], oz = o[3 * i + 2];
       const float dx = d[3 * i], dy = d[3 * i + 1], dz = d[3 * i + 2];
       const float ix = inv_dir(dx), iy = inv_dir(dy), iz = inv_dir(dz);
+      const Shear sh = make_shear(dx, dy, dz);
       const float tmin = tmin_in ? tmin_in[i] : tmin_val;
       float t_hit = tmax_in ? tmax_in[i] : tmax_val;
       int prim = -1;
@@ -174,18 +178,16 @@ bvh_kernel(const float4* __restrict__ nodes, const float4* __restrict__ woop, in
             const float dz_w = dot3(r2.x, r2.y, r2.z, dx, dy, dz);
             const float inv_dz = 1.0f / (fabsf(dz_w) < 1e-20f ? 1e-20f : dz_w);
             const float t = __fmul_rn(-oz_w, inv_dz);
-            if (!(t > tmin && t < t_hit && isfinite(t))) continue;
+            if (!(t > tmin && t < t_hit && isfinite(t) && t < best_t)) continue;
+            const float4* p = verts + 3 * static_cast<long long>(row);
+            if (!crosses(sh, __ldg(p), __ldg(p + 1), __ldg(p + 2), ox, oy, oz)) continue;
             const float4 r0 = __ldg(w), r1 = __ldg(w + 1);
-            const float u = __fadd_rn(__fadd_rn(dot3(r0.x, r0.y, r0.z, ox, oy, oz), r0.w),
-                                      __fmul_rn(t, dot3(r0.x, r0.y, r0.z, dx, dy, dz)));
-            const float v = __fadd_rn(__fadd_rn(dot3(r1.x, r1.y, r1.z, ox, oy, oz), r1.w),
-                                      __fmul_rn(t, dot3(r1.x, r1.y, r1.z, dx, dy, dz)));
-            if (u >= 0.f && v >= 0.f && __fadd_rn(u, v) <= 1.f && t < best_t) {
-              best_t = t;
-              best = row;
-              best_u = u;
-              best_v = v;
-            }
+            best_t = t;
+            best = row;
+            best_u = __fadd_rn(__fadd_rn(dot3(r0.x, r0.y, r0.z, ox, oy, oz), r0.w),
+                               __fmul_rn(t, dot3(r0.x, r0.y, r0.z, dx, dy, dz)));
+            best_v = __fadd_rn(__fadd_rn(dot3(r1.x, r1.y, r1.z, ox, oy, oz), r1.w),
+                               __fmul_rn(t, dot3(r1.x, r1.y, r1.z, dx, dy, dz)));
           }
           if (best >= 0) {
             t_hit = best_t;
@@ -213,7 +215,8 @@ bvh_kernel(const float4* __restrict__ nodes, const float4* __restrict__ woop, in
 
 }  // namespace
 
-extern "C" int intersect_bvh_launch(const float* nodes, const float* woop, int n_rows,
+extern "C" int intersect_bvh_launch(const float* nodes, const float* woop, const float* verts,
+                                    int n_rows,
                                     int root, const float* o, const float* d, float tmin_val,
                                     const float* tmin, float tmax_val, const float* tmax,
                                     int n_ray, int any_hit, int max_steps, int* next_ray,
@@ -234,7 +237,8 @@ extern "C" int intersect_bvh_launch(const float* nodes, const float* woop, int n
     const int needed = (n_ray + BLOCK - 1) / BLOCK;
     const int grid = needed < grid_of[dev] ? needed : grid_of[dev];
     bvh_kernel<<<grid, BLOCK, 0, static_cast<cudaStream_t>(stream)>>>(
-        reinterpret_cast<const float4*>(nodes), reinterpret_cast<const float4*>(woop), n_rows,
+        reinterpret_cast<const float4*>(nodes), reinterpret_cast<const float4*>(woop),
+        reinterpret_cast<const float4*>(verts), n_rows,
         root, o, d, tmin_val, tmin, tmax_val, tmax, n_ray, any_hit, max_steps, next_ray, t_out,
         prim_out, bary_out);
   }

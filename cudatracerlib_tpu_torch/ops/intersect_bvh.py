@@ -31,7 +31,7 @@ launches = {"closest": 0, "any_hit": 0}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _KERNEL = CudaKernel("intersect_bvh",
-                     [_P, _P, _I, _I, _P, _P, _F, _P, _F, _P, _I, _I, _I, _P, _P, _P, _P, _P])
+                     [_P, _P, _P, _I, _I, _P, _P, _F, _P, _F, _P, _I, _I, _I, _P, _P, _P, _P, _P])
 
 
 def get_lib():
@@ -46,7 +46,11 @@ def _check(bvh, o, d):
         raise ValueError(f"woop must be (T, 12), got {tuple(bvh.woop.shape)}")
     if o.dim() != 2 or o.shape[1] != 3 or d.shape != o.shape:
         raise ValueError(f"o, d must be (B, 3), got {tuple(o.shape)}, {tuple(d.shape)}")
-    for name, x in (("nodes", bvh.nodes), ("woop", bvh.woop), ("o", o), ("d", d)):
+    if bvh.tri_verts is None or tuple(bvh.tri_verts.shape) != tuple(bvh.woop.shape):
+        raise ValueError(f"tri_verts must be {tuple(bvh.woop.shape)}, got "
+                         f"{None if bvh.tri_verts is None else tuple(bvh.tri_verts.shape)}")
+    for name, x in (("nodes", bvh.nodes), ("woop", bvh.woop), ("tri_verts", bvh.tri_verts),
+                    ("o", o), ("d", d)):
         if x.dtype != torch.float32:
             raise TypeError(f"{name} must be float32, got {x.dtype}")
         if x.device != o.device:
@@ -68,7 +72,7 @@ def launch_args(bvh, o, d, t_min=1e-4, t_max=torch.inf, any_hit: bool = False,
     CUDA tensors: what `intersect_bvh` launches, also for timing the kernel
     alone. `next_ray` is the zeroed int32 ray counter (a new one if None)."""
     _check(bvh, o, d)
-    nodes, woop = aligned(bvh.nodes), aligned(bvh.woop)
+    nodes, woop, verts = aligned(bvh.nodes), aligned(bvh.woop), aligned(bvh.tri_verts)
     o, d = o.contiguous(), d.contiguous()
     B = o.shape[0]
     tmin_v, tmin = range_arg(t_min, B, o.device)
@@ -80,11 +84,11 @@ def launch_args(bvh, o, d, t_min=1e-4, t_max=torch.inf, any_hit: bool = False,
     bary = torch.empty(B, 2, dtype=torch.float32, device=o.device)
     with torch.cuda.device(o.device):
         stream = torch.cuda.current_stream().cuda_stream
-    args = (nodes.data_ptr(), woop.data_ptr(), woop.shape[0], int(bvh.root_code), o.data_ptr(),
+    args = (nodes.data_ptr(), woop.data_ptr(), verts.data_ptr(), woop.shape[0], int(bvh.root_code), o.data_ptr(),
             d.data_ptr(), tmin_v, None if tmin is None else tmin.data_ptr(), tmax_v,
             None if tmax is None else tmax.data_ptr(), B, int(bool(any_hit)), MAX_STEPS,
             next_ray.data_ptr(), t.data_ptr(), prim.data_ptr(), bary.data_ptr(), stream)
-    keep = (nodes, woop, o, d, tmin, tmax, next_ray)  # outlive the launch
+    keep = (nodes, woop, verts, o, d, tmin, tmax, next_ray)  # outlive the launch
     return (args, keep, o.device), (t, prim, bary)
 
 
@@ -98,7 +102,8 @@ def launch(prepared) -> None:
 def intersect_bvh(bvh, o, d, t_min=1e-4, t_max=torch.inf, any_hit: bool = False) -> Hit:
     """Closest (or, with `any_hit`, some) hit of each ray over the BVH.
 
-    bvh: a BVH (nodes (M, 16), woop (T, 12) float32); o, d (B, 3) float32;
+    bvh: a BVH (nodes (M, 16), woop (T, 12) and tri_verts (T, 12) float32);
+    o, d (B, 3) float32;
     t_min / t_max scalars or (B,). CUDA tensors go to the kernel, CPU
     tensors to the plain version."""
     if o.device.type == "cpu":

@@ -34,7 +34,7 @@ launches = {"closest": 0, "any_hit": 0}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _KERNEL = CudaKernel("intersect_dense",
-                     [_P, _I, _P, _P, _P, _F, _P, _F, _P, _I, _I, _P, _P, _P, _P])
+                     [_P, _P, _I, _P, _P, _P, _F, _P, _F, _P, _I, _I, _P, _P, _P, _P])
 
 
 def get_lib():
@@ -62,34 +62,37 @@ def aligned(x):
     return x.clone() if x.data_ptr() % 16 else x
 
 
-def _check(woop, o, d):
+def _check(woop, o, d, verts):
     if woop.dim() != 2 or woop.shape[1] != 12:
         raise ValueError(f"woop must be (T, 12), got {tuple(woop.shape)}")
+    if tuple(verts.shape) != tuple(woop.shape):
+        raise ValueError(f"verts must be {tuple(woop.shape)}, got {tuple(verts.shape)}")
     if o.dim() != 2 or o.shape[1] != 3 or d.shape != o.shape:
         raise ValueError(f"o, d must be (B, 3), got {tuple(o.shape)}, {tuple(d.shape)}")
-    for name, x in (("woop", woop), ("o", o), ("d", d)):
+    for name, x in (("woop", woop), ("verts", verts), ("o", o), ("d", d)):
         if x.dtype != torch.float32:
             raise TypeError(f"{name} must be float32, got {x.dtype}")
         if x.device != o.device:
             raise ValueError(f"{name} is on {x.device}, rays on {o.device}")
 
 
-def intersect_dense_plain(woop, o, d, t_min=1e-4, t_max=T_MAX_CLAMP) -> Hit:
+def intersect_dense_plain(woop, o, d, t_min=1e-4, t_max=T_MAX_CLAMP, *, verts) -> Hit:
     """Plain PyTorch version of the kernel's contract (closest hit; any-hit
     callers read only `.valid`, which a closest-hit sweep gives as well)."""
-    _check(woop, o, d)
+    _check(woop, o, d, verts)
     t_max = torch.clamp(torch.as_tensor(t_max, dtype=torch.float32, device=o.device),
                         max=T_MAX_CLAMP)
-    return intersect_brute_force(woop, o, d, t_min, t_max)
+    return intersect_brute_force(woop, o, d, t_min, t_max, verts=verts)
 
 
 def launch_args(woop, o, d, t_min=1e-4, t_max=T_MAX_CLAMP, any_hit: bool = False,
-                boxes=None):
+                boxes=None, *, verts):
     """(arguments of one kernel launch, its outputs t, prim, bary) for
     CUDA tensors: what `intersect_dense` launches, also for timing the
-    kernel alone. `boxes` are the table's chunk boxes (BVH.chunk_boxes),
-    derived from the Woop rows when None."""
-    _check(woop, o, d)
+    kernel alone. `boxes` are the table's chunk boxes (BVH.chunk_boxes,
+    derived from the Woop rows when None) and `verts` its vertex rows
+    (BVH.tri_verts)."""
+    _check(woop, o, d, verts)
     if boxes is None:
         boxes = chunk_boxes_from_woop(woop)
     n_chunk = -(-woop.shape[0] // CHUNK_ROWS)
@@ -97,7 +100,8 @@ def launch_args(woop, o, d, t_min=1e-4, t_max=T_MAX_CLAMP, any_hit: bool = False
             or boxes.device != o.device:
         raise ValueError(f"boxes must be ({n_chunk}, 8) float32 on {o.device}, got "
                          f"{tuple(boxes.shape)} {boxes.dtype} on {boxes.device}")
-    woop, boxes, o, d = aligned(woop), aligned(boxes), o.contiguous(), d.contiguous()
+    woop, verts, boxes = aligned(woop), aligned(verts), aligned(boxes)
+    o, d = o.contiguous(), d.contiguous()
     B = o.shape[0]
     tmin_v, tmin = range_arg(t_min, B, o.device)
     tmax_v, tmax = range_arg(t_max, B, o.device)
@@ -106,11 +110,12 @@ def launch_args(woop, o, d, t_min=1e-4, t_max=T_MAX_CLAMP, any_hit: bool = False
     bary = torch.empty(B, 2, dtype=torch.float32, device=o.device)
     with torch.cuda.device(o.device):
         stream = torch.cuda.current_stream().cuda_stream
-    args = (woop.data_ptr(), woop.shape[0], boxes.data_ptr(), o.data_ptr(), d.data_ptr(),
+    args = (woop.data_ptr(), verts.data_ptr(), woop.shape[0], boxes.data_ptr(), o.data_ptr(),
+            d.data_ptr(),
             tmin_v, None if tmin is None else tmin.data_ptr(), tmax_v,
             None if tmax is None else tmax.data_ptr(), B, int(bool(any_hit)), t.data_ptr(),
             prim.data_ptr(), bary.data_ptr(), stream)
-    keep = (woop, boxes, o, d, tmin, tmax)  # outlive the launch
+    keep = (woop, verts, boxes, o, d, tmin, tmax)  # outlive the launch
     return (args, keep, o.device), (t, prim, bary)
 
 
@@ -122,33 +127,35 @@ def launch(prepared) -> None:
 
 
 def intersect_dense(woop, o, d, t_min=1e-4, t_max=T_MAX_CLAMP, any_hit: bool = False,
-                    boxes=None) -> Hit:
+                    boxes=None, *, verts) -> Hit:
     """Closest (or, with `any_hit`, some) hit of each ray over all triangles.
 
     woop (T, 12) float32; o, d (B, 3) float32; t_min / t_max scalars or (B,);
     boxes: the table's (ceil(T / CHUNK_ROWS), 8) chunk boxes, derived from
-    `woop` when None (the BVH carries them). Returns a Hit with t = t_max
-    (clamped to 1e30) and prim = -1 on a miss. CUDA tensors go to the
-    kernel, CPU tensors to the plain version."""
+    `woop` when None; verts: its (T, 12) vertex rows (the BVH carries both). Returns a Hit with t = t_max (clamped to 1e30) and prim = -1 on a
+    miss. CUDA tensors go to the kernel, CPU tensors to the plain version."""
     if o.device.type == "cpu":
-        return intersect_dense_plain(woop, o, d, t_min, t_max)
+        return intersect_dense_plain(woop, o, d, t_min, t_max, verts=verts)
     if o.device.type != "cuda":
         raise ValueError(f"intersect_dense runs on cuda or cpu tensors, not {o.device}")
-    prepared, (t, prim, bary) = launch_args(woop, o, d, t_min, t_max, any_hit, boxes)
+    prepared, (t, prim, bary) = launch_args(woop, o, d, t_min, t_max, any_hit, boxes,
+                                            verts=verts)
     launch(prepared)
     launches["any_hit" if any_hit else "closest"] += 1
     return Hit(t=t, prim=prim, bary=bary, valid=prim >= 0)
 
 
-def cull_sweep(woop, boxes, o, d, t_min=1e-4, t_max=T_MAX_CLAMP, ray_chunk: int = 1 << 16):
+def cull_sweep(woop, boxes, o, d, t_min=1e-4, t_max=T_MAX_CLAMP, ray_chunk: int = 1 << 16, *,
+               verts):
     """The kernel's cull in plain PyTorch: chunks in ascending order, each
     swept for the rays whose range (t_min, best t so far) enters its box,
     rows in ascending order with a strict `<`. Returns (Hit, chunks, rows):
     per ray, the chunks whose box the ray enters over (t_min, its final t)
     and their rows, int64; no culled sweep can test fewer rows (the dense
     bound charges these). The Hit equals the all-rows sweep's bit for bit
-    when no hit lies outside its row's box."""
-    _check(woop, o, d)
+    when no hit lies outside its row's box. `verts` are the rows' vertex
+    rows."""
+    _check(woop, o, d, verts)
     B, T, dev = o.shape[0], woop.shape[0], o.device
     t_min = torch.as_tensor(t_min, dtype=torch.float32, device=dev).expand(B)
     best_t = torch.clamp(torch.as_tensor(t_max, dtype=torch.float32, device=dev),
@@ -162,9 +169,9 @@ def cull_sweep(woop, boxes, o, d, t_min=1e-4, t_max=T_MAX_CLAMP, ray_chunk: int 
         sel = (enter & (t_min < best_t)).nonzero()[:, 0]
         if sel.numel() == 0:
             continue
-        rows = woop[c * CHUNK_ROWS:(c + 1) * CHUNK_ROWS]
-        t, u, v, h = intersect_woop(rows[None], o[sel, None], d[sel, None],
-                                    t_min[sel, None], best_t[sel, None])
+        rows = slice(c * CHUNK_ROWS, (c + 1) * CHUNK_ROWS)
+        t, u, v, h = intersect_woop(woop[None, rows], o[sel, None], d[sel, None],
+                                    t_min[sel, None], best_t[sel, None], verts=verts[None, rows])
         best = torch.where(h, t, torch.inf).argmin(-1, keepdim=True)
         won = h.any(-1)
         w = sel[won]

@@ -1,2 +1,2 @@
-from . import records, rng  # noqa: F401
+from . import records, rng, samplers  # noqa: F401
 from .rng import Sampler  # noqa: F401

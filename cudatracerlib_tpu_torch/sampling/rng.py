@@ -78,3 +78,13 @@ def draws_between(state_before, state_after) -> int:
     tensors): the Weyl step inverted modulo 2^32."""
     step = (int(state_after) - int(state_before)) & MASK
     return step * pow(_GOLDEN, -1, MASK + 1) & MASK
+
+
+def stratified_offsets(n_x: int, n_y: int, dtype=torch.float32, device="cuda"):
+    """(n_x*n_y, 2) stratum origins for stratified pixel sampling
+    (reference StratifiedSequenceGenerator, Kernel/Sampler.h:84-118), on
+    `device`: the card unless the caller asks for the CPU."""
+    ix = torch.arange(n_x, dtype=dtype, device=device)
+    iy = torch.arange(n_y, dtype=dtype, device=device)
+    gx, gy = torch.meshgrid(ix, iy, indexing="ij")
+    return torch.stack([gx.reshape(-1) / n_x, gy.reshape(-1) / n_y], dim=-1)

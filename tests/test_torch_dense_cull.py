@@ -172,15 +172,17 @@ def _rays_for(tables, name, n):
 @pytest.mark.parametrize("finite", [False, True], ids=["open", "per_ray_t_max"])
 @pytest.mark.parametrize("name", ["cornell", "caustic", "axis_soup"])
 def test_cull_sweep_bit_equal_to_brute_force(tables, name, finite):
-    woop, boxes, _ = tables[name]
+    woop, boxes, tris = tables[name]
+    verts = tbvh.vertex_rows(tris)
     o, d = _rays_for(tables, name, 1536)
     t_max = np.full(o.shape[0], np.inf, np.float32)
     if finite:
         t_max = np.random.default_rng(4).uniform(0.5, 6.0, o.shape[0]).astype(np.float32)
     got, n_chunks, n_rows = ops.cull_sweep(woop, boxes, o, d, 1e-4, torch.from_numpy(
-        np.asarray(t_max)))
+        np.asarray(t_max)), verts=verts)
     port = ttrav.intersect_brute_force(woop, o, d, 1e-4,
-                                       torch.from_numpy(np.minimum(t_max, ops.T_MAX_CLAMP)))
+                                       torch.from_numpy(np.minimum(t_max, ops.T_MAX_CLAMP)),
+                                       verts=verts)
     jax_ = jtrav.intersect_brute_force(SimpleNamespace(woop=jnp.asarray(woop.numpy())),
                                        jnp.asarray(o.numpy()), jnp.asarray(d.numpy()),
                                        1e-4, jnp.asarray(t_max))
@@ -199,9 +201,10 @@ def test_cull_sweep_bit_equal_to_brute_force(tables, name, finite):
 def test_cull_counts_are_the_boxes_entered_at_the_final_t(tables, name):
     """The counts, recomputed with numpy's float32 slab test at each ray's
     final t, and the rows of those chunks."""
-    woop, boxes, _ = tables[name]
+    woop, boxes, tris = tables[name]
     o, d = _rays_for(tables, name, 600)
-    hit, n_chunks, n_rows = ops.cull_sweep(woop, boxes, o, d, 1e-4, np.inf)
+    hit, n_chunks, n_rows = ops.cull_sweep(woop, boxes, o, d, 1e-4, np.inf,
+                                           verts=tbvh.vertex_rows(tris))
     on, dn = o.numpy(), d.numpy()
     small = np.float32(1e-20)
     safe = np.where(np.abs(dn) < small, np.where(dn < 0, -small, small), dn)
@@ -222,11 +225,12 @@ def test_cull_counts_are_the_boxes_entered_at_the_final_t(tables, name):
 
 
 def test_empty_ranges_enter_nothing(tables):
-    woop, boxes, _ = tables["caustic"]
+    woop, boxes, tris = tables["caustic"]
     o, d = _rays_for(tables, "caustic", 256)
     t_min = torch.full((o.shape[0],), 0.5)
     t_max = torch.where(torch.arange(o.shape[0]) % 2 == 0, 0.25, 0.5)
-    hit, n_chunks, n_rows = ops.cull_sweep(woop, boxes, o, d, t_min, t_max)
+    hit, n_chunks, n_rows = ops.cull_sweep(woop, boxes, o, d, t_min, t_max,
+                                           verts=tbvh.vertex_rows(tris))
     assert not hit.valid.any() and (n_chunks == 0).all() and (n_rows == 0).all()
     assert torch.equal(hit.t, t_max)
 

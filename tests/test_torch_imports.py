@@ -16,11 +16,21 @@ MODULES = [
     "cudatracerlib_tpu_torch.accel.hashgrid",
     "cudatracerlib_tpu_torch.accel.refit",
     "cudatracerlib_tpu_torch.accel.traversal",
+    "cudatracerlib_tpu_torch.cli",
     "cudatracerlib_tpu_torch.convert",
     "cudatracerlib_tpu_torch.entry",
     "cudatracerlib_tpu_torch.image.film",
     "cudatracerlib_tpu_torch.image.pipeline",
     "cudatracerlib_tpu_torch.image.variance",
+    "cudatracerlib_tpu_torch.io",
+    "cudatracerlib_tpu_torch.io.hair",
+    "cudatracerlib_tpu_torch.io.image_io",
+    "cudatracerlib_tpu_torch.io.md5",
+    "cudatracerlib_tpu_torch.io.mitsuba",
+    "cudatracerlib_tpu_torch.io.obj",
+    "cudatracerlib_tpu_torch.io.ply",
+    "cudatracerlib_tpu_torch.io.serialized",
+    "cudatracerlib_tpu_torch.io.sunsky",
     "cudatracerlib_tpu_torch.math.dispersion",
     "cudatracerlib_tpu_torch.math.frame",
     "cudatracerlib_tpu_torch.math.fresnel",
@@ -58,6 +68,7 @@ MODULES = [
     "cudatracerlib_tpu_torch.render.wavefront",
     "cudatracerlib_tpu_torch.sampling.records",
     "cudatracerlib_tpu_torch.sampling.rng",
+    "cudatracerlib_tpu_torch.sampling.samplers",
     "cudatracerlib_tpu_torch.scene.animation",
     "cudatracerlib_tpu_torch.scene.bigscene",
     "cudatracerlib_tpu_torch.scene.bsdf",
@@ -72,6 +83,10 @@ MODULES = [
     "cudatracerlib_tpu_torch.scene.shade_pack",
     "cudatracerlib_tpu_torch.scene.shapes",
     "cudatracerlib_tpu_torch.scene.textures",
+    "cudatracerlib_tpu_torch.utils",
+    "cudatracerlib_tpu_torch.utils.checkpoint",
+    "cudatracerlib_tpu_torch.utils.settings",
+    "cudatracerlib_tpu_torch.utils.timing",
 ]
 
 
@@ -122,6 +137,9 @@ def _port_sources():
             if f.endswith(".py"):
                 yield os.path.join(root, f)
     yield os.path.join(REPO, "chip_smoke.py")
+    yield os.path.join(REPO, "examples", "inverse_rendering_torch.py")
+    for name in ("crack_cases.py", "io_cases.py"):   # chip_smoke.py's helpers
+        yield os.path.join(REPO, "tools", name)
 
 
 def _docstrings(tree):
@@ -165,7 +183,8 @@ def _reaches_jax_package(path):
 
 
 def test_port_reaches_nothing_of_the_jax_package():
-    """No module of the port, and not chip_smoke.py, imports the JAX package
+    """No module of the port, not chip_smoke.py (nor the tools it imports)
+    and not the port's inverse-rendering example imports the JAX package
     or builds a path into it; the SBVH builder compiles the port's own
     copy of the source."""
     from cudatracerlib_tpu_torch import native

@@ -224,4 +224,4 @@ def test_replicate_scene_moves_blas_and_instances(scenes):
     for a, b in zip(_leaves((ts.blas, ts.instances)), _leaves((rep.blas, rep.instances))):
         # bit-equal: node rows carry child codes bitcast to floats (some NaN)
         assert a is not b and a.numpy().tobytes() == b.numpy().tobytes()
-    assert len(_leaves(rep.blas)) == 3 * 4   # nodes, woop, tri_index, chunk_boxes a BLAS
+    assert len(_leaves(rep.blas)) == 3 * 5   # nodes, woop, tri_index, chunk_boxes, tri_verts

@@ -22,6 +22,7 @@ from cudatracerlib_tpu.accel.bvh import build_bvh as jbuild_bvh
 from cudatracerlib_tpu.ops.intersect_pallas import intersect_dense as jdense
 from cudatracerlib_tpu.scene.shapes import cornell_box as jcornell
 from cudatracerlib_tpu_torch.accel import traversal as ttrav
+from cudatracerlib_tpu_torch.accel.bvh import vertex_rows
 from cudatracerlib_tpu_torch.ops import intersect_dense as tops
 from test_pallas import _rays, _scene_tris
 
@@ -31,6 +32,11 @@ TOL = 1e-5
 def _soup(n_spheres, seed):
     tris = _scene_tris(n_spheres=n_spheres, seed=seed)
     return tris, jbuild_bvh(tris)
+
+
+def _verts(tris, bvh):
+    """The vertex rows of a JAX BVH's Woop rows (leaf order, padding included)."""
+    return vertex_rows(torch.from_numpy(tris[np.asarray(bvh.tri_index)]))
 
 
 @pytest.fixture(scope="module")
@@ -51,15 +57,17 @@ def cornell_rays():
                         np.stack([rng.uniform(-0.35, 0.35, n), np.ones(n),
                                   rng.uniform(-0.35, 0.35, n)], -1)]).astype(np.float32)
     d /= np.linalg.norm(d, axis=-1, keepdims=True)
-    return scene.bvh, jnp.asarray(o), jnp.asarray(d)
+    return scene.bvh, np.asarray(scene.shading.verts), jnp.asarray(o), jnp.asarray(d)
 
 
 def _tt(x):
     return torch.from_numpy(np.array(x))
 
 
-def _port(bvh, o, d, **kw):
-    return tops.intersect_dense(_tt(bvh.woop), _tt(o), _tt(d), **kw)
+def _port(bvh, tris, o, d, **kw):
+    """The port's dense wrapper on a JAX BVH's Woop rows; `tris` are the
+    scene's (T, 3, 3) triangles, indexed by the BVH's tri_index."""
+    return tops.intersect_dense(_tt(bvh.woop), _tt(o), _tt(d), verts=_verts(tris, bvh), **kw)
 
 
 def _assert_parity(port, ref, woop):
@@ -91,7 +99,7 @@ def test_plain_vs_pallas_interpret(soups, soup, case):
     kw = CASES[case]
     with pltpu.force_tpu_interpret_mode():
         ref = jdense(bvh, o, d, **kw)
-    port = _port(bvh, o, d, **kw)
+    port = _port(bvh, tris, o, d, **kw)
     if kw.get("any_hit"):
         assert (port.valid.numpy() == np.asarray(ref.valid)).all()
     else:
@@ -105,20 +113,21 @@ def test_plain_vs_brute_force(soups, soup, case):
     o, d = _rays(tris, 1024, seed=13)
     kw = CASES[case]
     ref = jtrav.intersect_brute_force(bvh, o, d, **kw)
-    assert _assert_parity(_port(bvh, o, d, **kw), ref, bvh.woop) > 50
+    assert _assert_parity(_port(bvh, tris, o, d, **kw), ref, bvh.woop) > 50
     # the traversal-level brute force is the same sweep without the 1e30 clamp
-    port_bf = ttrav.intersect_brute_force(_tt(bvh.woop), _tt(o), _tt(d), **kw)
+    port_bf = ttrav.intersect_brute_force(_tt(bvh.woop), _tt(o), _tt(d), **kw,
+                                          verts=_verts(tris, bvh))
     np.testing.assert_array_equal(port_bf.prim.numpy(), np.asarray(ref.prim))
     np.testing.assert_array_equal(port_bf.t.numpy(), np.asarray(ref.t))
 
 
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_cornell_plain_vs_pallas_and_brute_force(cornell_rays, case):
-    bvh, o, d = cornell_rays
+    bvh, verts, o, d = cornell_rays
     kw = CASES[case]
     with pltpu.force_tpu_interpret_mode():
         ref = jdense(bvh, o, d, **kw)
-    port = _port(bvh, o, d, **kw)
+    port = tops.intersect_dense(_tt(bvh.woop), _tt(o), _tt(d), verts=vertex_rows(_tt(verts)), **kw)
     bf = jtrav.intersect_brute_force(bvh, o, d, t_max=kw.get("t_max", jnp.inf))
     if kw.get("any_hit"):
         assert (port.valid.numpy() == np.asarray(ref.valid)).all()
@@ -137,7 +146,7 @@ def test_per_ray_range_bounds(soups):
     t_max = np.random.default_rng(3).uniform(0.5, 6.0, 512).astype(np.float32)
     t_min = np.full(512, 0.05, np.float32)
     ref = jtrav.intersect_brute_force(bvh, o, d, jnp.asarray(t_min), jnp.asarray(t_max))
-    port = _port(bvh, o, d, t_min=torch.from_numpy(t_min), t_max=torch.from_numpy(t_max))
+    port = _port(bvh, tris, o, d, t_min=torch.from_numpy(t_min), t_max=torch.from_numpy(t_max))
     assert _assert_parity(port, ref, bvh.woop) > 50
     assert (port.t.numpy()[~port.valid.numpy()] == t_max[~port.valid.numpy()]).all()
 
@@ -147,8 +156,9 @@ def test_wrapper_cpu_takes_plain_version_and_counts_no_launch(soups):
     o, d = _rays(tris, 256, seed=19)
     before = dict(tops.launches)
     woop, to, td = (_tt(x) for x in (bvh.woop, o, d))
-    a = tops.intersect_dense(woop, to, td, any_hit=True)
-    b = tops.intersect_dense_plain(woop, to, td)
+    verts = _verts(tris, bvh)
+    a = tops.intersect_dense(woop, to, td, any_hit=True, verts=verts)
+    b = tops.intersect_dense_plain(woop, to, td, verts=verts)
     assert tops.launches == before
     for x, y in zip(a, b):
         assert torch.equal(x, y)
@@ -157,16 +167,18 @@ def test_wrapper_cpu_takes_plain_version_and_counts_no_launch(soups):
 
 
 def test_wrapper_rejects_bad_inputs():
-    woop = torch.zeros(4, 12)
+    woop = verts = torch.zeros(4, 12)
     o = torch.zeros(8, 3)
     with pytest.raises(ValueError):
-        tops.intersect_dense(torch.zeros(4, 9), o, o)
+        tops.intersect_dense(torch.zeros(4, 9), o, o, verts=verts)
     with pytest.raises(ValueError):
-        tops.intersect_dense(woop, torch.zeros(8, 4), torch.zeros(8, 4))
+        tops.intersect_dense(woop, o, o, verts=torch.zeros(5, 12))
+    with pytest.raises(ValueError):
+        tops.intersect_dense(woop, torch.zeros(8, 4), torch.zeros(8, 4), verts=verts)
     with pytest.raises(TypeError):
-        tops.intersect_dense(woop.double(), o, o)
+        tops.intersect_dense(woop.double(), o, o, verts=verts)
     with pytest.raises(ValueError):
-        tops.intersect_dense(woop.to("meta"), o.to("meta"), o.to("meta"))
+        tops.intersect_dense(woop.to("meta"), o.to("meta"), o.to("meta"), verts=verts.to("meta"))
 
 
 def test_dispatch_above_dense_band_is_not_ported():

@@ -68,7 +68,7 @@ def refitted():
     jplan = jrefit.build_refit_plan(host["nodes"], host["root"])
     order = np.asarray(jbvh.tri_index)
     jnew = jrefit.refit_bvh(jbvh, jplan, jnp.asarray(deformed[order]))
-    tbvh = bvh_from_numpy(flatten(jbvh), device="cpu")
+    tbvh = bvh_from_numpy(flatten(jbvh), tris[order], device="cpu")
     tplan = trefit.build_refit_plan(host["nodes"], host["root"], device="cpu")
     tnew = trefit.refit_bvh(tbvh, tplan, torch.from_numpy(deformed[order]))
     return dict(rng=rng, host=host, jplan=jplan, tplan=tplan, jnew=jnew, tbvh=tbvh, tnew=tnew,
@@ -109,7 +109,7 @@ def test_refit_hits_match_brute_force(refitted):
     o, d = _rays(np.random.default_rng(2))
     bvh = refitted["tnew"]
     h = intersect(bvh, o, d)
-    truth = intersect_brute_force(bvh.woop, o, d)
+    truth = intersect_brute_force(bvh.woop, o, d, verts=bvh.tri_verts)
     assert torch.equal(h.valid, truth.valid) and int(h.valid.sum()) > 20
     m = h.valid
     np.testing.assert_allclose(h.t[m].numpy(), truth.t[m].numpy(), rtol=1e-3)
@@ -137,12 +137,12 @@ def test_dense_cull_on_refitted_mesh_finds_brute_force_hits():
     plan = trefit.build_refit_plan(host["nodes"], host["root"], device="cpu")
     new = trefit.refit_bvh(bvh, plan, torch.from_numpy(deformed[host["order"]]))
     o, d = _rays(np.random.default_rng(3), 4096)
-    truth = intersect_brute_force(new.woop, o, d)
-    hit, _, _ = cull_sweep(new.woop, new.chunk_boxes, o, d)
+    truth = intersect_brute_force(new.woop, o, d, verts=new.tri_verts)
+    hit, _, _ = cull_sweep(new.woop, new.chunk_boxes, o, d, verts=new.tri_verts)
     m = truth.valid
     assert torch.equal(hit.prim, truth.prim) and torch.equal(hit.t[m], truth.t[m])
     assert int(m.sum()) > 100
-    stale, _, _ = cull_sweep(new.woop, bvh.chunk_boxes, o, d)
+    stale, _, _ = cull_sweep(new.woop, bvh.chunk_boxes, o, d, verts=new.tri_verts)
     assert int((stale.prim != truth.prim).sum()) > 0
 
 

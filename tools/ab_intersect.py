@@ -2,16 +2,18 @@
 """Earlier and current intersection kernels side by side on one NVIDIA GPU.
 
 Builds `intersect_dense.cu` and `intersect_bvh.cu` of an earlier version of
-the port from a directory (with that version's C interface: per-ray t_min /
-t_max pointers, no chunk boxes, no ray counter) beside the current kernels,
-and times each kernel alone (ranges, outputs and ray counters made
-beforehand, CUDA events) in turns at the main paths' shapes, the inputs
-made as `chip_smoke.py` makes them:
+the port from a directory (with that version's C interface: the current one
+without the vertex-row pointer, as at commit 1912d22, whose kernels decide a
+hit by the Woop rows' u, v) beside the current kernels, and times each
+kernel alone (ranges, outputs and ray counters made beforehand, CUDA
+events) in turns at the main paths' shapes, the inputs made as
+`chip_smoke.py` makes them:
 
 - dense: Cornell camera and first-bounce rays (2^20 x 60 rows), the PPM
   pass's first photon-walk, eye and shadow launches (3,160 rows), a
   4096-triangle soup;
-- BVH: glossy camera and first-bounce rays (2^20 x 6,624 rows), a
+- BVH: glossy camera and first-bounce rays (2^20 x 6,624 rows), the
+  bigscene's camera rays (2^20 x 825,956 rows, bench config 3), a
   65,536-triangle soup; and, as a yardstick, the BVH kernel on the PPM
   photon and eye rays over the caustic scene's BVH.
 
@@ -37,11 +39,13 @@ from concurrent.futures import ThreadPoolExecutor
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 OLD_ARGTYPES = {
-    "intersect_dense": [_P, _I, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P],
-    "intersect_bvh": [_P, _P, _I, _I, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P],
+    "intersect_dense": [_P, _I, _P, _P, _P, _F, _P, _F, _P, _I, _I, _P, _P, _P, _P],
+    "intersect_bvh": [_P, _P, _I, _I, _P, _P, _F, _P, _F, _P, _I, _I, _I, _P, _P, _P, _P, _P],
 }
+# where the current launch arguments hold the vertex rows, which the earlier interface lacks
+VERTS_ARG = {"intersect_dense": 1, "intersect_bvh": 2}
 
 
 def _old_kernel(old_dir, name):
@@ -63,41 +67,11 @@ def _launcher(fn):
     return launch
 
 
-def _per_ray(x, n, dev, clamp=None):
-    import torch
-
-    x = torch.as_tensor(x, dtype=torch.float32, device=dev).expand(n).contiguous()
-    return torch.clamp(x, max=clamp) if clamp is not None else x
-
-
-def _old_dense_args(woop, o, d, t_min, t_max):
-    import torch
-    from cudatracerlib_tpu_torch.ops import intersect_dense as ops
-
-    B, dev = o.shape[0], o.device
-    tmin, tmax = _per_ray(t_min, B, dev), _per_ray(t_max, B, dev, ops.T_MAX_CLAMP)
-    out = (torch.empty(B, device=dev), torch.empty(B, dtype=torch.int32, device=dev),
-           torch.empty(B, 2, device=dev))
-    stream = torch.cuda.current_stream().cuda_stream
-    args = (woop.data_ptr(), woop.shape[0], o.data_ptr(), d.data_ptr(), tmin.data_ptr(),
-            tmax.data_ptr(), B, 0, out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(),
-            stream)
-    return (args, (woop, o, d, tmin, tmax)), out
-
-
-def _old_bvh_args(bvh, o, d, t_min, t_max):
-    import torch
-    from cudatracerlib_tpu_torch.ops import intersect_bvh as bvh_ops
-
-    B, dev = o.shape[0], o.device
-    tmin, tmax = _per_ray(t_min, B, dev), _per_ray(t_max, B, dev)
-    out = (torch.empty(B, device=dev), torch.empty(B, dtype=torch.int32, device=dev),
-           torch.empty(B, 2, device=dev))
-    stream = torch.cuda.current_stream().cuda_stream
-    args = (bvh.nodes.data_ptr(), bvh.woop.data_ptr(), bvh.woop.shape[0], int(bvh.root_code),
-            o.data_ptr(), d.data_ptr(), tmin.data_ptr(), tmax.data_ptr(), B, 0,
-            bvh_ops.MAX_STEPS, out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(), stream)
-    return (args, (o, d, tmin, tmax)), out
+def _earlier(name, prepared):
+    """The current launch's prepared arguments in the earlier interface."""
+    args, keep, device = prepared
+    k = VERTS_ARG[name]
+    return (args[:k] + args[k + 1:], keep, device)
 
 
 def _bvh_prepared(bvh, o, d, t_min, t_max, n):
@@ -125,8 +99,10 @@ def main(old_dir):
     from cudatracerlib_tpu_torch.render import path_tracer as pt
     from cudatracerlib_tpu_torch.render import ppm
     from cudatracerlib_tpu_torch.render import wavefront as wf
-    from cudatracerlib_tpu_torch.accel.bvh import build_bvh, chunk_boxes_from_woop, woop_transform
+    from cudatracerlib_tpu_torch.accel.bvh import (build_bvh, chunk_boxes_from_woop,
+                                                   vertex_rows, woop_transform)
     from cudatracerlib_tpu_torch.scene import shade_pack
+    from cudatracerlib_tpu_torch.scene.bigscene import build_big_scene
     from cudatracerlib_tpu_torch.scene.shapes import caustic_scene, cornell_box, glossy_scene
 
     dev = torch.device("cuda:0")
@@ -144,17 +120,19 @@ def main(old_dir):
     scene = cornell_box()
     cfg = pt.specialize_config(scene, pt.PTConfig(max_depth=cs.DEPTH))
     o, d, _, sampler = pt.camera_rays(scene, cs.W, cs.H, cs.SPP, 3)
-    boxes = scene.bvh.chunk_boxes
-    shapes_dense["cornell camera rays"] = (scene.bvh.woop, o, d, 1e-4, torch.inf, boxes)
+    boxes, verts = scene.bvh.chunk_boxes, scene.bvh.tri_verts
+    shapes_dense["cornell camera rays"] = (scene.bvh.woop, o, d, 1e-4, torch.inf, boxes, verts)
     shapes_dense["cornell first-bounce rays"] = (
-        scene.bvh.woop, *cs._first_bounce(scene, cfg, o, d, sampler), 1e-4, torch.inf, boxes)
+        scene.bvh.woop, *cs._first_bounce(scene, cfg, o, d, sampler), 1e-4, torch.inf, boxes,
+        verts)
     caustic = caustic_scene()
     ppm_args, _ = cs._capture_ppm(caustic, ppm.PPMConfig())
     for label, c in ppm_args.items():
-        shapes_dense[label] = (c[0], c[1], c[2], c[3], c[4], c[6])
+        shapes_dense[label] = (c[0], c[1], c[2], c[3], c[4], c[6], c[7])
     tris, so, sd = cs._soup(0, 4096, 0.08, dev)
     soup = torch.from_numpy(woop_transform(tris[:, 0], tris[:, 1], tris[:, 2])).to(dev)
-    shapes_dense["soup4096"] = (soup, so, sd, 1e-4, 2.0, chunk_boxes_from_woop(soup))
+    shapes_dense["soup4096"] = (soup, so, sd, 1e-4, 2.0, chunk_boxes_from_woop(soup),
+                                vertex_rows(torch.from_numpy(tris).to(dev)))
 
     glossy = glossy_scene()
     gcfg = pt.specialize_config(glossy, pt.PTConfig(max_depth=cs.DEPTH))
@@ -164,6 +142,10 @@ def main(old_dir):
     shapes_bvh["glossy first-bounce rays"] = (
         glossy.bvh, *cs._first_bounce(glossy, gcfg, go, gd, pt.Sampler(state=gstate),
                                       shade_pack.build_shade_pack(glossy)), 1e-4, torch.inf)
+    big = build_big_scene()
+    _, bo, bd, _ = wf._camera_ray(big, torch.arange(cs.BIG_CMP_LANES, device=dev), 3, cs.BIG_W,
+                                  cs.BIG_H)
+    shapes_bvh["bigscene camera rays"] = (big.bvh, bo, bd, 1e-4, torch.inf)
     tris, so, sd = cs._soup(1, cs.SOUP_TRIS, 0.03, dev)
     shapes_bvh["soup65536"] = (build_bvh(tris), so, sd, 1e-4, torch.inf)
     for label in ("ppm photon rays", "ppm eye rays"):
@@ -171,10 +153,11 @@ def main(old_dir):
         shapes_bvh[f"caustic BVH, {label}"] = (caustic.bvh, c[1], c[2], c[3], c[4])
 
     results = {"device": smi, "dense": {}, "bvh": {}}
-    for label, (woop, o, d, t_min, t_max, bx) in shapes_dense.items():
+    for label, (woop, o, d, t_min, t_max, bx, vx) in shapes_dense.items():
         reps = 20
-        old_p, old_out = _old_dense_args(woop, o, d, t_min, t_max)
-        new_p, new_out = ops.launch_args(woop, o, d, t_min, t_max, boxes=bx)
+        new_p, new_out = ops.launch_args(woop, o, d, t_min, t_max, boxes=bx, verts=vx)
+        old_p, old_out = ops.launch_args(woop, o, d, t_min, t_max, boxes=bx, verts=vx)
+        old_p = _earlier("intersect_dense", old_p)
         old_l = _launcher(old_dense)
         seq = [("earlier", old_p, old_l), ("current", new_p, ops.launch),
                ("current", new_p, ops.launch), ("earlier", old_p, old_l)]
@@ -189,13 +172,14 @@ def main(old_dir):
         print(f"[dense] {label}: {json.dumps(r)}")
     for label, (bvh, o, d, t_min, t_max) in shapes_bvh.items():
         reps = 10
-        old_p, old_out = _old_bvh_args(bvh, o, d, t_min, t_max)
+        old_ps, old_out = _bvh_prepared(bvh, o, d, t_min, t_max, 2 * reps + 2)
+        old_ps = [_earlier("intersect_bvh", p) for p in old_ps]
         new_ps, new_out = _bvh_prepared(bvh, o, d, t_min, t_max, 2 * reps + 2)
         old_l = _launcher(old_bvh)
-        seq = [("earlier", [old_p] * (reps + 1), old_l),
+        seq = [("earlier", old_ps[:reps + 1], old_l),
                ("current", new_ps[:reps + 1], bvh_ops.launch),
                ("current", new_ps[reps + 1:], bvh_ops.launch),
-               ("earlier", [old_p] * (reps + 1), old_l)]
+               ("earlier", old_ps[reps + 1:], old_l)]
         times = {}
         for name, ps, launch in seq:
             times.setdefault(name, []).append(cs._time_kernel_ms(ps, launch))
