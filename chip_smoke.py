@@ -382,7 +382,28 @@ It imports nothing of JAX. Phases, each of which raises on failure:
      cornell 2 PT --size 256 --spp 16` and the (b) XML with `fast` (exit 0, a
      PNG, pass times printed), `--checkpoint` 2 passes resumed to 4 against
      a straight 4 (bit-equal), and `examples/inverse_rendering_torch.py
-     --steps 5` (its loss falling).
+     --steps 5` (its loss falling);
+  27. the math utilities and debug visualizers, each part held to the CPU
+     port on a 4,096-lane slice and timed: (a) on UTIL_LANES (2^20) lanes,
+     the Catmull-Rom splines (`eval_1d` / `eval_2d` / `eval_3d` of smooth
+     tables, `integrate_1d`, and `sample_1d`, whose histogram must follow
+     `eval_1d / total`: chi^2 under 2 per bin), `quadrature.integrate` of a
+     per-lane exp(-a x) sin(b x) within 1e-5 of its closed form, the three
+     compression round trips within the JAX package's own test bounds (codes
+     may differ from the CPU port's by one quantization step, on a printed
+     count of lanes), and a 1024^2 image of merging models (capacity 16, 64
+     inserts each; knots equal to the CPU port's); (b) `hashgrid.query_reduce`
+     with `kernels.density_weight(EPANECHNIKOV, d=2)` over bench config 5's
+     global photon map (captured in a warm seed-0 pass) at its 65,536 eye
+     queries, `max_neighbors` the largest 27-cell candidate count (printed, so
+     no query is capped), in chunks of at most UTIL_PAYLOAD_BYTES of
+     payload, against `photon_density` on the same queries: Sum w and flux
+     within DENSITY_RTOL (+ DENSITY_ATOL of the largest) per query, and
+     `normalization(EPANECHNIKOV, 2)` within 1e-6 of 2/pi; (c) `render_aovs`
+     of Cornell at 256x256, then `visualize_scalar(depth)`,
+     `visualize_vec3(normal)`, `overlay` and `draw_vector_field` (stride 8):
+     finite, within [0, 1], and equal to the CPU port's on the same buffers.
+     Each part prints a PASS line and its wall.
 Each phase's seconds are printed as it ends.
 
 Before its last line it prints one JSON object describing each kernel; the
@@ -641,6 +662,10 @@ AOV_TOL = 0.0011
 GUIDE_RES, GUIDE_BATCHES, GUIDE_PHOTONS = 8, 4, 1 << 17   # phase 25 (d): bench config 5's photons
 FAST_SIZE = 1024           # phase 25 (e): render_fast's 2^20 rays, one BVH launch
 FAST_OFF_MAX = 16          # pixels whose hit may differ from the plain route's (coincident ties)
+UTIL_LANES = 1 << 20       # phase 27 (a): lanes of each math utility
+UTIL_SLICE = 4096          # phase 27: lanes held to the CPU port
+UTIL_PAYLOAD_BYTES = 4 << 30   # phase 27 (b): query_reduce payload per chunk
+UTIL_AOV_SIZE = 256        # phase 27 (c)
 PPM_W = PPM_H = 128        # bench config 5 (bench.py:289-340)
 PPM_SPP, PPM_PASS = 4, 1
 DENSITY_RTOL, DENSITY_ATOL = 1e-4, 1e-6
@@ -4179,6 +4204,363 @@ def _multidevice_phase(cornell, caustic, smi):
                 rank_launches=rl)
 
 
+def _util_slice_err(label, card, cpu, atol, rtol=0.0):
+    """The largest |card - cpu| over the CPU port's UTIL_SLICE lanes, gated
+    at atol + rtol |cpu|."""
+    c, p = card[:UTIL_SLICE].detach().cpu().double(), cpu.detach().double()
+    diff = (c - p).abs()
+    bad = diff > atol + rtol * p.abs()
+    _require(not bool(bad.any()), f"phase 27 {label}: {int(bad.sum())} of {c.numel()} values off "
+                                  f"the CPU port's beyond {atol:g}, worst {float(diff.max())}")
+    return float(diff.max())
+
+
+def _spline_part(dev, lanes):
+    """Phase 27 (a): the splines at `lanes` lanes on `dev` against the CPU
+    port's first UTIL_SLICE lanes, and sample_1d's histogram."""
+    import numpy as np
+    import torch
+    from cudatracerlib_tpu_torch.math import spline
+
+    rng = np.random.default_rng(27)
+    g = np.linspace(0.0, 1.0, 64)
+    vals1 = (1.2 + 0.8 * np.sin(2 * np.pi * g) + 0.3 * np.cos(6 * np.pi * g)).astype(np.float32)
+    gy, gx = np.meshgrid(np.linspace(0, 1, 16), np.linspace(0, 1, 16), indexing="ij")
+    vals2 = (np.sin(3 * gx) * np.cos(2 * gy)).astype(np.float32)
+    gz3, gy3, gx3 = np.meshgrid(*(np.linspace(0, 1, 8),) * 3, indexing="ij")
+    vals3 = (np.sin(2 * gx3 + gy3) * np.cos(gz3)).astype(np.float32)
+    x = rng.uniform(-0.05, 1.05, lanes).astype(np.float32)
+    p2 = rng.uniform(-0.05, 1.05, (lanes, 2)).astype(np.float32)
+    p3 = rng.uniform(0.0, 1.0, (lanes, 3)).astype(np.float32)
+    u = rng.random(lanes, dtype=np.float32)
+
+    def run(device, n):
+        t = lambda a: torch.from_numpy(np.ascontiguousarray(a[:n] if a.ndim and a.shape[0] == lanes  # noqa: E731
+                                                           else a)).to(device)
+        v1 = t(vals1)
+        xs, pdf = spline.sample_1d(t(u), v1)
+        return {"eval_1d": spline.eval_1d(t(x), v1),
+                "eval_1d extrapolated": spline.eval_1d(t(x), v1, extrapolate=True),
+                "eval_2d": spline.eval_2d(t(p2), t(vals2)),
+                "eval_3d": spline.eval_3d(t(p3), t(vals3)),
+                "integrate_1d": spline.integrate_1d(v1), "sample_1d x": xs, "sample_1d pdf": pdf}
+
+    wall, card = _timed(lambda: run(dev, lanes))
+    cpu = run("cpu", UTIL_SLICE)
+    errs = {k: _util_slice_err(f"spline {k}", card[k], cpu[k], 1e-5) for k in card}
+    # the samples follow eval_1d / total: 128 bins, each expected count from
+    # eval_1d at 32 midpoints of the bin
+    total = float(card["integrate_1d"][-1])
+    bins = 128
+    counts = torch.histc(card["sample_1d x"], bins, 0.0, 1.0).double()
+    mid = (torch.arange(bins * 32, device=dev, dtype=torch.float32) + 0.5) / (bins * 32)
+    f = spline.eval_1d(mid, torch.from_numpy(vals1).to(dev)).double().reshape(bins, 32)
+    expected = f.mean(1) / bins / total * lanes
+    chi2 = float(((counts - expected) ** 2 / expected).sum())
+    pdf_ref = spline.eval_1d(card["sample_1d x"], torch.from_numpy(vals1).to(dev)) / total
+    pdf_err = float(((card["sample_1d pdf"] - pdf_ref).abs() / pdf_ref).max())
+    _require(chi2 < 2 * bins, f"phase 27 spline: sample_1d's histogram chi^2 {chi2:.1f} over "
+                              f"{bins} bins")
+    _require(pdf_err < 1e-4, f"phase 27 spline: sample_1d's pdf {pdf_err:.3g} from eval_1d / total")
+    _require(all(bool(torch.isfinite(v).all()) for v in card.values()),
+             "phase 27 spline: a non-finite value")
+    print(f"[phase 27 (a)] PASS spline: {lanes} lanes (eval_1d on 64 nodes, eval_2d 16x16, "
+          f"eval_3d 8x8x8, sample_1d) in {1e3 * wall:.3f} ms; CPU port on {UTIL_SLICE} lanes, "
+          f"max abs err {', '.join(f'{k} {v:.3g}' for k, v in errs.items())}; sample_1d "
+          f"histogram chi^2 {chi2:.1f} over {bins} bins, pdf within {pdf_err:.3g} of "
+          f"eval_1d / total")
+    return dict(wall=wall, err=max(errs.values()), chi2=chi2)
+
+
+def _quadrature_part(dev, lanes):
+    """Phase 27 (a): the composite Lobatto integral of exp(-a x) sin(b x)
+    over [0, L] per lane against its closed form and the CPU port."""
+    import numpy as np
+    import torch
+    from cudatracerlib_tpu_torch.math import quadrature
+
+    rng = np.random.default_rng(28)
+    abl = np.stack([rng.uniform(0.1, 3.0, lanes), rng.uniform(0.5, 8.0, lanes),
+                    rng.uniform(0.5, 3.0, lanes)]).astype(np.float32)
+
+    def run(device, n):
+        a, b, length = torch.from_numpy(abl[:, :n]).to(device)
+        return quadrature.integrate(lambda x: torch.exp(-a[:, None, None] * x)
+                                    * torch.sin(b[:, None, None] * x),
+                                    torch.zeros_like(length), length, 8)
+
+    wall, card = _timed(lambda: run(dev, lanes))
+    a, b, length = torch.from_numpy(abl).to(dev).double()
+    exact = (b - torch.exp(-a * length) * (a * torch.sin(b * length) + b * torch.cos(b * length))) \
+        / (a * a + b * b)
+    err = float((card.double() - exact).abs().max())
+    _require(err <= 1e-5, f"phase 27 quadrature: {err:.3g} from the closed form")
+    cpu_err = _util_slice_err("quadrature", card, run("cpu", UTIL_SLICE), 1e-5)
+    print(f"[phase 27 (a)] PASS quadrature: {lanes} lanes x 8 panels x 7 Lobatto nodes in "
+          f"{1e3 * wall:.3f} ms, max abs err {err:.3g} from the closed form, {cpu_err:.3g} from "
+          f"the CPU port on {UTIL_SLICE} lanes")
+    return dict(wall=wall, err=err, cpu_err=cpu_err)
+
+
+def _code_steps(card, cpu, fields):
+    """(lanes whose code differs, largest step in any field) of two int64
+    code tensors."""
+    differ = card != cpu
+    step = max(int(((card >> s) & m).sub((cpu >> s) & m).abs().max()) for s, m in fields)
+    return int(differ.sum()), step
+
+
+def _compression_part(dev, lanes):
+    """Phase 27 (a): the spherical, octahedral and uv round trips on `lanes`
+    directions, and the codes against the CPU port's."""
+    import numpy as np
+    import torch
+    from cudatracerlib_tpu_torch.math import compression as comp
+    from cudatracerlib_tpu_torch.math.vecmath import dot, normalize
+
+    rng = np.random.default_rng(29)
+    d_np = rng.normal(size=(lanes, 3)).astype(np.float32)
+    uv_np = rng.uniform(-1.0, 2.0, (lanes, 2)).astype(np.float32)
+
+    def run(device, n):
+        d = normalize(torch.from_numpy(d_np[:n]).to(device))
+        uv = torch.from_numpy(uv_np[:n]).to(device)
+        codes = {"spherical_u16": comp.encode_spherical_u16(d),
+                 "octahedral_u32": comp.encode_octahedral_u32(d), "uv_u32": comp.encode_uv_u32(uv)}
+        return d, uv, codes, {k: getattr(comp, f"decode_{k}")(c) for k, c in codes.items()}
+
+    wall, (d, uv, codes, dec) = _timed(lambda: run(dev, lanes))
+    sph_dot = float(dot(dec["spherical_u16"], d).min())
+    oct_err = float((dec["octahedral_u32"] - d).abs().max())
+    uv_err = float((dec["uv_u32"] - torch.remainder(uv, 1.0)).abs().max())
+    _require(sph_dot > 0.999 and oct_err < 2e-4 and uv_err < 1e-4,
+             f"phase 27 compression round trips: spherical dot {sph_dot}, octahedral {oct_err}, "
+             f"uv {uv_err}")
+    _, _, codes_cpu, _ = run("cpu", UTIL_SLICE)
+    diffs = {}
+    for k, c in codes_cpu.items():
+        fields = [(0, 0xFF), (8, 0xFF)] if k == "spherical_u16" else [(0, 0xFFFF), (16, 0xFFFF)]
+        n_diff, step = _code_steps(codes[k][:UTIL_SLICE].cpu(), c, fields)
+        _require(step <= 1, f"phase 27 compression {k}: a code {step} steps from the CPU port's")
+        diffs[k] = n_diff
+        # decoding the same codes: card against the CPU port
+        _util_slice_err(f"decode {k}", dec[k], getattr(comp, f"decode_{k}")(codes[k][:UTIL_SLICE]
+                                                                               .cpu()), 1e-6)
+    print(f"[phase 27 (a)] PASS compression: {lanes} directions and uv pairs encoded and decoded "
+          f"in {1e3 * wall:.3f} ms; spherical min dot {sph_dot:.6f}, octahedral max abs err "
+          f"{oct_err:.3g}, uv {uv_err:.3g}; codes one quantization step from the CPU port's on "
+          f"{diffs} of {UTIL_SLICE} lanes, decodes of the same codes within 1e-6")
+    return dict(wall=wall, oct_err=oct_err, sph_dot=sph_dot, uv_err=uv_err, code_diffs=diffs)
+
+
+def _merging_part(dev, lanes):
+    """Phase 27 (a): one merging model a pixel (capacity 16, 64 inserts of
+    a noisy sine), evaluated at a point per lane, against the CPU port."""
+    import numpy as np
+    import torch
+    from cudatracerlib_tpu_torch.math import function_model as fm
+
+    rng = np.random.default_rng(30)
+    xs_np = rng.random((64, lanes), dtype=np.float32)
+    ph = rng.uniform(0.0, 6.0, lanes)
+    ys_np = (np.sin(6.0 * xs_np + ph) + 0.05 * np.cos(40.0 * xs_np)).astype(np.float32)
+    q_np = rng.random(lanes, dtype=np.float32)
+
+    def run(device, n):
+        xs, ys = (torch.from_numpy(np.ascontiguousarray(a[:, :n])).to(device) for a in (xs_np, ys_np))
+        m = fm.merging_init(16, (n,), device=device)
+        for k in range(64):
+            m = fm.merging_insert(m, xs[k], ys[k])
+        return m, fm.merging_eval(m, torch.from_numpy(q_np[:n]).to(device))
+
+    wall, (m, val) = _timed(lambda: run(dev, lanes))
+    m_cpu, val_cpu = run("cpu", UTIL_SLICE)
+    _require(bool((m.n == 16).all()) and bool((m.xs[:, 1:16] >= m.xs[:, :15]).all()),
+             "phase 27 merging: a model is not full or not sorted")
+    for f in ("xs", "ys", "n"):
+        _require(torch.equal(getattr(m, f)[:UTIL_SLICE].cpu(), getattr(m_cpu, f)),
+                 f"phase 27 merging: {f} differs from the CPU port's")
+    err = _util_slice_err("merging_eval", val, val_cpu, 1e-6)
+    print(f"[phase 27 (a)] PASS merging: {lanes} models (a 1024^2 image), capacity 16, 64 "
+          f"inserts each in {1e3 * wall:.3f} ms; knots equal to the CPU port's on {UTIL_SLICE} "
+          f"lanes, merging_eval within {err:.3g}")
+    return dict(wall=wall, err=err)
+
+
+def _capture_photon_map(caustic, pcfg):
+    """One warm bench-config-5 PPM pass (seed 0) with the global map's
+    `build_photon_tiles` and `photon_density` arguments captured."""
+    import torch
+    from cudatracerlib_tpu_torch.ops import photon_gather as pg_ops
+    from cudatracerlib_tpu_torch.render import ppm
+
+    tile_calls, density_calls = [], []
+    real_tiles, real_density = pg_ops.build_photon_tiles, pg_ops.photon_density
+
+    def capture_tiles(*args, **kw):
+        tile_calls.append((args, kw))
+        return real_tiles(*args, **kw)
+
+    def capture_density(*args):
+        density_calls.append(args)
+        return real_density(*args)
+
+    pg_ops.build_photon_tiles, pg_ops.photon_density = capture_tiles, capture_density
+    try:
+        ppm.render_ppm_pass(caustic, PPM_W, PPM_H, PPM_SPP, 0, PPM_PASS, pcfg)
+        torch.cuda.synchronize()
+    finally:
+        pg_ops.build_photon_tiles, pg_ops.photon_density = real_tiles, real_density
+    _require(len(tile_calls) == 2 and len(density_calls) == 2,
+             f"a PPM pass built {len(tile_calls)} photon maps, not 2")
+    return tile_calls[0], density_calls[0]
+
+
+def _query_reduce_part(caustic):
+    """Phase 27 (b): `query_reduce` with the Epanechnikov density weight
+    over the global photon map against `photon_density` on the same
+    queries."""
+    import numpy as np
+    import torch
+    from cudatracerlib_tpu_torch.accel import hashgrid
+    from cudatracerlib_tpu_torch.math import kernels
+    from cudatracerlib_tpu_torch.math.vecmath import dot
+    from cudatracerlib_tpu_torch.ops import photon_gather as pg_ops
+    from cudatracerlib_tpu_torch.render import ppm
+
+    norm = kernels.normalization(kernels.EPANECHNIKOV, 2)
+    _require(abs(norm - 2.0 / np.pi) <= 1e-6,
+             f"phase 27: normalization(EPANECHNIKOV, 2) {norm} is not within 1e-6 of 2/pi")
+    (tile_args, kw), dens_args = _capture_photon_map(caustic, ppm.PPMConfig())
+    pos, power, normal, valid, lo, hi, res = tile_args
+    tiles, aabbs, q_pos, q_n, q_valid, r = dens_args
+    grid = hashgrid.build_grid(pos, lo, hi, res, valid=valid)
+    qi = q_valid.nonzero()[:, 0]
+    qp, qn = q_pos[qi], q_n[qi]
+    _, count = hashgrid._candidates(grid, qp)
+    n_cand = count.sum(1)
+    k_max = int(n_cand.max())
+    chunk = max(1, UTIL_PAYLOAD_BYTES // (k_max * 4 * 3 * 4))
+    payload = {"p": pos, "power": power, "n": normal, "wi": kw["wi"]}
+
+    def reduce_over(q, n):
+        def fn(acc, pl, ok):
+            diff = pl["p"] - q[:, None, :]
+            d2 = (diff[..., 0] * diff[..., 0] + diff[..., 1] * diff[..., 1]) + diff[..., 2] * diff[..., 2]
+            w = kernels.density_weight(kernels.EPANECHNIKOV, torch.sqrt(d2), r, 2, norm=norm)
+            nq = n[:, None, :]
+            use = ok & (dot(nq, pl["n"]) > pg_ops.NORMAL_MIN_DOT) & (dot(nq, pl["wi"]) >= 0.0)
+            w = torch.where(use, w, 0.0)
+            return acc + torch.cat([(w[..., None] * pl["power"]).sum(1), w.sum(1, keepdim=True)], -1)
+        return fn
+
+    def run_reduce():
+        out = []
+        for s in range(0, qp.shape[0], chunk):
+            q, n = qp[s:s + chunk], qn[s:s + chunk]
+            out.append(hashgrid.query_reduce(grid, payload, q, r, k_max, reduce_over(q, n),
+                                             torch.zeros(q.shape[0], 4, device=q.device)))
+        return torch.cat(out)
+
+    t_reduce, red = _timed(run_reduce)
+    t_kernel, (kf, kw_sum) = _timed(lambda: pg_ops.photon_density(tiles, aabbs, q_pos, q_n,
+                                                                  q_valid, r))
+    scale = norm / float(np.float32(r)) ** 2
+    ref = torch.cat([kf[qi], kw_sum[qi, None]], -1).double() * scale
+    diff = (red.double() - ref).abs()
+    worst = {}
+    for j, what in ((slice(0, 3), "flux"), (slice(3, 4), "sum_w")):
+        p, dd = ref[:, j], diff[:, j]
+        bad = dd > DENSITY_RTOL * p.abs() + DENSITY_ATOL * float(p.abs().max())
+        _require(not bool(bad.any()), f"phase 27 query_reduce {what}: {int(bad.sum())} sums "
+                                      f"outside tolerance, worst {float(dd.max())}")
+        big = p.abs() > 1e-3 * float(p.abs().max())
+        worst[what] = float((dd[big] / p.abs()[big]).max())
+    pairs = int(n_cand.sum())
+    chunk = min(chunk, qp.shape[0])
+    print(f"[phase 27 (b)] PASS query_reduce: {qp.shape[0]} of {q_pos.shape[0]} eye queries "
+          f"valid, {int(valid.sum())} photons in the global map, radius {float(r):.6f}, "
+          f"max_neighbors {k_max} (the largest 27-cell candidate count: no query capped), "
+          f"{pairs} candidate pairs in {-(-qp.shape[0] // chunk)} chunk(s) of {chunk} queries; "
+          f"query_reduce {1e3 * t_reduce:.3f} ms, photon_density {1e3 * t_kernel:.3f} ms; max rel "
+          f"err flux {worst['flux']:.3g}, sum_w {worst['sum_w']:.3g}; "
+          f"normalization(EPANECHNIKOV, 2) {norm:.9f} (2/pi {2 / np.pi:.9f})")
+    return dict(wall=t_reduce, kernel_wall=t_kernel, k_max=k_max, pairs=pairs, rel=worst,
+                queries=qp.shape[0], chunks=-(-qp.shape[0] // chunk))
+
+
+def _debug_viz_part(scene, size):
+    """Phase 27 (c): Cornell's AOVs at size^2 on the card, visualized and
+    overlaid, with a vector field drawn, against the CPU port on the same
+    buffers."""
+    import numpy as np
+    import torch
+    from cudatracerlib_tpu_torch.image import debug_viz as dv
+    from cudatracerlib_tpu_torch.render.prim_tracer import render_aovs
+    from cudatracerlib_tpu_torch.scene import sensors
+
+    dev = scene.light_cdf.device
+
+    def buffers():
+        aov = render_aovs(scene, size, size)
+        pid = torch.arange(size * size, device=dev)
+        uv = torch.stack([(pid % size + 0.5) / size, (pid // size + 0.5) / size], -1).float()
+        o, d, _ = sensors.sample_ray(scene.camera, uv, torch.zeros(size * size, 2, device=dev))
+        depth = aov["depth"]
+        points = (o + d * depth.reshape(-1, 1)).reshape(size, size, 3)
+        return depth, aov["normal_sh"] * 2.0 - 1.0, aov["albedo"], points
+
+    def draw(cam, depth, normal, albedo, points):
+        scal = dv.visualize_scalar(depth)
+        vec = dv.visualize_vec3(normal)
+        over = dv.overlay(albedo, vec, 0.5, mask=depth > 0)
+        field = dv.draw_vector_field(over, cam, points, normal, depth > 0, stride=8, scale=0.1)
+        return scal, vec, over, field
+
+    t_aov, bufs = _timed(buffers)
+    t_draw, out = _timed(lambda: draw(scene.camera, *bufs))
+    out_cpu = draw(scene.camera.to("cpu"), *(b.cpu() for b in bufs))
+    for name, a in zip(("visualize_scalar", "visualize_vec3", "overlay", "draw_vector_field"), out):
+        a = torch.as_tensor(a)
+        _require(bool(torch.isfinite(a).all()) and float(a.min()) >= 0.0 and float(a.max()) <= 1.0,
+                 f"phase 27 {name}: not finite or outside [0, 1]")
+    errs = [float((a.cpu() - b).abs().max()) for a, b in zip(out[:3], out_cpu[:3])]
+    _require(max(errs) <= 1e-6, f"phase 27 debug_viz: the card's images {errs} from the CPU port's")
+    drawn = np.any(out[3] != out[2].cpu().numpy(), axis=-1)
+    off = int(np.any(out[3] != out_cpu[3], axis=-1).sum())
+    _require(off == 0, f"phase 27 draw_vector_field: {off} pixels differ from the CPU port's")
+    _require(bool(drawn.any()), "phase 27 draw_vector_field drew nothing")
+    print(f"[phase 27 (c)] PASS debug_viz: render_aovs Cornell {size}x{size} {1e3 * t_aov:.3f} ms; "
+          f"visualize_scalar(depth), visualize_vec3(normal), overlay and draw_vector_field "
+          f"(stride 8, {int(drawn.sum())} pixels drawn) {1e3 * t_draw:.3f} ms; finite, in [0, 1], "
+          f"max abs err from the CPU port {max(errs):.3g}, drawn pixels equal")
+    return dict(wall=t_aov + t_draw, aov_wall=t_aov, draw_wall=t_draw, drawn=int(drawn.sum()))
+
+
+def _utils_phase(scene, caustic, smi, reset_counts):
+    """Phase 27 (module docstring): the math utilities, `query_reduce` and
+    the debug visualizers on the card, each against the CPU port."""
+    import torch
+    from cudatracerlib_tpu_torch.ops import photon_gather as pg_ops
+
+    dev = scene.light_cdf.device
+    t0 = time.perf_counter()
+    out = {"spline": _spline_part(dev, UTIL_LANES), "quadrature": _quadrature_part(dev, UTIL_LANES),
+           "compression": _compression_part(dev, UTIL_LANES),
+           "merging": _merging_part(dev, UTIL_LANES)}
+    t_a = time.perf_counter()
+    reset_counts()
+    out["query_reduce"] = _query_reduce_part(caustic)
+    torch.cuda.synchronize()
+    out["launches"] = dict(pg_ops.launches)
+    t_b = time.perf_counter()
+    out["debug_viz"] = _debug_viz_part(scene, UTIL_AOV_SIZE)
+    t_c = time.perf_counter()
+    print(f"[wall] phase 27 (a) {t_a - t0:.1f} s, (b) {t_b - t_a:.1f} s (photon_density launches "
+          f"{out['launches']}), (c) {t_c - t_b:.1f} s; {smi}")
+    return out
+
+
 def _timed(fn):
     """Host wall in seconds of one call of `fn`, ending in a synchronize,
     and its result."""
@@ -4745,7 +5127,11 @@ def main():
     print(f"[wall] phase 26 (a) and (b)-(d): {part26 - marks[-1]:.1f} s and "
           f"{time.perf_counter() - part26:.1f} s")
     lap(26)
-    print(f"[wall] chip_smoke.py phases 1-26: {time.perf_counter() - t_start:.1f} s after the "
+
+    # ---- 27. the math utilities, query_reduce and the debug visualizers ----
+    ut = _utils_phase(scene, caustic, smi, reset_counts)
+    lap(27)
+    print(f"[wall] chip_smoke.py phases 1-27: {time.perf_counter() - t_start:.1f} s after the "
           f"imports")
     enl, enr = en["launches"], en["runs"]
     dyr = dy["runs"]
@@ -5067,6 +5453,10 @@ def main():
             "caustic_bound_ms": work["caustic map"]["bound"][0],
             "sharded_ppm_launches": mdl["ppm"]["photon_gather"]["density"],
             "sharded_ranks_ppm_launches": mrl["ppm"]["photon_gather"]["density"],
+            "utils_launches": ut["launches"]["density"],
+            "utils_query_reduce_ms": 1e3 * ut["query_reduce"]["wall"],
+            "utils_kernel_wall_ms": 1e3 * ut["query_reduce"]["kernel_wall"],
+            "utils_max_rel_err": max(ut["query_reduce"]["rel"].values()),
         },
     ]}))
     print(smi)

@@ -1,4 +1,5 @@
-"""Maps over trees of tensors: NamedTuples and plain tuples."""
+"""Maps over trees of tensors: NamedTuples and plain tuples (`tree_map`),
+or every container as jax.tree.map walks them (`tree_map_all`)."""
 from __future__ import annotations
 
 import torch
@@ -14,6 +15,19 @@ def tree_map(fn, obj):
         items = (tree_map(fn, v) for v in obj)
         return type(obj)(*items) if hasattr(obj, "_fields") else tuple(items)
     return obj
+
+
+def tree_map_all(fn, obj):
+    """Copy of `obj` with `fn` applied to every leaf, walking dicts, lists,
+    tuples and NamedTuples as jax.tree.map does; None stays None."""
+    if obj is None:
+        return None
+    if isinstance(obj, dict):
+        return {k: tree_map_all(fn, v) for k, v in obj.items()}
+    if isinstance(obj, (tuple, list)):
+        items = (tree_map_all(fn, v) for v in obj)
+        return type(obj)(*items) if hasattr(obj, "_fields") else type(obj)(items)
+    return fn(obj)
 
 
 def tree_to(obj, device):

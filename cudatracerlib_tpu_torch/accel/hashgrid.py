@@ -1,6 +1,5 @@
 """Spatial hash grid as sorted cell-id arrays and segment queries
-(port of cudatracerlib_tpu/accel/hashgrid.py:33-147; `query_reduce` :150,
-which no engine calls, is not ported).
+(port of cudatracerlib_tpu/accel/hashgrid.py).
 
 Points are quantized to cell ids and sorted by cell (a stable sort, as JAX's
 argsort is: under a neighbour cap the order decides which points a query
@@ -15,6 +14,8 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+
+from .._tree import tree_map_all
 
 
 class HashGrid(NamedTuple):
@@ -113,3 +114,14 @@ def query_sphere_sampled(grid: HashGrid, centers, max_neighbors: int):
     g = torch.floor(k * stride[:, None]).to(count.dtype)                # (B, K)
     idx, _ = _pick(grid, start, count, g)
     return idx, g < n_total[:, None], stride
+
+
+def query_reduce(grid: HashGrid, points_sorted_payload, centers, radius,
+                 max_neighbors: int, reduce_fn, init):
+    """Gather each center's neighbours (`query_sphere`) and fold
+    `reduce_fn(init, payload, valid)`. The payload is a tensor or a dict /
+    list / tuple / NamedTuple of (N, ...) tensors indexed like the original
+    points; each leaf arrives gathered as (B, K, ...)."""
+    idx, valid = query_sphere(grid, centers, radius, max_neighbors)
+    payload = tree_map_all(lambda a: a[idx], points_sorted_payload)
+    return reduce_fn(init, payload, valid)

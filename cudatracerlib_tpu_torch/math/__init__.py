@@ -1,3 +1,4 @@
-from . import (dispersion, fresnel, frame, microfacet, montecarlo, rough_transmittance,  # noqa: F401
-               spectral, spectrum, vecmath, warp)
+from . import (compression, dispersion, fresnel, frame, kernels, microfacet,  # noqa: F401
+               montecarlo, quadrature, rough_transmittance, spectral, spectrum, spline,
+               vecmath, warp)
 from .frame import Frame  # noqa: F401

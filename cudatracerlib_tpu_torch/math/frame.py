@@ -35,12 +35,20 @@ def abs_cos_theta(v):
     return v[..., 2].abs()
 
 
+def cos_theta2(v):
+    return v[..., 2] * v[..., 2]
+
+
 def sin_theta2(v):
     return torch.clamp(1.0 - v[..., 2] * v[..., 2], min=0.0)
 
 
 def sin_theta(v):
     return torch.sqrt(sin_theta2(v))
+
+
+def tan_theta(v):
+    return sin_theta(v) / torch.where(v[..., 2].abs() < 1e-12, 1e-12, v[..., 2])
 
 
 def sin_phi(v):
@@ -56,3 +64,7 @@ def cos_phi(v):
 def tan_theta2(v):
     c2 = v[..., 2] * v[..., 2]
     return torch.clamp(1.0 - c2, min=0.0) / torch.clamp(c2, min=1e-12)
+
+
+def same_hemisphere(a, b):
+    return a[..., 2] * b[..., 2] > 0.0

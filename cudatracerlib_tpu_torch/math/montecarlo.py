@@ -1,8 +1,15 @@
-"""Monte-Carlo helpers (port of cudatracerlib_tpu/math/montecarlo.py:18-69):
-MIS heuristics, discrete CDF sampling with sample reuse, Russian roulette."""
+"""Monte-Carlo helpers (port of cudatracerlib_tpu/math/montecarlo.py):
+MIS heuristics, discrete CDFs and their sampling with sample reuse, Russian
+roulette."""
 from __future__ import annotations
 
 import torch
+
+
+def balance_heuristic(n_f, pdf_f, n_g, pdf_g):
+    f = n_f * pdf_f
+    g = n_g * pdf_g
+    return f / torch.clamp(f + g, min=1e-20)
 
 
 def power_heuristic(n_f, pdf_f, n_g, pdf_g):
@@ -15,6 +22,16 @@ def power_heuristic(n_f, pdf_f, n_g, pdf_g):
 def mis_weight(pdf_a, pdf_b):
     """Power-heuristic weight for strategy a vs b with one sample each."""
     return power_heuristic(1.0, pdf_a, 1.0, pdf_b)
+
+
+def build_cdf(weights, axis: int = -1):
+    """Normalized inclusive CDF along `axis`; returns (cdf, total). A zero
+    total maps to the uniform CDF."""
+    w = torch.clamp(weights, min=0.0)
+    total = w.sum(axis, keepdim=True)
+    uniform = torch.cumsum(torch.ones_like(w), axis) / w.shape[axis]
+    cdf = torch.where(total > 0.0, torch.cumsum(w, axis) / torch.clamp(total, min=1e-30), uniform)
+    return cdf, total.squeeze(axis)
 
 
 def sample_discrete(cdf, u):

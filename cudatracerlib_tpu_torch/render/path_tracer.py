@@ -31,6 +31,7 @@ render/volpath.py renders media.
 """
 from __future__ import annotations
 
+from functools import partial
 from typing import NamedTuple
 
 import numpy as np
@@ -558,6 +559,12 @@ def block_order(width: int, height: int, device, block: int = 32):
     return pid, pos
 
 
+def block_order_pixels(width: int, height: int, block: int = 32, device="cuda"):
+    """Pixel ids in block-major order (32x32 screen tiles), an int64 tensor
+    on `device`: consecutive rays form compact screen tiles."""
+    return block_order(width, height, device, block)[0]
+
+
 def block_order_pixels_np(width: int, height: int, block: int = 32) -> np.ndarray:
     """Pixel ids in block-major order (32x32 screen tiles)."""
     return block_order(width, height, "cpu", block)[0].numpy()
@@ -619,6 +626,12 @@ def render(scene: Scene, width: int, height: int, spp: int, seed,
     Differentiable in every float tensor of the scene that requires grad."""
     config = specialize_config(scene, config)
     return _render_body(scene, width, height, spp, seed, config, False)
+
+
+def render_pass_fn(scene: Scene, width: int, height: int, spp: int,
+                   config: PTConfig = PTConfig()):
+    """fn(seed) -> image, one `render` pass, for progressive accumulation."""
+    return partial(render, scene, width, height, spp, config=config)
 
 
 @torch.no_grad()

@@ -31,6 +31,28 @@ E_REFLECTION = E_DIFFUSE_REFLECTION | E_GLOSSY_REFLECTION | E_DELTA_REFLECTION
 E_TRANSMISSION = E_DIFFUSE_TRANSMISSION | E_GLOSSY_TRANSMISSION | E_DELTA_TRANSMISSION
 E_ALL = E_SMOOTH | E_DELTA
 
+# Transport modes
+RADIANCE = 0
+IMPORTANCE = 1
+
+
+class PositionSample(NamedTuple):
+    """A sampled position on a surface (SceneTypes/Samples.h:94)."""
+
+    p: torch.Tensor        # (..., 3)
+    n: torch.Tensor        # (..., 3)
+    pdf: torch.Tensor      # (...,)
+    measure: torch.Tensor  # (...,) int32
+    uv: torch.Tensor       # (..., 2)
+
+
+class DirectionSample(NamedTuple):
+    """A sampled direction (SceneTypes/Samples.h:113)."""
+
+    d: torch.Tensor        # (..., 3)
+    pdf: torch.Tensor      # (...,)
+    measure: torch.Tensor  # (...,) int32
+
 
 class DirectSample(NamedTuple):
     """A point on an emitter as seen from a reference point

@@ -65,7 +65,8 @@ BLEND = 13
 HK = 14
 NULL_BSDF = 15
 
-PORTED = tuple(range(16))
+N_BSDF_TYPES = 16
+PORTED = tuple(range(N_BSDF_TYPES))
 NESTED = (COATING, ROUGHCOATING, BLEND)
 _TWO_SIDED = (DIFFUSE, ROUGHDIFFUSE, CONDUCTOR, ROUGHCONDUCTOR, PLASTIC,
               ROUGHPLASTIC, PHONG, WARD)

@@ -34,6 +34,7 @@ CONSTANT_ENV = 5
 PORTED = (POINT, SPOT, DISTANT, AREA_LIGHT, INFINITE, CONSTANT_ENV)
 DELTA = (POINT, SPOT, DISTANT)            # sampled with a discrete measure
 MAX_LIGHT_TRIS = 64   # per-light CDF padding
+ENV_RES_Y = 64        # environment CDF resolution (theta); phi = 2*ENV_RES_Y
 
 
 class Lights(NamedTuple):

@@ -19,6 +19,7 @@ MODULES = [
     "cudatracerlib_tpu_torch.cli",
     "cudatracerlib_tpu_torch.convert",
     "cudatracerlib_tpu_torch.entry",
+    "cudatracerlib_tpu_torch.image.debug_viz",
     "cudatracerlib_tpu_torch.image.film",
     "cudatracerlib_tpu_torch.image.pipeline",
     "cudatracerlib_tpu_torch.image.variance",
@@ -31,14 +32,19 @@ MODULES = [
     "cudatracerlib_tpu_torch.io.ply",
     "cudatracerlib_tpu_torch.io.serialized",
     "cudatracerlib_tpu_torch.io.sunsky",
+    "cudatracerlib_tpu_torch.math.compression",
     "cudatracerlib_tpu_torch.math.dispersion",
     "cudatracerlib_tpu_torch.math.frame",
     "cudatracerlib_tpu_torch.math.fresnel",
+    "cudatracerlib_tpu_torch.math.function_model",
+    "cudatracerlib_tpu_torch.math.kernels",
     "cudatracerlib_tpu_torch.math.microfacet",
     "cudatracerlib_tpu_torch.math.montecarlo",
+    "cudatracerlib_tpu_torch.math.quadrature",
     "cudatracerlib_tpu_torch.math.rough_transmittance",
     "cudatracerlib_tpu_torch.math.spectral",
     "cudatracerlib_tpu_torch.math.spectrum",
+    "cudatracerlib_tpu_torch.math.spline",
     "cudatracerlib_tpu_torch.math.vecmath",
     "cudatracerlib_tpu_torch.math.warp",
     "cudatracerlib_tpu_torch.models",
