@@ -195,7 +195,7 @@ It imports nothing of JAX. Phases, each of which raises on failure:
      32,769 grid rows): two launches bit-equal, unhit rows 0, each row within
      1e-5 of its sum of |g| from the float64 plain version; then phase 11's
      checks at those indices, the times beside the plain version and
-     index_add_, the scratch and its row-mask share; the same at a
+     index_add_, the scratch and its row lists' share; the same at a
      per-volume table's shape (sigma_a[vid], captured in a gradient of
      per-channel grids, 64x64, 4 spp);
   20. SPPM: pinned runs (render_sppm_pass at 64x64 on the Cornell box and
@@ -692,7 +692,8 @@ ROW_BYTES = 48 + 36        # a Woop row and the 9 floats of its vertex row that 
 FLOPS_PHOTON_PAIR = 32     # per (valid query, photon) pair weighed (an FMA counts two)
 LEAF_SIZE = 4
 PORT_KERNELS = ("dense_kernel", "bvh_kernel", "gather_kernel", "gather_bwd_tile_kernel",
-                "gather_bwd_range_kernel", "gather_bwd_final_kernel", "photon_kernel",
+                "gather_bwd_warp_tile_kernel", "gather_bwd_range_kernel",
+                "gather_bwd_word_kernel", "gather_bwd_final_kernel", "photon_kernel",
                 "photon_reduce_kernel")  # __global__ names in csrc/
 
 
@@ -1192,6 +1193,36 @@ def _capture_texture_ids(scene, cfg):
     return seen[0]
 
 
+def _bwd_layout(label, idx, n_rows, cols):
+    """The gather backward's work at one shape, counted from its indices:
+    the (tile, row) pairs (the tile partials the tile kernel writes), the
+    range stage the rule takes (`bwd_word_masks`: the word kernel on
+    per-32-row-word masks, else the band kernel on row lists) with its
+    bands and ranges, the tiles' records and the whole scratch in bytes;
+    printed and returned."""
+    import torch
+    from cudatracerlib_tpu_torch.ops import shade_gather as sg_ops
+
+    n, T = idx.shape[0], sg_ops.BWD_TILE
+    rows = torch.clamp(idx, 0, n_rows - 1).long()
+    pairs = int(torch.unique(torch.arange(n, device=idx.device) // T * n_rows + rows).numel())
+    n_tiles = -(-n // T)
+    masks = sg_ops.bwd_word_masks(n_rows, cols)
+    bands, band_rows = (0, 0) if masks else sg_ops.bwd_bands(n_tiles, n_rows, cols)
+    out = dict(pairs=pairs, bands=bands, band_rows=band_rows,
+               ranges=-(-n_tiles // sg_ops.bwd_range_tiles(n_tiles)),
+               row_lists=0 if masks else n_tiles * min(T, n_rows) * 4,
+               word_masks=2 * n_tiles * -(-n_rows // 32) * 4 if masks else 0,
+               scratch=sg_ops.bwd_scratch_floats(cols, n, n_rows) * 4)
+    stage = (f"the word kernel on {-(-n_rows // 32)} words of masks ({out['word_masks']} bytes)"
+             if masks else f"the band kernel, {bands} bands of {band_rows} rows, row lists of "
+             f"{out['row_lists']} bytes")
+    print(f"[layout] packed_gather_bwd {label}: {n} lanes x {cols} onto {n_rows} rows: "
+          f"{pairs} (tile, row) pairs ({pairs * cols * 4} bytes of tile partials), {n_tiles} "
+          f"tiles in {out['ranges']} ranges; {stage}; scratch {out['scratch']} bytes")
+    return out
+
+
 def _check_gather_bwd(label, idx, n_rows, cols, dev):
     """Phase 11 at one shape: packed_gather's backward kernels against the
     float64 plain version on a seeded uniform cotangent (so a row no lane hit
@@ -1219,16 +1250,11 @@ def _check_gather_bwd(label, idx, n_rows, cols, dev):
     _require(torch.equal(sg_ops.packed_gather_bwd(gs, ids, n_rows).cpu(), emu),
              f"packed_gather_bwd {label}: not bit-equal to the emulation of its order")
     counts = torch.bincount(torch.clamp(idx, 0, n_rows - 1).long(), minlength=n_rows)
-    T = sg_ops.BWD_TILE
-    tile_of = torch.arange(n, device=dev) // T
-    rows_in_tiles = int(torch.unique(tile_of * n_rows
-                                     + torch.clamp(idx, 0, n_rows - 1).long()).numel())
-    del tile_of
     print(f"[kernel vs plain] packed_gather_bwd {label}: {n} lanes x {cols} onto {n_rows} rows "
-          f"({int((counts > 0).sum())} hit, the most hit {int(counts.max())} lanes), tiles of "
-          f"{T} lanes hold {rows_in_tiles} (tile, row) partials ({rows_in_tiles * cols * 4} bytes), "
+          f"({int((counts > 0).sum())} hit, the most hit {int(counts.max())} lanes), "
           f"max rel err {rel:.3g}, max abs err {err:.3g}, two launches bit-equal, bit-equal to "
           f"the emulation on 4,096 lanes")
+    layout = _bwd_layout(label, idx, n_rows, cols)
     prepared, _ = sg_ops.bwd_launch_args(g, idx, n_rows)
     ms = _time_kernel_ms([prepared] * 21, sg_ops.bwd_launch)
     wrap_ms = _time_ms(lambda: sg_ops.packed_gather_bwd(g, idx, n_rows), 20)
@@ -1242,7 +1268,7 @@ def _check_gather_bwd(label, idx, n_rows, cols, dev):
           f"atomics) {lib_ms:.4f} ms, bound {bound[0]:.5f} ms ({bound[1]}: {nbytes} bytes); "
           f"{100 * bound[0] / ms:.1f}% of the bound alone, {100 * bound[0] / wrap_ms:.1f}% whole")
     return dict(err=err, rel=rel, ms=ms, wrap_ms=wrap_ms, plain_ms=plain_ms, lib_ms=lib_ms,
-                bound=bound)
+                bound=bound, **layout)
 
 
 def _wall_scene(device="cuda"):
@@ -1486,15 +1512,16 @@ def _check_splat(label, pix, val, n_px, dev):
     lib_ms = _time_ms(lambda: torch.zeros(n_px, C, device=dev).index_add_(0, rows, val), 20)
     nbytes = n * C * 4 + n * 4 + n_px * C * 4
     bound = _bound(n * C, nbytes)
-    scratch = sg_ops.bwd_scratch_floats(C, n, n_px) * 4
+    layout = _bwd_layout(f"splat sum {label}", idx, n_px, C)
     print(f"[kernel vs plain] splat sum {label}: {n} splats onto {n_px} pixels "
           f"({int(pos.any(-1).sum())} lit, {int((val > 0).any(-1).sum())} nonzero splats), max rel "
-          f"err {rel:.3g}, max abs err {err:.3g}, two launches bit-equal; scratch {scratch} bytes")
+          f"err {rel:.3g}, max abs err {err:.3g}, two launches bit-equal; scratch "
+          f"{layout['scratch']} bytes")
     print(f"[time] splat sum {label}: kernels {ms:.4f} ms, whole call {wrap_ms:.4f} ms, plain "
           f"(float64 index_add_) {plain_ms:.4f} ms, index_add_ (float32, atomics) {lib_ms:.4f} ms, "
           f"bound {bound[0]:.5f} ms ({bound[1]}: {nbytes} bytes)")
     return dict(err=err, rel=rel, ms=ms, wrap_ms=wrap_ms, plain_ms=plain_ms, lib_ms=lib_ms,
-                bound=bound, scratch=scratch)
+                bound=bound, **layout)
 
 
 def _check_film_runs(width, height, spp):
@@ -1839,7 +1866,7 @@ def _check_bwd_captured(label, g, idx, n_rows, dev):
     float64 plain version (a captured cotangent has both signs, so a row's
     sum may cancel: Σ|g| is the scale its float32 rounding errs on). Then
     phase 11's checks and times at the captured indices (a seeded uniform
-    cotangent, within 1e-5 relative), the scratch and its row-mask share."""
+    cotangent, within 1e-5 relative), the pairs, bands and scratch."""
     import torch
     from cudatracerlib_tpu_torch.ops import shade_gather as sg_ops
 
@@ -1860,12 +1887,11 @@ def _check_bwd_captured(label, g, idx, n_rows, dev):
           f"|g|, max abs err {float((k1 - plain).abs().max()):.3g}, two launches bit-equal")
     del k1, k2, plain, scale
     r = _check_gather_bwd(label, idx, n_rows, cols, dev)
-    n_tiles, n_words = -(-n // sg_ops.BWD_TILE), -(-n_rows // 32)
-    scratch = sg_ops.bwd_scratch_floats(cols, n, n_rows) * 4
-    masks = 2 * n_tiles * n_words * 4
-    print(f"[scratch] packed_gather_bwd {label}: {scratch} bytes, of which the tiles' row masks "
-          f"{masks} ({100 * masks / scratch:.1f}%); g and idx {n * cols * 4 + n * 4} bytes")
-    return dict(r, captured_rel=rel, scratch=scratch, masks=masks, lanes=n, rows=n_rows)
+    record = r["row_lists"] + r["word_masks"]
+    print(f"[scratch] packed_gather_bwd {label}: {r['scratch']} bytes, of which the tiles' "
+          f"{'row lists' if r['row_lists'] else 'word masks'} {record} "
+          f"({100 * record / r['scratch']:.1f}%); g and idx {n * cols * 4 + n * 4} bytes")
+    return dict(r, captured_rel=rel, lanes=n, rows=n_rows)
 
 
 def _volume_grad_phase(scene, smi, reset_counts):
@@ -2249,8 +2275,7 @@ def _shading_phase(cornell, caustic, smi, reset_counts):
     pix, val, n_rows = splats[0]
     print(f"[splat] filtered film: {val.shape[0]} taps x {val.shape[1]} columns onto {n_rows} "
           f"rows; scratch {sg_ops.bwd_scratch_floats(val.shape[1], val.shape[0], n_rows) * 4} "
-          f"bytes, of which row masks "
-          f"{2 * -(-val.shape[0] // sg_ops.BWD_TILE) * -(-n_rows // 32) * 4} bytes")
+          f"bytes (the band kernel: {not sg_ops.bwd_word_masks(n_rows, val.shape[1])})")
     checks["splat"] = _check_splat("filtered film (gaussian, 3x3 taps)", pix, val, n_rows,
                                    val.device)
     # the alternative design, one call a tap: the same rows' sums from 9 calls of 2^20 lanes
@@ -5364,6 +5389,9 @@ def main():
             "bound_by": bwd["pack"]["bound"][1],
             "library_ms": bwd["pack"]["lib_ms"],
             "wrapper_ms": bwd["pack"]["wrap_ms"],
+            "pairs": bwd["pack"]["pairs"],
+            "bands": bwd["pack"]["bands"],
+            "scratch_bytes": bwd["pack"]["scratch"],
             "max_rel_err": max(*(b["rel"] for b in bwd.values()), vg["grid"]["rel"],
                                vg["table"]["rel"], tx["atlas"]["rel"]),
             "range_launches": gl["shade_gather"]["gather_bwd_range"],
@@ -5371,7 +5399,8 @@ def main():
             "cornell_launches": cgrad["launches"]["shade_gather"]["gather_bwd_tile"],
             **{f"{k}_{f}": bwd[k][v] for k in ("texture", "woop")
                for f, v in (("ms", "ms"), ("wrapper_ms", "wrap_ms"), ("plain_ms", "plain_ms"),
-                            ("library_ms", "lib_ms"))},
+                            ("library_ms", "lib_ms"), ("pairs", "pairs"), ("bands", "bands"),
+                            ("scratch_bytes", "scratch"))},
             **{f"{k}_bound_ms": bwd[k]["bound"][0] for k in ("texture", "woop")},
             "splat_launches": launch5["packed_gather"]["gather_bwd_tile"],
             "splat_max_abs_err": max(splat_bdpt["err"], splat_lt["err"]),
@@ -5379,7 +5408,8 @@ def main():
             **{f"{k}_splat_{f}": (r[v][0] if v == "bound" else r[v])
                for k, r in (("bdpt", splat_bdpt), ("lt", splat_lt))
                for f, v in (("ms", "ms"), ("wrapper_ms", "wrap_ms"), ("plain_ms", "plain_ms"),
-                            ("library_ms", "lib_ms"), ("bound_ms", "bound"))},
+                            ("library_ms", "lib_ms"), ("bound_ms", "bound"), ("pairs", "pairs"),
+                            ("bands", "bands"), ("scratch_bytes", "scratch"))},
             "lt_splat_launches": launch_lt["packed_gather"]["gather_bwd_tile"],
             "filter_splat_launches": sh_launch["cornell gaussian"]["shade_gather"]["gather_bwd_tile"],
             "shading_splat_launches": sum(v["shade_gather"]["gather_bwd_tile"]
@@ -5388,7 +5418,8 @@ def main():
                for f, v in (("ms", "ms"), ("wrapper_ms", "wrap_ms"), ("plain_ms", "plain_ms"),
                             ("library_ms", "lib_ms"), ("bound_ms", "bound"),
                             ("max_abs_err", "err"), ("max_rel_err", "rel"),
-                            ("scratch_bytes", "scratch"), ("per_tap_calls_ms", "per_tap_ms"))},
+                            ("scratch_bytes", "scratch"), ("per_tap_calls_ms", "per_tap_ms"),
+                            ("pairs", "pairs"), ("bands", "bands"))},
             "grid_launches": vgl["shade_gather"]["gather_bwd_tile"],
             **{f"{k}_{f}": (vg[k][v][0] if v == "bound" else vg[k][v])
                for k in ("grid", "table")
@@ -5397,7 +5428,8 @@ def main():
                             ("library_ms", "lib_ms"), ("bound_ms", "bound"),
                             ("max_abs_err", "err"), ("max_rel_err", "rel"),
                             ("captured_rel_err", "captured_rel"), ("scratch_bytes", "scratch"),
-                            ("mask_bytes", "masks"))},
+                            ("row_list_bytes", "row_lists"), ("pairs", "pairs"),
+                            ("bands", "bands"))},
             "atlas_launches": tx["grad"]["deluxe"]["launches"]["shade_gather"]["gather_bwd_tile"],
             "sss_grad_launches": tx["grad"]["sss"]["launches"]["shade_gather"]["gather_bwd_tile"],
             **{f"atlas_{f}": (tx["atlas"][v][0] if v == "bound" else tx["atlas"][v])
@@ -5406,7 +5438,8 @@ def main():
                             ("library_ms", "lib_ms"), ("bound_ms", "bound"),
                             ("max_abs_err", "err"), ("max_rel_err", "rel"),
                             ("captured_rel_err", "captured_rel"), ("scratch_bytes", "scratch"),
-                            ("mask_bytes", "masks"))},
+                            ("row_list_bytes", "row_lists"), ("pairs", "pairs"),
+                            ("bands", "bands"))},
             "sharded_train_launches": mdl["train"]["shade_gather"]["gather_bwd_tile"],
             "sharded_ranks_train_launches": mrl["train"]["shade_gather"]["gather_bwd_tile"],
             **{f"sharded_train_{f}": (md["bwd"][v][0] if v == "bound" else md["bwd"][v])
@@ -5433,7 +5466,9 @@ def main():
                for f, v in (("lanes", "lanes"), ("rows", "rows"), ("ms", "ms"),
                             ("wrapper_ms", "wrap_ms"), ("plain_ms", "plain_ms"),
                             ("library_ms", "lib_ms"), ("bound_ms", "bound"),
-                            ("max_abs_err", "err"), ("captured_rel_err", "captured_rel"))},
+                            ("max_abs_err", "err"), ("captured_rel_err", "captured_rel"),
+                            ("pairs", "pairs"), ("bands", "bands"), ("scratch_bytes", "scratch"),
+                            ("row_list_bytes", "row_lists"))},
         },
         {
             "name": "photon_density",

@@ -13,15 +13,16 @@ the CPU it runs that kernel's plain version. The filtered film
 samples) sums its taps with the same kernel; it is differentiable, its
 backward a plain gather of the cotangent.
 
-That kernel's scratch grows with lanes x rows (its row masks, two words
-per tile of 256 lanes and 32 rows, and its range partials,
-`bwd_scratch_floats`), so the filtered film cuts its samples into runs
-whose call stays within SPLAT_SCRATCH_FLOATS and gives each call only the
-image rows its run's taps reach (`splat_runs`; the path tracer's samples
-lie in 32x32 screen tiles, so a run covers a band of rows). The runs' sums
-are added in run order, so the film stays deterministic; a pass whose taps
-fit at once (256x256 at 16 spp with a 3x3 support: one call of 0.79 GB) is
-summed in one call, 1024x1024 at 16 spp in 64.
+That kernel's scratch grows with its lanes (the tile partials and row
+lists) and with its ranges of tiles x rows (the range partials, a range
+being up to 1,024 tiles of 256 lanes; `bwd_scratch_floats`), so the
+filtered film cuts its samples into runs whose call stays within
+SPLAT_SCRATCH_FLOATS and gives each call only the image rows its run's taps
+reach (`splat_runs`; the path tracer's samples lie in 32x32 screen tiles,
+so a run covers a band of rows). The runs' sums are added in run order, so
+the film stays deterministic; a pass whose taps fit at once (256x256 at 16
+spp with a 3x3 support: one call of 0.23 GB) is summed in one call,
+1024x1024 at 16 spp (12.8 GB at once) in 16, one a sample pass.
 """
 from __future__ import annotations
 
@@ -122,7 +123,8 @@ def splat_runs(sy, n_taps: int, support: int, height: int, width: int):
     rows the run's taps reach) plus a dropped row within
     SPLAT_SCRATCH_FLOATS of scratch: the whole image first, then a run that
     does not fit is halved and each half's rows read from its samples'
-    positions `sy` (one host read a half)."""
+    positions `sy` (one host read a half). A call's scratch grows with its
+    taps and with its ranges of tiles x its rows (`bwd_scratch_floats`)."""
     todo = [(0, sy.shape[0], 0, height - 1)]
     while todo:
         b0, b1, y0, y1 = todo.pop()

@@ -36,6 +36,10 @@ MAX_BWD_COLS = 64  # the backward kernel's widest row: 32 threads x 2 columns
 BWD_TILE = 256        # lanes a tile of the backward (TILE in the .cu)
 BWD_MAX_RANGES = 32   # ranges of tiles the final kernel folds while tiles allow (MAX_RANGES)
 BWD_MAX_RANGE_TILES = 1024  # tiles a range, at most (MAX_RANGE_TILES)
+BWD_BAND_WORDS = 12288      # a band's accumulators and hit bytes, at most (BAND_WORDS)
+BWD_FILL_CTAS = 256         # range-kernel CTAs the bands aim at (FILL_CTAS)
+BWD_MIN_BAND_ROWS = 256     # rows a band keeps while raised for fill (MIN_BAND_ROWS)
+BWD_MASK_WORDS_PER_COL = 32  # word masks while 32-row words <= this x C (MASK_WORDS_PER_COL)
 
 # Each launch of a CUDA kernel adds one here (plain-version calls do not).
 launches = {"gather": 0, "gather_bwd_tile": 0, "gather_bwd_range": 0, "gather_bwd_final": 0}
@@ -174,6 +178,27 @@ def bwd_range_tiles(n_tiles: int) -> int:
     return min(max(32, -(-n_tiles // BWD_MAX_RANGES)), BWD_MAX_RANGE_TILES)
 
 
+def bwd_word_masks(n_rows: int, cols: int) -> bool:
+    """The range stage's rule (`word_masks` in the .cu): per-32-row-word
+    masks and the word kernel while a tile's masks (8 bytes a word) take at
+    most a quarter of its span of g (256 lanes x C x 4 bytes), so they never
+    outgrow the input; row lists and the band kernel otherwise."""
+    return -(-n_rows // 32) <= BWD_MASK_WORDS_PER_COL * cols
+
+
+def bwd_bands(n_tiles: int, n_rows: int, cols: int) -> tuple[int, int]:
+    """(bands, rows a band) of the backward's range kernel, one CTA a (band,
+    range) (`bands` in the .cu): the fewest bands whose rows' accumulators
+    and hit bytes fit BWD_BAND_WORDS words of shared memory, raised towards
+    BWD_FILL_CTAS CTAs over the ranges while a band keeps
+    BWD_MIN_BAND_ROWS rows; then the rows evened out over the bands."""
+    n_ranges = -(-n_tiles // bwd_range_tiles(n_tiles))
+    most = 4 * BWD_BAND_WORDS // (4 * cols + 1)
+    fill = min(-(-BWD_FILL_CTAS // max(n_ranges, 1)), -(-n_rows // BWD_MIN_BAND_ROWS))
+    rows = -(-n_rows // max(-(-n_rows // most), fill))
+    return -(-n_rows // rows), rows
+
+
 def _fold(terms):
     """The left fold t0 + t1 + ... in float32, from the first term."""
     acc = None
@@ -220,16 +245,19 @@ def packed_gather_bwd_emulated(g, idx, n_rows: int):
 def bwd_scratch_floats(cols: int, n: int, n_rows: int) -> int:
     """Float32 words of scratch the backward kernels take
     (`shade_gather_bwd_scratch` in the .cu): the tile partials (a slot per
-    tile and row it holds, at most min(T, n_rows) a tile), the tiles' row
-    masks (two words per tile and 32 rows), the range partials and each
-    row's mask of ranges (a word per 32 ranges), each rounded up to 16
-    bytes."""
+    tile and row it holds, at most min(T, n_rows) a tile), the tiles'
+    records (by `bwd_word_masks`: two words per tile and 32 rows, at most a
+    quarter of g's; else a row list, an int a slot, and a row count), the
+    range partials and each row's mask of ranges (a word per 32 ranges),
+    each rounded up to 16 bytes. No term grows with tiles x rows past g."""
     T = BWD_TILE
-    n_tiles, n_words = -(-n // T), -(-n_rows // 32)
+    n_tiles, cap = -(-n // T), min(T, n_rows)
     n_ranges = -(-n_tiles // bwd_range_tiles(n_tiles))
     r4 = lambda x: (x + 3) & ~3  # noqa: E731
-    return (r4(n_tiles * min(T, n_rows) * cols) + r4(2 * n_tiles * n_words)
-            + r4(n_ranges * n_rows * cols) + r4(-(-n_ranges // 32) * n_rows))
+    record = (r4(2 * n_tiles * -(-n_rows // 32)) if bwd_word_masks(n_rows, cols)
+              else r4(n_tiles * cap) + r4(n_tiles))
+    return (r4(n_tiles * cap * cols) + record + r4(n_ranges * n_rows * cols)
+            + r4(-(-n_ranges // 32) * n_rows))
 
 
 def bwd_launch_args(g, idx, n_rows: int):

@@ -713,6 +713,43 @@ def test_shade_gather_bwd_grid_shape(dev):
     assert bool(((got_p - plain_p).abs() <= 1e-5 * plain_p).all())
 
 
+@pytest.mark.parametrize("n,n_rows,cols", [(1 << 20, 200_000, 4), (300_000, 70_000, 64),
+                                            (655_360, 32_768, 1)])
+def test_shade_gather_bwd_bands(dev, n, n_rows, cols):
+    """The band kernel's bands of rows (tables past the word-mask rule): a
+    table over several bands at C = 4 (200,000 rows) and at C = 64 (70,000
+    rows), and the guiding deposit's shape, whose 32 ranges (fewer than the
+    SMs) take 9 bands. A fifth of the lanes land on a band's first or last
+    row or the row before a band, so rows start on every band edge. Two
+    launches bit-equal, bit-equal to the emulation of the order on three
+    4,096-lane slices, within 1e-5 relative of the float64 plain version."""
+    n_tiles = -(-n // sg_ops.BWD_TILE)
+    n_bands, band_rows = sg_ops.bwd_bands(n_tiles, n_rows, cols)
+    n_ranges = -(-n_tiles // sg_ops.bwd_range_tiles(n_tiles))
+    assert not sg_ops.bwd_word_masks(n_rows, cols)
+    assert n_bands > 1 and n_bands * band_rows >= n_rows
+    rng = np.random.default_rng(n_rows + cols)
+    idx = np.repeat(rng.integers(0, n_rows, n // 8 + 1), 8)[:n].astype(np.int32)
+    starts = np.arange(n_bands) * band_rows
+    edges = np.unique(np.concatenate([starts, np.maximum(starts - 1, 0),
+                                      np.minimum(starts + band_rows - 1, n_rows - 1)]))
+    on_edge = rng.random(n) < 0.2
+    idx[on_edge] = rng.choice(edges, int(on_edge.sum())).astype(np.int32)
+    g = rng.random((n, cols), dtype=np.float32)
+    tg, ti = torch.from_numpy(g).to(dev), torch.from_numpy(idx).to(dev)
+    got = sg_ops.packed_gather_bwd(tg, ti, n_rows)
+    assert torch.equal(got.view(torch.int32),
+                       sg_ops.packed_gather_bwd(tg, ti, n_rows).view(torch.int32))
+    plain = sg_ops.packed_gather_bwd_plain(tg, ti, n_rows)
+    assert bool(((got - plain).abs() <= 1e-5 * plain.abs()).all())
+    for a in (0, n // 2 + 77, n - 4096):
+        gs, ids = tg[a:a + 4096].contiguous(), ti[a:a + 4096]
+        assert torch.equal(sg_ops.packed_gather_bwd(gs, ids, n_rows).cpu(),
+                           sg_ops.packed_gather_bwd_emulated(gs.cpu(), ids.cpu(), n_rows))
+    if n_rows == 32_768:
+        assert n_ranges < 132 and n_bands * n_ranges >= 132
+
+
 def test_volume_gradient_on_card_matches_cpu(dev):
     """d mean(render_vol) with respect to the plume's grid_data, sigma_a and
     sigma_s (Cornell, 32x32, 2 spp, depth 4, seed 3) on the card against the
@@ -859,8 +896,9 @@ def test_filter_splat_sum_matches_plain(dev, n, support):
 
 def test_filtered_film_at_1024_in_runs(dev):
     """The filtered film at 1024x1024, 16 spp, in the path tracer's sample
-    order: one call would take 167 GB of the gather backward's scratch, so
-    the samples go in runs, none over SPLAT_SCRATCH_FLOATS, and the film
+    order: one call would take 12.8 GB of the gather backward's scratch
+    (its range partials: 576 ranges x 2^20 rows x 4), so the samples go in
+    runs, none over SPLAT_SCRATCH_FLOATS, and the film
     equals the float64 plain sum of every tap at once within 1e-5 relative;
     a Gaussian-filtered Cornell pass at that size renders."""
     from cudatracerlib_tpu_torch.image import film, pipeline

@@ -137,10 +137,75 @@ def test_packed_gather_bwd_scratch_and_checks():
     # 2^20 x 64 onto 6,624 rows: 4,096 tiles of 256 slots, 207 words, 32 ranges
     assert tsg.bwd_scratch_floats(64, 1 << 20, 6624) == (
         4096 * 256 * 64 + 2 * 4096 * 207 + 32 * 6624 * 64 + 6624)
+    # 2^27 x 1 onto 32,769 rows (1,025 words, past 32 a column: row lists):
+    # 524,288 tiles of 256 slots (partials and row lists), a row count a
+    # tile, 512 ranges (16 words of range masks a row)
+    assert tsg.bwd_scratch_floats(1, 1 << 27, 32769) == (
+        2 * 524288 * 256 + 524288 + 512 * 32769 + 16 * 32769)
     # no lanes: only the range partials' and masks' rounding
     assert tsg.bwd_scratch_floats(3, 0, 5) == 0
     with pytest.raises(ValueError):
         tsg.bwd_launch_args(torch.zeros(4, 3), torch.zeros(4, dtype=torch.int32), 1 << 24)
+
+
+# (lanes, columns, rows) of the gather backward's main-path shapes (PERF.md
+# rows 5a-5j): pack, texture, Woop, pose Woop, verts, BDPT and light-tracer
+# splats, the volume grid, a per-volume table, the filter splat, the atlas,
+# the guiding deposit
+_BWD_SHAPES = {"5a": (1 << 20, 64, 6624), "5b": (1 << 20, 3, 5), "5c": (1 << 20, 12, 6624),
+               "5c_pose": (1 << 20, 12, 19796), "5i": (1 << 20, 9, 19796),
+               "5d": (327_680, 3, 16_384), "5d_lt": (393_216, 3, 16_384),
+               "5e": (134_217_728, 1, 32_769), "5f": (524_288, 3, 1),
+               "5g": (9 << 20, 4, 65_537), "5h": (1 << 20, 3, 87_381),
+               "5j": (655_360, 1, 32_768)}
+
+
+@pytest.mark.parametrize("shape", sorted(_BWD_SHAPES))
+def test_packed_gather_bwd_scratch_has_no_tiles_times_rows_term(shape):
+    """At each main-path shape and at 1,000 and 100,000 more table rows, the
+    scratch is at most the tile partials, a row list and count per tile, a
+    quarter of g's words (the word masks, where the rule takes them) and
+    ranges x rows x (C + 1): no term grows with tiles x rows past g (the
+    tiles' row masks took 2 x tiles / 32 words a row at every shape). At
+    the volume grid the whole scratch is under 1.2 GB (4.905 GB with the
+    masks)."""
+    n, cols, n_rows = _BWD_SHAPES[shape]
+    n_tiles = -(-n // tsg.BWD_TILE)
+    n_ranges = -(-n_tiles // tsg.bwd_range_tiles(n_tiles))
+    for rows in (n_rows, n_rows + 1000, n_rows + 100_000):
+        cap = min(tsg.BWD_TILE, rows)
+        most = (n_tiles * cap * (cols + 1) + n_tiles + n * cols // 4
+                + n_ranges * rows * (cols + 1) + 16)
+        assert tsg.bwd_scratch_floats(cols, n, rows) <= most
+    if shape == "5e":
+        assert not tsg.bwd_word_masks(n_rows, cols)
+        assert tsg.bwd_scratch_floats(cols, n, n_rows) * 4 < 1.2e9
+
+
+@pytest.mark.parametrize("shape", sorted(_BWD_SHAPES))
+def test_packed_gather_bwd_bands_cover_rows_and_fit(shape):
+    """The range kernel's bands (`bwd_bands`, the .cu's `bands`) at each
+    main-path shape and at tables of 1 to 2^23 rows: every row in exactly
+    one band, a band's accumulators and hit bytes within BWD_BAND_WORDS (its
+    shared memory, with a chunk's counts, tags and items and the tiles' offsets,
+    within the 227 KB a block may take), and where 32 ranges
+    leave SMs idle the bands raise the CTAs to BWD_FILL_CTAS while a band
+    keeps BWD_MIN_BAND_ROWS rows."""
+    n, cols, n_rows = _BWD_SHAPES[shape]
+    for rows in (n_rows, 1, 255, 4097, 1 << 23):
+        n_tiles = -(-n // tsg.BWD_TILE)
+        n_bands, band_rows = tsg.bwd_bands(n_tiles, rows, cols)
+        n_ranges = -(-n_tiles // tsg.bwd_range_tiles(n_tiles))
+        covered = np.zeros(rows, np.int64)
+        for b in range(n_bands):
+            covered[b * band_rows:min((b + 1) * band_rows, rows)] += 1
+        assert (covered == 1).all() and (n_bands - 1) * band_rows < rows
+        words = band_rows * cols + -(-band_rows // 4)
+        assert words <= tsg.BWD_BAND_WORDS
+        rt = tsg.bwd_range_tiles(n_tiles)
+        assert (words + 2 * 8 * 256 + 2 * 2048 + 2 * rt + 1) * 4 <= 232_448
+        if rows >= tsg.BWD_MIN_BAND_ROWS * -(-tsg.BWD_FILL_CTAS // n_ranges):
+            assert n_bands * n_ranges >= tsg.BWD_FILL_CTAS
 
 
 def test_packed_gather_bwd_cpu_is_plain_and_checks():
