@@ -25,6 +25,8 @@ from typing import NamedTuple
 
 import torch
 
+from ..utils.timing import read_bool, spanned
+
 DENSE_MAX_TRIS = 4096
 STACK_DEPTH = 48
 DONE = -(2 ** 30)   # lane finished
@@ -96,7 +98,7 @@ def _watertight(p, o, d, need):
     cx, cy = _shear(d)
     xy, (U, V, W) = _edge_functions(p, o, cx, cy)
     zero = ((U == 0) | (V == 0) | (W == 0)) & need
-    if bool(zero.any()):
+    if read_bool("traversal.watertight", zero.any()):
         Ax, Ay, Bx, By, Cx, Cy = (torch.broadcast_to(c, zero.shape)[zero].double() for c in xy)
         U, V, W = (torch.broadcast_to(x, zero.shape).clone() for x in (U, V, W))
         U[zero] = torch.sign(Cx * By - Cy * Bx).float()
@@ -280,7 +282,7 @@ def intersect(bvh, o, d, t_min=1e-4, t_max=torch.inf, any_hit: bool = False,
             node = torch.where(leaf_hit, DONE, node)
 
         done = node == DONE
-        if bool(done.any()):
+        if read_bool("traversal.walk", done.any()):
             store(done)
             keep = ~done
             lane, node, stack, sp = lane[keep], node[keep], stack[keep], sp[keep]
@@ -388,12 +390,13 @@ def wants_grad(*xs) -> bool:
     return torch.is_grad_enabled() and any(x.requires_grad for x in xs)
 
 
+@spanned("ctl.intersect")
 def intersect_auto(bvh, o, d, t_min=1e-4, t_max=torch.inf, any_hit: bool = False) -> Hit:
     """Closest-hit (or any-hit) query against the scene BVH's triangles:
     the dense intersector up to DENSE_MAX_TRIS Woop rows (with the BVH's
     chunk boxes and vertex rows), the BVH walk above (each a CUDA kernel for CUDA tensors,
     its plain version for CPU tensors), on detached inputs. A closest hit
-    goes through `refine_hit`."""
+    goes through `refine_hit`. Runs inside the span `ctl.intersect`."""
     sg = lambda x: x.detach() if isinstance(x, torch.Tensor) else x  # noqa: E731
     bvh_r = bvh._replace(**{k: sg(v) for k, v in bvh._asdict().items()})
     if bvh.woop.shape[0] <= DENSE_MAX_TRIS:

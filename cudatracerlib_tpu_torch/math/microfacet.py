@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import torch
 
+from ..utils.timing import upload
 from . import frame as fr
 from .vecmath import PI, cross, dot, safe_sqrt
 
@@ -90,7 +91,7 @@ def sample(dist_type, wi, alpha_x, alpha_y, u):
     inv = 1.0 / torch.sqrt(torch.clamp(lensq, min=1e-12))
     T1 = torch.where((lensq > 1e-9)[..., None],
                      torch.stack([-vh[..., 1] * inv, vh[..., 0] * inv, torch.zeros_like(inv)], -1),
-                     torch.tensor([1.0, 0.0, 0.0], device=vh.device).expand(vh.shape))
+                     upload("microfacet.sample", [1.0, 0.0, 0.0], vh.device).expand(vh.shape))
     T2 = cross(vh, T1)
     r = torch.sqrt(u[..., 0])
     phi = 2.0 * PI * u[..., 1]

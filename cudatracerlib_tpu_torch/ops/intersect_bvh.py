@@ -21,13 +21,14 @@ import torch
 
 from .._build_util import CudaKernel
 from ..accel.traversal import Hit, intersect
-from .intersect_dense import aligned, range_arg
+from ..utils.timing import CounterGroup
+from .intersect_dense import aligned, count_call, range_arg
 
 MAX_STEPS = 100_000
 
-# Kernel launches by mode; each launch of the CUDA kernel adds one here
-# (plain-version calls do not).
-launches = {"closest": 0, "any_hit": 0}
+# Kernel launches by mode, the counters launches.intersect_bvh.<mode>; each
+# launch of the CUDA kernel adds one here (plain-version calls do not).
+launches = CounterGroup("launches.intersect_bvh", ("closest", "any_hit"))
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _KERNEL = CudaKernel("intersect_bvh",
@@ -106,11 +107,12 @@ def intersect_bvh(bvh, o, d, t_min=1e-4, t_max=torch.inf, any_hit: bool = False)
     o, d (B, 3) float32;
     t_min / t_max scalars or (B,). CUDA tensors go to the kernel, CPU
     tensors to the plain version."""
+    count_call("intersect_bvh", any_hit, o.shape[0], bvh.woop.shape[0])
     if o.device.type == "cpu":
         return intersect_bvh_plain(bvh, o, d, t_min, t_max, any_hit=any_hit)
     if o.device.type != "cuda":
         raise ValueError(f"intersect_bvh runs on cuda or cpu tensors, not {o.device}")
     prepared, (t, prim, bary) = launch_args(bvh, o, d, t_min, t_max, any_hit)
     launch(prepared)
-    launches["any_hit" if any_hit else "closest"] += 1
+    launches.add("any_hit" if any_hit else "closest")
     return Hit(t=t, prim=prim, bary=bary, valid=prim >= 0)

@@ -25,12 +25,13 @@ import torch
 from .._build_util import CudaKernel
 from ..accel.bvh import CHUNK_ROWS, chunk_boxes_from_woop
 from ..accel.traversal import Hit, _slab_test, intersect_brute_force, intersect_woop
+from ..utils.timing import CounterGroup, count
 
 T_MAX_CLAMP = 1e30
 
-# Kernel launches by mode; each launch of the CUDA kernel adds one here
-# (plain-version calls do not).
-launches = {"closest": 0, "any_hit": 0}
+# Kernel launches by mode, the counters launches.intersect_dense.<mode>;
+# each launch of the CUDA kernel adds one here (plain-version calls do not).
+launches = CounterGroup("launches.intersect_dense", ("closest", "any_hit"))
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _KERNEL = CudaKernel("intersect_dense",
@@ -54,6 +55,16 @@ def range_arg(x, n: int, device):
             raise ValueError(f"range bound of shape {tuple(x.shape)} for {n} rays")
         return 0.0, x.expand(n).contiguous()
     return float(x), None
+
+
+def count_call(op: str, any_hit: bool, rays: int, rows: int) -> None:
+    """Count one intersector call (a kernel launch on the card, the plain
+    version on the CPU) and its size: `<op>.<mode>.calls`, `.rays` and
+    `.rows`."""
+    key = f"{op}.{'any_hit' if any_hit else 'closest'}"
+    count(key + ".calls")
+    count(key + ".rays", rays)
+    count(key + ".rows", rows)
 
 
 def aligned(x):
@@ -134,6 +145,7 @@ def intersect_dense(woop, o, d, t_min=1e-4, t_max=T_MAX_CLAMP, any_hit: bool = F
     boxes: the table's (ceil(T / CHUNK_ROWS), 8) chunk boxes, derived from
     `woop` when None; verts: its (T, 12) vertex rows (the BVH carries both). Returns a Hit with t = t_max (clamped to 1e30) and prim = -1 on a
     miss. CUDA tensors go to the kernel, CPU tensors to the plain version."""
+    count_call("intersect_dense", any_hit, o.shape[0], woop.shape[0])
     if o.device.type == "cpu":
         return intersect_dense_plain(woop, o, d, t_min, t_max, verts=verts)
     if o.device.type != "cuda":
@@ -141,7 +153,7 @@ def intersect_dense(woop, o, d, t_min=1e-4, t_max=T_MAX_CLAMP, any_hit: bool = F
     prepared, (t, prim, bary) = launch_args(woop, o, d, t_min, t_max, any_hit, boxes,
                                             verts=verts)
     launch(prepared)
-    launches["any_hit" if any_hit else "closest"] += 1
+    launches.add("any_hit" if any_hit else "closest")
     return Hit(t=t, prim=prim, bary=bary, valid=prim >= 0)
 
 

@@ -33,6 +33,7 @@ import numpy as np
 import torch
 
 from .._build_util import CudaKernel
+from ..utils.timing import CounterGroup
 
 BQ = 256       # queries per block (the JAX kernel's; the CUDA kernel's CTA size is its own)
 PT = 512       # photons per tile
@@ -41,9 +42,10 @@ CHUNK = 32     # photons per chunk of the chunk cull
 FAR = 1.0e15   # padding position (FAR^2 stays finite in float32)
 NORMAL_MIN_DOT = 0.7
 
-# Each launch adds one here: "density" the estimate kernel, "density_reduce"
-# the kernel that adds the splits' partial sums (plain-version calls do not).
-launches = {"density": 0, "density_reduce": 0}
+# Each launch adds one here (the counters launches.photon_gather.<kernel>):
+# "density" the estimate kernel, "density_reduce" the kernel that adds the
+# splits' partial sums (plain-version calls do not).
+launches = CounterGroup("launches.photon_gather", ("density", "density_reduce"))
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _KERNEL = CudaKernel("photon_gather", [_P, _I, _P, _P, _P, _P, _I, _F, _F, _P, _P, _P])
@@ -329,6 +331,6 @@ def photon_density(tiles, aabbs, q_pos, q_n, q_valid, radius):
     prepared, out = launch_args(tiles, aabbs, q_pos, q_n, q_valid, radius)
     if q_pos.shape[0] > 0:
         launch(prepared)
-        launches["density"] += 1
-        launches["density_reduce"] += 1
+        launches.add("density")
+        launches.add("density_reduce")
     return out[:, 0:3], out[:, 3]

@@ -30,6 +30,7 @@ import math
 import torch
 
 from .._build_util import CudaKernel
+from ..utils.timing import CounterGroup, count, span
 
 MAX_ROWS = 16384   # the shade pack's band (scene/shade_pack.pack_enabled)
 MAX_BWD_COLS = 64  # the backward kernel's widest row: 32 threads x 2 columns
@@ -41,8 +42,10 @@ BWD_FILL_CTAS = 256         # range-kernel CTAs the bands aim at (FILL_CTAS)
 BWD_MIN_BAND_ROWS = 256     # rows a band keeps while raised for fill (MIN_BAND_ROWS)
 BWD_MASK_WORDS_PER_COL = 32  # word masks while 32-row words <= this x C (MASK_WORDS_PER_COL)
 
-# Each launch of a CUDA kernel adds one here (plain-version calls do not).
-launches = {"gather": 0, "gather_bwd_tile": 0, "gather_bwd_range": 0, "gather_bwd_final": 0}
+# Each launch of a CUDA kernel adds one here, the counters
+# launches.shade_gather.<kernel> (plain-version calls do not).
+launches = CounterGroup("launches.shade_gather",
+                        ("gather", "gather_bwd_tile", "gather_bwd_range", "gather_bwd_final"))
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _KERNEL = CudaKernel("shade_gather", [_P, _I, _I, _P, _I, _P, _P])
@@ -93,7 +96,7 @@ def _gather(table, idx):
         stream = torch.cuda.current_stream().cuda_stream
     _KERNEL.launch(table.data_ptr(), table.shape[0], table.shape[1], idx.data_ptr(),
                    idx.shape[0], out.data_ptr(), stream)
-    launches["gather"] += 1
+    launches.add("gather")
     return out
 
 
@@ -292,20 +295,26 @@ def bwd_launch(prepared) -> None:
     args = prepared[0]
     _BWD_KERNEL.launch(*args)
     if args[3] > 0:  # no lanes: only the final kernel runs, writing zeros
-        launches["gather_bwd_tile"] += 1
-        launches["gather_bwd_range"] += 1
-    launches["gather_bwd_final"] += 1
+        launches.add("gather_bwd_tile")
+        launches.add("gather_bwd_range")
+    launches.add("gather_bwd_final")
 
 
 def packed_gather_bwd(g, idx, n_rows: int):
     """grad[r] = the sum of g[b] over the lanes b with clamp(idx[b], 0,
     n_rows - 1) = r: (B, C) float32 x (B,) int32 -> (n_rows, C) float32.
     CUDA tensors go to the deterministic kernels (C <= 64), CPU tensors to
-    the plain version."""
-    if g.device.type == "cpu":
-        return packed_gather_bwd_plain(g, idx, n_rows)
-    if g.device.type != "cuda":
-        raise ValueError(f"packed_gather_bwd runs on cuda or cpu tensors, not {g.device}")
-    prepared, grad = bwd_launch_args(g, idx, n_rows)
-    bwd_launch(prepared)
-    return grad
+    the plain version. Runs inside the span `ctl.gather_bwd` and counts
+    its size: `gather_bwd.calls`, `.lanes` (B), `.values` (B C), `.rows`."""
+    with span("ctl.gather_bwd"):
+        count("gather_bwd.calls")
+        count("gather_bwd.lanes", g.shape[0])
+        count("gather_bwd.values", g.numel())
+        count("gather_bwd.rows", n_rows)
+        if g.device.type == "cpu":
+            return packed_gather_bwd_plain(g, idx, n_rows)
+        if g.device.type != "cuda":
+            raise ValueError(f"packed_gather_bwd runs on cuda or cpu tensors, not {g.device}")
+        prepared, grad = bwd_launch_args(g, idx, n_rows)
+        bwd_launch(prepared)
+        return grad

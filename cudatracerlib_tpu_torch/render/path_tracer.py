@@ -54,6 +54,7 @@ from ..scene import shade_pack as sp_mod
 from ..scene import textures as tex_mod
 from ..scene import scene as scene_mod
 from ..scene.scene import Scene, gather_mat_params, gather_nested_params, make_interaction
+from ..utils.timing import span, spanned
 
 RAY_EPS = 1e-3
 
@@ -533,12 +534,13 @@ def trace_radiance(scene: Scene, o, d, sampler: Sampler, config: PTConfig, cone=
     n_rays = torch.zeros((), dtype=torch.int64, device=dev)
     n_bad = torch.zeros((), dtype=torch.int64, device=dev)
     for depth in range(config.max_depth):
-        (o, d, active, throughput, L_add, prev_pdf, prev_delta, eta_scale, path_len, state,
-         n_r, n_b) = step(depth, o, d, active, throughput, prev_pdf, prev_delta,
-                          eta_scale, path_len, state)
-        L = L + L_add
-        n_rays = n_rays + n_r
-        n_bad = n_bad + n_b
+        with span("ctl.bounce"):
+            (o, d, active, throughput, L_add, prev_pdf, prev_delta, eta_scale, path_len, state,
+             n_r, n_b) = step(depth, o, d, active, throughput, prev_pdf, prev_delta,
+                              eta_scale, path_len, state)
+            L = L + L_add
+            n_rays = n_rays + n_r
+            n_bad = n_bad + n_b
     if with_stats:
         return L, Sampler(state=state), n_rays, n_bad
     return L, Sampler(state=state)
@@ -595,6 +597,7 @@ def camera_rays(scene: Scene, width: int, height: int, spp: int, seed):
     return _camera_samples(scene, width, height, spp, seed)[:4]
 
 
+@spanned("ctl.pass")
 def _render_body(scene: Scene, width: int, height: int, spp: int, seed,
                  config: PTConfig, with_stats: bool):
     o, d, w_cam, sampler, sx, sy = _camera_samples(scene, width, height, spp, seed)

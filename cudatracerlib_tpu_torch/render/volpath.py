@@ -48,6 +48,7 @@ from ..scene import phase as phase_mod
 from ..scene import scene as scene_mod
 from ..scene import sensors
 from ..scene.scene import Scene, gather_mat_params, make_interaction
+from ..utils.timing import span, spanned
 from .path_tracer import (PTConfig, _offset_ray, emission_term, env_term, has_env,
                           nee_light_sample, nee_weight, specialize_config)
 
@@ -196,7 +197,8 @@ def trace_radiance_vol(scene: Scene, media: media_mod.Media, o, d, sampler: Samp
 
     final = init_vol_carry(o, d, sampler)
     for depth in range(config.max_depth):
-        final = step(final, depth)
+        with span("ctl.bounce"):
+            final = step(final, depth)
     if with_stats:
         return final.L, final.sampler, final.n_rays
     return final.L, final.sampler
@@ -226,6 +228,7 @@ def _film(L, width: int, height: int, spp: int):
     return (L.reshape(spp, width * height, 3).sum(0) / spp).reshape(height, width, 3)
 
 
+@spanned("ctl.pass")
 def _render_vol_body(scene, media, width, height, spp, seed, config, with_stats):
     _, o, d, w_cam, sampler = _camera_batch(scene, width, height, spp, seed)
     out = trace_radiance_vol(scene, media, o, d, sampler, config, with_stats=with_stats)

@@ -12,6 +12,8 @@ from typing import NamedTuple, Tuple
 
 import torch
 
+from ..utils.timing import upload
+
 MASK = 0xFFFFFFFF
 _GOLDEN = 0x9E3779B9  # 2^32 / phi, Weyl increment
 
@@ -51,8 +53,9 @@ class Sampler(NamedTuple):
     @staticmethod
     def create(seed, pixel_id, sample_index) -> "Sampler":
         pixel_id = _u(pixel_id)
-        s = hash_combine(hash_combine(_u(seed, pixel_id.device), pixel_id),
-                         _u(sample_index, pixel_id.device))
+        if not isinstance(seed, torch.Tensor):
+            seed = upload("sampler.seed", seed, pixel_id.device, torch.int64)
+        s = hash_combine(hash_combine(_u(seed), pixel_id), _u(sample_index, pixel_id.device))
         return Sampler(state=s)
 
     def next_1d(self) -> Tuple["Sampler", torch.Tensor]:

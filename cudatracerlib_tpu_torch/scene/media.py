@@ -51,6 +51,7 @@ import torch
 
 from ..ops.shade_gather import gather_rows
 from ..sampling.rng import Sampler
+from ..utils.timing import count, count_device, read_bool, spanned
 
 HOMOGENEOUS = 0
 GRID = 1
@@ -435,9 +436,11 @@ def sigma_at(media: Media, p, modes=None):
     return ss, st
 
 
+@spanned("ctl.media.transmittance")
 def transmittance(media: Media, o, d, t_min, t_max, modes=None):
     """Transmittance over all active volumes along [t_min, t_max]
-    (KernelAggregateVolume union semantics). `modes`: the mode tuple."""
+    (KernelAggregateVolume union semantics). `modes`: the mode tuple. Runs
+    inside the span `ctl.media.transmittance`."""
     tr = torch.ones(o.shape[:-1] + (3,), device=o.device)
     for v in range(media.count):
         near, far, hit = _ray_box(media.box_min[v], media.box_max[v], o, d, t_min, t_max)
@@ -483,21 +486,27 @@ def _track(media, modes, o, d, maj, u_far, c: _Track) -> _Track:
                   real=c.real | real_now, state=s.state)
 
 
+@spanned("ctl.media.track")
 @torch.no_grad()
 def delta_track(media: Media, modes, o, d, u_near, u_far, maj, in_vol, state):
     """The tracking loop of `sample_distance`: blocks of TRACK_BLOCK trips,
     T counted on the device. Returns (the final _Track, T). It records no
     graph: JAX's while loop carries no tangent (its inputs are stop-gradient
     values, media.py:625-651), and a graph here would save every trip's
-    lookups for a backward that never reads them."""
+    lookups for a backward that never reads them. Runs inside the span
+    `ctl.media.track`; counts `media.track_calls`, the loop's host reads
+    (`host_reads.media.delta_track`, ceil(T / TRACK_BLOCK) + 1 a call) and,
+    while a profiler records, T (`media.trips`, read after the trace)."""
     c = _Track(t=u_near, tracking=in_vol, real=torch.zeros_like(in_vol), state=state)
     trips = torch.zeros((), dtype=torch.int64, device=o.device)
     done = 0
-    while done < HARD_TRACK_CAP and bool(c.tracking.any()):
+    count("media.track_calls")
+    while done < HARD_TRACK_CAP and read_bool("media.delta_track", c.tracking.any()):
         for _ in range(min(TRACK_BLOCK, HARD_TRACK_CAP - done)):
             trips = trips + c.tracking.any()
             c = _track(media, modes, o, d, maj, u_far, c)
         done += TRACK_BLOCK
+    count_device("media.trips", trips)
     return c, trips
 
 

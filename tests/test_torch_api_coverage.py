@@ -45,6 +45,10 @@ EXCEPTIONS = {
     "scene.shade_pack": {"get_pack": "JAX's host cache of shade packs (Scene.spec)"},
     "accel.traversal": {"force_intersect_mode": "the CT_* environment knob choosing a TPU "
                                                 "intersector"},
+    "utils.timing": {"GLOBAL_TIMER": "a process-wide timer nothing read; the port's spans and "
+                                     "counters (span, count, counters) replace it",
+                     "RayCounter": "host-side rays a second nothing read; the intersectors "
+                                   "count their rays (counters())"},
 }
 
 

@@ -123,10 +123,6 @@ def test_timing():
             torch.ones(1000).sum()
     b = timer.blocks["block"]
     assert b.n == 3 and b.mean > 0 and b.stddev >= 0 and "block: n=3" in timer.report()
-    rc = ttiming.RayCounter()
-    rc.add_pass(2_000_000, 0.5)
-    rc.add_pass(1_000_000, 0.5)
-    assert rc.mrays_per_sec == pytest.approx(3.0)
     ttiming.block_until_ready((torch.zeros(2), [torch.ones(1)]))   # CPU tensors: no wait
 
 
