@@ -5,7 +5,7 @@ Run from the root of a checkout, with no arguments: `python3 chip_smoke.py`.
 It imports nothing of JAX. Phases, each of which raises on failure:
 
   1. device: the card's name and power limit (nvidia-smi), the device count;
-  2. build: the five CUDA sources (nvcc, sm_90a, one process per source,
+  2. build: the six CUDA sources (nvcc, sm_90a, one process per source,
      all started together) and the SBVH builder (g++, the port's own
      native/bvh_builder.cpp) from the sources in the checkout, each timed;
   3. kernel vs plain, `intersect_dense`: against its plain PyTorch version
@@ -164,8 +164,15 @@ It imports nothing of JAX. Phases, each of which raises on failure:
      524,288 lanes each, held against the plain version as in 3 and
      timed), rays counted at seed 3 (with_stats), timed at seed 7 with
      Mrays/s, the launch counts reset just before it and read just after
-     (both kinds of `intersect_dense`), the first pass's trip counts
-     printed, one pass profiled as in 10;
+     (both kinds of `intersect_dense`; the transmittance kernel's printed),
+     the first pass's trip counts printed, one pass profiled as in 10; then
+     one pass of the plume render cell (1024x1024, 2 spp, depth 6, seed 7:
+     2,097,152 lanes a call), whose launches of the transmittance kernel
+     must read 2 a bounce and its eager path's count 0, with each call's
+     inputs captured and the kernel's factor and step sum held bit-equal to
+     its plain version (the eager path's arithmetic); the first bounce's
+     sampled segment and shadow rays timed, kernel and plain version, against
+     the bound (TR_FLOPS, TR_BYTES a lane), and the kernel's sum over the pass;
   19. bench config 4's transmittance gradients: (a) the card's gradients of
      three pinned cases against the JAX package's CPU values in
      tools/volume_grad_reference.npz (TestVolumetric's sigma_a slab and 6^3
@@ -183,7 +190,8 @@ It imports nothing of JAX. Phases, each of which raises on failure:
      forward+backward walls (medians of 5 alternating pairs, with min, max
      and their ratio), rays, peak memory with remat on and off, the launch
      counts over one forward+backward (reset just before, read just after:
-     both kinds of intersect_dense and the three gather-backward kernels),
+     both kinds of intersect_dense, the three gather-backward kernels and
+     the transmittance pair, 2 a bounce each),
      intersect_dense's arguments in it held against the plain version as in
      3, the profiler's idle share and top kernels, and the directional FD
      along grid_data's gradient against its norm, printed beside JAX's 50%
@@ -197,7 +205,13 @@ It imports nothing of JAX. Phases, each of which raises on failure:
      checks at those indices, the times beside the plain version and
      index_add_, the scratch and its row lists' share; the same at a
      per-volume table's shape (sigma_a[vid], captured in a gradient of
-     per-channel grids, 64x64, 4 spp);
+     per-channel grids, 64x64, 4 spp). (d) the transmittance kernels on the
+     captured calls of a forward at (b)'s size (524,288 lanes a call), as
+     in 18, and the first bounce's two calls' backward on a seeded
+     cotangent: two calls bit-equal, the grid's and st's gradients within
+     1e-5 of the plain closed form's largest entry, the backward kernel
+     alone and the whole backward (with the gather backward) timed against
+     the bound (TR_BWD_FLOPS, TR_BWD_BYTES a lane);
   20. SPPM: pinned runs (render_sppm_pass at 64x64 on the Cornell box and
      the caustic scene, 4 passes of 2^15 photons, within 0.1% of the JAX
      package's CPU means; the plume with VOL_BEAMBEAM and VOL_POINT, 2
@@ -490,6 +504,15 @@ VOL_TOL = 0.075
 VOL_RAYS_TOL = 0.01
 VOL_W = VOL_H = 256        # bench config 4 (bench.py:244-286): 256^2, 8 spp, depth 6, 3 passes
 VOL_SPP, VOL_DEPTH, VOL_PASSES = 8, 6, 3
+TR_RENDER = (1024, 1024, 2)  # the plume render cell's pass (2,097,152 lanes a call)
+# The transmittance kernels' work a lane (csrc/transmittance.cu). Forward: 24 float operations
+# for the ray-box clip (3 axes x a division, 2 differences, 2 products, 3 min / max), 58 a step
+# (its t 2, the point 6, the grid coordinate 21, 7 lerps 28, the sum 1), 7 for tau and exp; o, d,
+# t_max in (28 bytes), the factor out (12). Backward: the clip, 8 for tau's and st's cotangents,
+# 56 a step (the point and coordinate 29, 3 complements, 8 corners x 3 products); the rays, the
+# cotangent, the factor and acc in (56 bytes), st's share and 32 x 8 cotangents and rows out.
+TR_FLOPS, TR_BYTES = 24 + 32 * 58 + 7, 28 + 12
+TR_BWD_FLOPS, TR_BWD_BYTES = 24 + 8 + 32 * 56, 56 + 12 + 32 * 8 * 8
 # Bench config 4's transmittance gradients, the JAX package on the CPU: `JAX_PLATFORMS=cpu python
 # tools/volume_grad_reference.py` writes them to VGRAD_REF, which phase 19 reads: d mean(render_vol)
 # of TestVolumetric's sigma_a slab and 6^3 voxel grid (furnace, 16x16, 4 spp, seed 0, depth 3, no
@@ -1642,6 +1665,96 @@ def _capture_volume(fn):
             "volume shadow rays": shadow[0]}
 
 
+def _capture_transmittance(fn):
+    """ops/transmittance.transmittance's arguments (detached clones), one
+    entry a call, over one call of `fn`: [(vol, grid, st, o, d, t_min,
+    t_max)], the sampled segment's and the shadow rays' in turn a bounce."""
+    import torch
+    from cudatracerlib_tpu_torch.ops import transmittance as tr_op
+
+    calls, real = [], tr_op.transmittance
+    keep = lambda x: x.detach().clone() if isinstance(x, torch.Tensor) else x  # noqa: E731
+
+    def record(vol, grid, st, o, d, t_min, t_max):
+        calls.append((vol, *(keep(x) for x in (grid, st, o, d, t_min, t_max))))
+        return real(vol, grid, st, o, d, t_min, t_max)
+
+    tr_op.transmittance = record
+    try:
+        fn()
+        torch.cuda.synchronize()
+    finally:
+        tr_op.transmittance = real
+    _require(len(calls) >= 2, f"the pass made {len(calls)} transmittance kernel calls, not >= 2")
+    return calls
+
+
+def _check_transmittance(label, calls, backward=False):
+    """The transmittance kernel against its plain version (the eager path's
+    arithmetic) on every captured call: the factor and acc bit-equal. The
+    first bounce's two calls (the sampled segment, the shadow rays) timed
+    with CUDA events: the wrapper's launch and the plain version, against
+    the bound (TR_FLOPS, TR_BYTES); the kernel's sum over the calls. With
+    `backward`, on a seeded cotangent: two backward calls bit-equal, the
+    grid's and st's gradients within BWD_RTOL of the plain closed form's
+    largest entry; the backward kernel alone (`bwd_corners`) and the whole
+    backward (it, the gather backward at the grid shape, st's sum) timed."""
+    import torch
+    from cudatracerlib_tpu_torch.ops import transmittance as tr_op
+
+    out_r, total = {}, 0.0
+    for k, (vol, grid, st, o, d, t_min, t_max) in enumerate(calls):
+        n = o.shape[0]
+        out, acc = tr_op._forward(vol, grid, st, o, d, t_min, t_max, keep_acc=True)
+        ref, ref_acc = tr_op.transmittance_plain(vol, grid, st, o, d, t_min, t_max)
+        torch.cuda.synchronize()
+        _require(torch.equal(out, ref) and torch.equal(acc, ref_acc),
+                 f"transmittance {label} call {k}: the kernel differs from its plain version")
+        del ref, ref_acc
+        ms = _time_ms(lambda: tr_op._forward(vol, grid, st, o, d, t_min, t_max, False), 10)
+        total += ms
+        if k >= 2:
+            continue
+        name = ("segment", "shadow")[k]
+        plain_ms = _time_ms(lambda: tr_op.transmittance_plain(vol, grid, st, o, d, t_min, t_max),
+                            3)
+        bound = _bound(n * TR_FLOPS, n * TR_BYTES)
+        r = dict(lanes=n, err=0.0, ms=ms, plain_ms=plain_ms, bound=bound,
+                 attenuated=int((out < 1).any(-1).sum()))
+        line = (f"[kernel vs plain] transmittance {label} {name} rays: {n} lanes "
+                f"({r['attenuated']} attenuated), the factor and acc bit-equal; kernel {ms:.4f} "
+                f"ms, plain {plain_ms:.3f} ms, bound {bound[0]:.5f} ms ({bound[1]}; "
+                f"{100 * bound[0] / ms:.1f}% of it)")
+        if backward:
+            gen = torch.Generator(device=o.device).manual_seed(k)
+            g = torch.randn(out.shape, generator=gen, device=o.device)
+            args = (vol, grid.shape[0], st, o, d, t_min, t_max, g, out, acc)
+            k1, k2 = tr_op._backward(*args), tr_op._backward(*args)
+            plain = tr_op.transmittance_bwd_plain(*args)
+            torch.cuda.synchronize()
+            _require(all(torch.equal(a, b) for a, b in zip(k1, k2)),
+                     f"transmittance {label} {name}: two backward calls differ")
+            rel = max(float((a - p).abs().max() / p.abs().max()) for a, p in zip(k1, plain))
+            _require(rel <= BWD_RTOL, f"transmittance {label} {name}: the backward is {rel} of "
+                                      f"the largest entry off its plain version")
+            del k1, k2, plain
+            kern_ms = _time_ms(lambda: tr_op.bwd_corners(vol, st, o, d, t_min, t_max, g, out, acc),
+                               5)
+            whole_ms = _time_ms(lambda: tr_op._backward(*args), 5)
+            bwd_bound = _bound(n * TR_BWD_FLOPS, n * TR_BWD_BYTES)
+            r.update(bwd_rel=rel, bwd_ms=kern_ms, bwd_whole_ms=whole_ms, bwd_bound=bwd_bound)
+            line += (f"; backward within {rel:.3g} of the largest entry, two calls bit-equal, "
+                     f"kernel {kern_ms:.4f} ms (bound {bwd_bound[0]:.5f}, {bwd_bound[1]}; "
+                     f"{100 * bwd_bound[0] / kern_ms:.1f}% of it), whole {whole_ms:.4f} ms")
+        print(line)
+        out_r[name] = r
+        torch.cuda.empty_cache()
+    out_r["calls"], out_r["kernel_ms_sum"] = len(calls), total
+    print(f"[kernel vs plain] transmittance {label}: {len(calls)} calls bit-equal to the plain "
+          f"version; the kernel {total:.4f} ms over them")
+    return out_r
+
+
 def _vol_trips(scene, media, cfg, width, height, spp, seed):
     """The delta-tracking trip counts, bounce by bounce, of one volume pass
     (the same draws as the render's), read from lane 0's sampler state."""
@@ -1665,9 +1778,11 @@ def _volume_phase(scene, smi, reset_counts):
     profile."""
     import torch
     from cudatracerlib_tpu_torch.ops import intersect_dense as ops
+    from cudatracerlib_tpu_torch.ops import transmittance as tr_op
     from cudatracerlib_tpu_torch.render import path_tracer as pt
     from cudatracerlib_tpu_torch.render import volpath
     from cudatracerlib_tpu_torch.scene import media as media_mod
+    from cudatracerlib_tpu_torch.utils.timing import counters
 
     t0 = time.perf_counter()
     plume = media_mod.Media.build(media_mod.plume_records(scene.bvh.world_min,
@@ -1704,7 +1819,9 @@ def _volume_phase(scene, smi, reset_counts):
     dt_v, img_v = _timed(lambda: volpath.render_vol_stepwise(scene, plume, VOL_W, VOL_H, VOL_SPP,
                                                               VOL_PASSES, 7, vcfg))
     launch_v = dict(ops.launches)
-    print(f"[main path] volume launches {json.dumps(launch_v)}")
+    launch_tr = dict(tr_op.launches)
+    print(f"[main path] volume launches {json.dumps(launch_v)}, transmittance "
+          f"{json.dumps(launch_tr)}")
     _require(launch_v["closest"] > 0 and launch_v["any_hit"] > 0,
              f"the volume path did not launch intersect_dense for both ray kinds: {launch_v}")
     _require(bool(torch.isfinite(img_v).all()) and tuple(img_v.shape) == (VOL_H, VOL_W, 3),
@@ -1717,7 +1834,28 @@ def _volume_phase(scene, smi, reset_counts):
           f"{smi}")
     prof_v = _profile("volume bench config 4 pass", lambda: volpath.render_vol_counted(
         scene, plume, VOL_W, VOL_H, VOL_SPP, 7, vcfg))
-    return dict(compare=vol_r, launches=launch_v, profile=prof_v)
+
+    # the transmittance kernel on one pass of the plume render cell: its launches, then each
+    # call's inputs against the plain version
+    w, h, spp = TR_RENDER
+    reset_counts()
+    eager0 = counters().get("media.transmittance.eager", 0)
+
+    def cell_pass():
+        with torch.no_grad():
+            volpath.render_vol(scene, plume, w, h, spp, 7, vcfg)
+
+    tr_calls = _capture_transmittance(cell_pass)
+    tr_pass = dict(tr_op.launches, eager=counters().get("media.transmittance.eager", 0) - eager0)
+    print(f"[main path] transmittance launches over one {w}x{h}, {spp}-spp, depth {VOL_DEPTH} "
+          f"plume pass: {json.dumps(tr_pass)}")
+    _require(tr_pass == dict(fwd=2 * VOL_DEPTH, bwd=0, eager=0),
+             f"the plume pass did not run its transmittance through the kernel: {tr_pass}")
+    tr = _check_transmittance(f"{w}x{h}x{spp}", tr_calls)
+    del tr_calls
+    torch.cuda.empty_cache()
+    return dict(compare=vol_r, launches=launch_v, profile=prof_v, tr=tr, tr_launches=launch_tr,
+                tr_pass=tr_pass)
 
 
 def _vgrad_cases():
@@ -1901,6 +2039,7 @@ def _volume_grad_phase(scene, smi, reset_counts):
     import torch
     from cudatracerlib_tpu_torch.ops import intersect_dense as ops
     from cudatracerlib_tpu_torch.ops import shade_gather as sg_ops
+    from cudatracerlib_tpu_torch.ops import transmittance as tr_op
     from cudatracerlib_tpu_torch.render import path_tracer as pt
     from cudatracerlib_tpu_torch.render import volpath
     from cudatracerlib_tpu_torch.scene import media as media_mod
@@ -1949,9 +2088,12 @@ def _volume_grad_phase(scene, smi, reset_counts):
     dense_args = _capture_volume(counted)
     loss, g = captured.pop("result")
     torch.cuda.synchronize()
-    launches = {"intersect_dense": dict(ops.launches), "shade_gather": dict(sg_ops.launches)}
+    launches = {"intersect_dense": dict(ops.launches), "shade_gather": dict(sg_ops.launches),
+                "transmittance": dict(tr_op.launches)}
     print(f"[vol grad pass] launches over one forward+backward: {json.dumps(launches)}")
     lv = launches
+    _require(lv["transmittance"] == dict(fwd=2 * VOL_DEPTH, bwd=2 * VOL_DEPTH),
+             f"the volume gradient pass did not run its transmittance through the kernels: {lv}")
     _require(lv["intersect_dense"]["closest"] > 0 and lv["intersect_dense"]["any_hit"] > 0
              and all(lv["shade_gather"][k] > 0 for k in ("gather_bwd_tile", "gather_bwd_range",
                                                           "gather_bwd_final")),
@@ -1977,6 +2119,8 @@ def _volume_grad_phase(scene, smi, reset_counts):
     dense_r = {f"vgrad {label.split(' ', 1)[1]}": _compare(f"vgrad {label.split(' ', 1)[1]}",
                                                             c[0], c[1], c[2], c[3], c[4], 20, c[6], c[7])
                for label, c in dense_args.items()}
+    tr = _check_transmittance(f"{VOL_W}x{VOL_H}x{VOL_SPP}", _capture_transmittance(fwd),
+                              backward=True)
 
     # (c) the gather backward at the grid shape, then at a per-volume table's
     g_cap, idx_cap, rows_cap = captured.pop("grid")
@@ -1997,7 +2141,7 @@ def _volume_grad_phase(scene, smi, reset_counts):
     table_r = _check_bwd_captured("per-volume table", g_t, idx_t, rows_t, scene.bvh.woop.device)
     return dict(gates=gates, loss=loss, rays=int(rays), fwd_ms=fwd_ms, fb_ms=fb_ms, ratio=ratio,
                 mem=mem, launches=launches, idle=prof["idle"], fd=fd, ad=ad, fd_ok=fd_ok,
-                dense=dense_r,
+                dense=dense_r, tr=tr,
                 grid=grid_r, table=table_r)
 
 
@@ -3889,9 +4033,11 @@ def _port_counters():
     from cudatracerlib_tpu_torch.ops import intersect_dense as ops
     from cudatracerlib_tpu_torch.ops import photon_gather as pg_ops
     from cudatracerlib_tpu_torch.ops import shade_gather as sg_ops
+    from cudatracerlib_tpu_torch.ops import transmittance as tr_op
 
     return {"intersect_dense": ops.launches, "intersect_bvh": bvh_ops.launches,
-            "shade_gather": sg_ops.launches, "photon_gather": pg_ops.launches}
+            "shade_gather": sg_ops.launches, "photon_gather": pg_ops.launches,
+            "transmittance": tr_op.launches}
 
 
 def _counted(fn):
@@ -4624,6 +4770,7 @@ def main():
     from cudatracerlib_tpu_torch.ops import intersect_dense as ops
     from cudatracerlib_tpu_torch.ops import photon_gather as pg_ops
     from cudatracerlib_tpu_torch.ops import shade_gather as sg_ops
+    from cudatracerlib_tpu_torch.ops import transmittance as tr_op
     from cudatracerlib_tpu_torch.render import bdpt, light_tracer, vcm
     from cudatracerlib_tpu_torch.render import path_tracer as pt
     from cudatracerlib_tpu_torch.render import ppm
@@ -4640,7 +4787,7 @@ def main():
         marks.append(time.perf_counter())
         print(f"[wall] phase {phase}: {marks[-1] - marks[-2]:.1f} s")
 
-    counters = (ops.launches, bvh_ops.launches, sg_ops.launches, pg_ops.launches)
+    counters = (ops.launches, bvh_ops.launches, sg_ops.launches, pg_ops.launches, tr_op.launches)
 
     def reset_counts():
         for c in counters:
@@ -4664,7 +4811,8 @@ def main():
 
     builds = {"intersect_dense.cu": ops.get_lib, "intersect_bvh.cu": bvh_ops.get_lib,
               "shade_gather.cu": sg_ops.get_lib, "shade_gather_bwd.cu": sg_ops.get_bwd_lib,
-              "photon_gather.cu": pg_ops.get_lib, "bvh_builder.cpp (g++)": native.get_lib}
+              "photon_gather.cu": pg_ops.get_lib, "transmittance.cu": tr_op.get_lib,
+              "bvh_builder.cpp (g++)": native.get_lib}
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(builds)) as pool:
         secs = dict(zip(builds, pool.map(timed, builds.values())))
@@ -5492,6 +5640,28 @@ def main():
             "utils_query_reduce_ms": 1e3 * ut["query_reduce"]["wall"],
             "utils_kernel_wall_ms": 1e3 * ut["query_reduce"]["kernel_wall"],
             "utils_max_rel_err": max(ut["query_reduce"]["rel"].values()),
+        },
+        {
+            "name": "transmittance",
+            "route": "cuda",
+            "source": "cudatracerlib_tpu_torch/csrc/transmittance.cu",
+            "replaces": None,
+            "launches": vol["tr_pass"]["fwd"],
+            "max_abs_err": 0.0,
+            "ms": vol["tr"]["segment"]["ms"],
+            "plain_ms": vol["tr"]["segment"]["plain_ms"],
+            "bound_ms": vol["tr"]["segment"]["bound"][0],
+            "bound_by": vol["tr"]["segment"]["bound"][1],
+            "library_ms": None,
+            "shadow_ms": vol["tr"]["shadow"]["ms"],
+            "pass_kernel_ms": vol["tr"]["kernel_ms_sum"],
+            "step_launches": vgl["transmittance"],
+            "step_kernel_ms": vg["tr"]["kernel_ms_sum"],
+            **{f"grad_{k}_{f}": (vg["tr"][k][v][0] if v.endswith("bound") else vg["tr"][k][v])
+               for k in ("segment", "shadow")
+               for f, v in (("ms", "ms"), ("plain_ms", "plain_ms"), ("bound_ms", "bound"),
+                            ("bwd_ms", "bwd_ms"), ("bwd_whole_ms", "bwd_whole_ms"),
+                            ("bwd_bound_ms", "bwd_bound"), ("bwd_max_rel_err", "bwd_rel"))},
         },
     ]}))
     print(smi)

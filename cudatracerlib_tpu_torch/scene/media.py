@@ -17,9 +17,10 @@ from its identity-keyed host cache), one entry per volume:
   ('gen', -1, le_off, res)    distinct or RGB grids: the generic path.
 
 `transmittance` integrates a grid segment with TAU_STEPS midpoint steps.
-The JAX package scans the steps; here the steps' points are looked up as one
-(B, TAU_STEPS) batch and summed left to right, column by column, the scan's
-order, so the sum has the same bits. `sample_distance` is delta (Woodcock)
+The JAX package scans the steps; here a 'scalar' volume's segment is one
+kernel of ops/transmittance (a thread a lane), and the eager path looks the
+steps' points up as one (B, TAU_STEPS) batch; both sum left to right, the
+scan's order, so the sum has the same bits. `sample_distance` is delta (Woodcock)
 tracking under a per-ray union majorant. JAX runs it as a while loop until
 no lane tracks (at most HARD_TRACK_CAP trips), and each trip draws two
 numbers for every lane, so after it every lane's sampler has moved by
@@ -49,6 +50,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..ops import transmittance as tr_op
 from ..ops.shade_gather import gather_rows
 from ..sampling.rng import Sampler
 from ..utils.timing import count, count_device, read_bool, spanned
@@ -58,7 +60,7 @@ GRID = 1
 
 GRID_RES = 32      # default resolution of procedurally built grids
 MAX_VOLUMES = 16   # aggregate capacity (reference KernelAggregateVolume)
-TAU_STEPS = 32     # fixed quadrature steps along a segment
+TAU_STEPS = tr_op.TAU_STEPS  # fixed quadrature steps along a segment
 HARD_TRACK_CAP = 256  # delta-tracking trips at most (JAX media.py:624)
 TRACK_BLOCK = 8    # tracking trips between two host reads of "any lane tracking"
 
@@ -436,30 +438,54 @@ def sigma_at(media: Media, p, modes=None):
     return ss, st
 
 
+def _carries_grad(*xs) -> bool:
+    return torch.is_grad_enabled() and any(isinstance(x, torch.Tensor) and x.requires_grad
+                                           for x in xs)
+
+
+def _eager_factor(media: Media, v: int, kind, modes, o, d, t_min, t_max):
+    """Volume v's factor where(act, exp(-tau), 1) in eager PyTorch: every
+    mode, and rays whose positions carry a gradient."""
+    near, far, hit = _ray_box(media.box_min[v], media.box_max[v], o, d, t_min, t_max)
+    seg = torch.clamp(far - near, min=0.0)
+    if kind == "const":
+        tau = (media.sigma_a[v] + media.sigma_s[v]) * seg[..., None]
+    elif kind == "scalar":
+        # the quadrature of the shared scalar field, scaled by each
+        # channel's base sigma_t
+        dt = seg / TAU_STEPS
+        acc = _scan_sum(_grid_lookup1(media, v, modes[v][1], _steps(o, d, near, dt)))
+        tau = (media.sigma_a[v] + media.sigma_s[v]) * (acc * dt)[..., None]
+    else:
+        vid = torch.full(o.shape[:-1], v, dtype=torch.int64, device=o.device)
+        tau = tau_segment(media, vid, o, d, near, torch.maximum(far, near))
+    act = hit & (media.active[v] > 0)
+    return torch.where(act[..., None], torch.exp(-tau), 1.0)
+
+
 @spanned("ctl.media.transmittance")
 def transmittance(media: Media, o, d, t_min, t_max, modes=None):
     """Transmittance over all active volumes along [t_min, t_max]
-    (KernelAggregateVolume union semantics). `modes`: the mode tuple. Runs
-    inside the span `ctl.media.transmittance`."""
-    tr = torch.ones(o.shape[:-1] + (3,), device=o.device)
+    (KernelAggregateVolume union semantics), the product of each volume's
+    factor. `modes`: the mode tuple. A 'scalar' volume goes to the kernel
+    of ops/transmittance (the plain version on the CPU, the same bits as
+    the eager path) unless the rays or the box carry a gradient; every other
+    volume runs the eager path, counted in `media.transmittance.eager`.
+    Runs inside the span `ctl.media.transmittance`."""
+    tr = None
     for v in range(media.count):
-        near, far, hit = _ray_box(media.box_min[v], media.box_max[v], o, d, t_min, t_max)
-        seg = torch.clamp(far - near, min=0.0)
         kind = None if modes is None else modes[v][0]
-        if kind == "const":
-            tau = (media.sigma_a[v] + media.sigma_s[v]) * seg[..., None]
-        elif kind == "scalar":
-            # the quadrature of the shared scalar field, scaled by each
-            # channel's base sigma_t
-            dt = seg / TAU_STEPS
-            acc = _scan_sum(_grid_lookup1(media, v, modes[v][1], _steps(o, d, near, dt)))
-            tau = (media.sigma_a[v] + media.sigma_s[v]) * (acc * dt)[..., None]
+        if kind == "scalar" and not _carries_grad(o, d, t_min, t_max, media.box_min,
+                                                  media.box_max):
+            vol = tr_op.Grid(media.box_min[v], media.box_max[v], media.active[v], modes[v][1],
+                             modes[v][3])
+            f = tr_op.transmittance(vol, media.grid_data, media.sigma_a[v] + media.sigma_s[v],
+                                    o, d, t_min, t_max)
         else:
-            vid = torch.full(o.shape[:-1], v, dtype=torch.int64, device=o.device)
-            tau = tau_segment(media, vid, o, d, near, torch.maximum(far, near))
-        act = hit & (media.active[v] > 0)
-        tr = tr * torch.where(act[..., None], torch.exp(-tau), 1.0)
-    return tr
+            count("media.transmittance.eager")
+            f = _eager_factor(media, v, kind, modes, o, d, t_min, t_max)
+        tr = f if tr is None else tr * f
+    return torch.ones(o.shape[:-1] + (3,), device=o.device) if tr is None else tr
 
 
 class _Track(NamedTuple):

@@ -28,6 +28,9 @@ sigmas) against the CPU's: means within 1%, gradients within 1% of the
 largest entry. The spectral renders and their cauchy gradient, the guided
 render and its deposit's row sum, the realtime and AOV tracers and
 generate_fits' quadrature against the CPU port's as each test states.
+A 'scalar' volume's transmittance kernel is bit-equal to its plain version
+on the plume's 2^20 segment and shadow rays, its backward within 1e-5 of
+the largest entry and bit-equal to itself, one launch a call.
 """
 import _torch_threads  # noqa: F401  (caps torch's CPU threads under xdist)
 import numpy as np
@@ -1287,3 +1290,125 @@ def test_mitsuba_scene_on_card_matches_cpu(dev, tmp_path):
     assert ops.launches["closest"] > before["closest"]
     assert abs(float(img.mean()) - float(ref.mean())) <= 0.01 * float(ref.mean())
     assert abs(float(vol.mean()) - float(vref.mean())) <= 0.02 * float(vref.mean())
+
+
+@pytest.fixture(scope="module")
+def plume_tr_calls(dev):
+    """The 'scalar' transmittance calls of a plume pass on the card at
+    1024x1024, 1 spp, depth 1 (2^20 lanes each): the sampled segment's of
+    `sample_distance` and the shadow rays' (clones of the arguments)."""
+    from cudatracerlib_tpu_torch.ops import transmittance as tr_op
+    from cudatracerlib_tpu_torch.render import volpath
+    from cudatracerlib_tpu_torch.scene import media
+
+    scene = cornell_box(device=dev)
+    plume = media.Media.build(media.plume_records(scene.bvh.world_min, scene.bvh.world_max),
+                              device=dev)
+    calls, real = [], tr_op.transmittance
+    keep = lambda x: x.clone() if isinstance(x, torch.Tensor) else x  # noqa: E731
+
+    def record(vol, grid, st, o, d, t_min, t_max):
+        calls.append((vol, grid, keep(st), keep(o), keep(d), keep(t_min), keep(t_max)))
+        return real(vol, grid, st, o, d, t_min, t_max)
+
+    tr_op.transmittance = record
+    try:
+        with torch.no_grad():
+            volpath.render_vol(scene, plume, 1024, 1024, 1, 3, pt.PTConfig(max_depth=1))
+        torch.cuda.synchronize()
+    finally:
+        tr_op.transmittance = real
+    assert len(calls) == 2 and all(c[3].shape == (1 << 20, 3) for c in calls)
+    return calls
+
+
+def test_transmittance_kernel_bit_equal_to_plain(dev, plume_tr_calls):
+    """The transmittance kernel against its plain version (the eager path's
+    arithmetic) on the plume's segment and shadow rays: the factor and the
+    step sum bit-equal; one launch a call."""
+    from cudatracerlib_tpu_torch.ops import transmittance as tr_op
+
+    for vol, grid, st, o, d, t_min, t_max in plume_tr_calls:
+        before = tr_op.launches["fwd"]
+        out, acc = tr_op._forward(vol, grid, st, o, d, t_min, t_max, keep_acc=True)
+        torch.cuda.synchronize()
+        assert tr_op.launches["fwd"] == before + 1
+        ref, ref_acc = tr_op.transmittance_plain(vol, grid, st, o, d, t_min, t_max)
+        assert torch.equal(out, ref) and torch.equal(acc, ref_acc)
+        assert bool((out < 1).any()) and bool((out == 1).any())
+
+
+def test_transmittance_backward_on_card(dev, plume_tr_calls):
+    """The backward kernel, then the gather backward, against the plain
+    closed form on the plume's rays with a seeded cotangent: the grid's and
+    st's gradients within 1e-5 of the largest entry; two launches bit-equal;
+    one backward launch a call."""
+    from cudatracerlib_tpu_torch.ops import transmittance as tr_op
+
+    for k, (vol, grid, st, o, d, t_min, t_max) in enumerate(plume_tr_calls):
+        out, acc = tr_op._forward(vol, grid, st, o, d, t_min, t_max, keep_acc=True)
+        gen = torch.Generator(device=dev).manual_seed(k)
+        g = torch.randn(out.shape, generator=gen, device=dev)
+        before = tr_op.launches["bwd"]
+        got = tr_op._backward(vol, grid.shape[0], st, o, d, t_min, t_max, g, out, acc)
+        again = tr_op._backward(vol, grid.shape[0], st, o, d, t_min, t_max, g, out, acc)
+        torch.cuda.synchronize()
+        assert tr_op.launches["bwd"] == before + 2
+        ref = tr_op.transmittance_bwd_plain(vol, grid.shape[0], st, o, d, t_min, t_max, g, out,
+                                            acc)
+        for a, b, r in zip(got, again, ref):
+            assert torch.equal(a, b)
+            assert float((a - r).abs().max()) <= 1e-5 * float(r.abs().max())
+        assert float(got[0].abs().max()) > 0
+
+
+def test_transmittance_gradient_through_media_on_card(dev):
+    """d/d(grid_data, sigma_a, sigma_s) of a weighted sum of the plume's
+    transmittance on the card (the kernel pair) against the CPU port's eager
+    path on the same rays: within 1e-5 of each field's largest entry."""
+    from cudatracerlib_tpu_torch.scene import media
+
+    rng = np.random.default_rng(3)
+    o = rng.uniform(-1.2, 1.2, (1 << 16, 3)).astype(np.float32)
+    d = rng.normal(size=(1 << 16, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    t_max = rng.uniform(0.0, 3.0, 1 << 16).astype(np.float32)
+    w = rng.normal(size=(1 << 16, 3)).astype(np.float32)
+    paths = ["grid_data", "sigma_a", "sigma_s"]
+    out = []
+    for device in ("cpu", "cuda"):
+        m = with_grad(media.Media.build(media.plume_records([-1] * 3, [1] * 3), device=device),
+                      paths)
+        args = [torch.from_numpy(x).to(device) for x in (o, d, t_max, w)]
+        if device == "cpu":
+            tr = torch.ones(o.shape[0], 3)
+            tr = tr * media._eager_factor(m, 0, "scalar", m.modes, args[0], args[1], 1e-3, args[2])
+        else:
+            tr = media.transmittance(m, args[0], args[1], 1e-3, args[2], m.modes)
+        (tr * args[3]).sum().backward()
+        out.append(grads(m, paths))
+    for p in paths:
+        scale = np.abs(out[0][p]).max()
+        assert np.abs(out[1][p] - out[0][p]).max() <= 1e-5 * scale, p
+
+
+@pytest.mark.parametrize("res", [5, 40])
+def test_transmittance_kernel_grid_sizes(dev, res):
+    """A grid staged in shared memory (5^3) and one past a block's shared
+    memory (40^3 floats, 256 KB: the read-only path), 2^18 random rays:
+    the kernel bit-equal to its plain version."""
+    from cudatracerlib_tpu_torch.ops import transmittance as tr_op
+    from cudatracerlib_tpu_torch.scene import media
+
+    m = media.Media.build(media.plume_records([-1] * 3, [1] * 3, res=res), device=dev)
+    gen = torch.Generator(device=dev).manual_seed(res)
+    n = 1 << 18
+    o = torch.rand(n, 3, generator=gen, device=dev) * 3 - 1.5
+    d = torch.nn.functional.normalize(torch.randn(n, 3, generator=gen, device=dev), dim=-1)
+    t_max = torch.rand(n, generator=gen, device=dev) * 4
+    vol = tr_op.Grid(m.box_min[0], m.box_max[0], m.active[0], m.modes[0][1], m.modes[0][3])
+    st = m.sigma_a[0] + m.sigma_s[0]
+    out, acc = tr_op._forward(vol, m.grid_data, st, o, d, 1e-3, t_max, keep_acc=True)
+    ref, ref_acc = tr_op.transmittance_plain(vol, m.grid_data, st, o, d, 1e-3, t_max)
+    assert torch.equal(out, ref) and torch.equal(acc, ref_acc)
+    assert bool((out < 1).any())

@@ -56,6 +56,7 @@ MODULES = [
     "cudatracerlib_tpu_torch.ops.intersect_dense",
     "cudatracerlib_tpu_torch.ops.photon_gather",
     "cudatracerlib_tpu_torch.ops.shade_gather",
+    "cudatracerlib_tpu_torch.ops.transmittance",
     "cudatracerlib_tpu_torch.parallel",
     "cudatracerlib_tpu_torch.parallel.distributed",
     "cudatracerlib_tpu_torch.parallel.shard",
