@@ -23,6 +23,19 @@ The film adds samples with `index_add_`, atomic on the card: images of
 different rank counts agree to float rounding, and their ray counts exactly.
 Configs are specialized per scene (`specialize_config`), as the JAX
 package's `make_sharded_ppm` does and as its bench runs `make_sharded_render`.
+
+The volume engine shards too (`make_sharded_render_vol`, beyond the JAX
+package's surface-only module): a rank traces its block of lanes as one
+batch through volpath's own body, so delta tracking's trip count is the
+rank's; its samples are summed per pixel into the whole image's flat
+float64 film, summed over the mesh by one all-reduce whose backward is the
+identity; `all_reduce_grads` then sums the optimised leaves' gradients in
+one flat all-reduce after the backward, so an optimizer moves the same
+parameters on every rank.
+
+Each all-reduce runs under the span `ctl.shard.allreduce` and is counted
+(`shard.allreduce.calls`, `shard.allreduce.bytes`: the buffer's bytes); a
+sharded volume pass counts its rank's lanes (`shard.lanes`).
 """
 from __future__ import annotations
 
@@ -32,10 +45,13 @@ import torch.distributed as dist
 from .._tree import tree_map
 from ..image import film as film_mod
 from ..render import ppm as ppm_mod
+from ..render import volpath
 from ..render.path_tracer import PTConfig, specialize_config, trace_radiance
 from ..sampling.rng import MASK, Sampler
+from ..scene import media as media_mod
 from ..scene import sensors
 from ..scene.scene import Scene
+from ..utils.timing import count, span, spanned
 from .distributed import host_mesh
 
 PHOTON_SEED_STRIDE = 0x9E3779B9   # rank r traces its photons at seed ^ (r * stride) (uint32)
@@ -74,6 +90,16 @@ def _shard_lanes(mesh, width: int, height: int, spp: int, device):
     return pixel_id, sample_idx
 
 
+def _all_reduce(x):
+    """x summed over the process group in place (one all-reduce, under the
+    span `ctl.shard.allreduce`, counted by call and buffer bytes)."""
+    count("shard.allreduce.calls")
+    count("shard.allreduce.bytes", x.numel() * x.element_size())
+    with span("ctl.shard.allreduce"):
+        dist.all_reduce(x)
+    return x
+
+
 class _AllReduceSum(torch.autograd.Function):
     """Sum over the process group whose backward is the identity: the loss
     above it is replicated, so each rank's cotangent is already the whole
@@ -81,9 +107,7 @@ class _AllReduceSum(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x):
-        y = x.clone()
-        dist.all_reduce(y)
-        return y
+        return _all_reduce(x.clone())
 
     @staticmethod
     def backward(ctx, g):
@@ -163,6 +187,51 @@ def make_train_step(mesh, width: int, height: int, spp: int, target_image, lr: f
         return new_scene, loss.detach()
 
     return step
+
+
+def make_sharded_render_vol(mesh, width: int, height: int, spp: int,
+                            config: PTConfig = PTConfig()):
+    """fn(scene, media, seed) -> the (H, W, 3) volumetric image, the same on
+    every rank, on the scene's device. Rank (dp, sp) traces exactly its
+    `_shard_lanes` block through `volpath.lane_radiance`, as one batch (its
+    delta tracking's trip count is its own), and sums its samples per pixel
+    into the whole image's flat float64 film, which one all-reduce sums over
+    the mesh. On a 1 x 1 mesh the lanes and the reshape-sum film are
+    `volpath.render_vol`'s, so the image equals it bit for bit.
+    Differentiable in the scene's and media's tensors that require grad, the
+    film's all-reduce passing the cotangent through unchanged: after the
+    backward, `all_reduce_grads` sums the leaves' gradients over the mesh."""
+    def render_fn(scene: Scene, media: media_mod.Media, seed):
+        cfg = volpath._specialize(scene, media, config)
+        return _render_vol_shard(mesh, scene, media, width, height, spp, seed, cfg)
+
+    return render_fn
+
+
+@spanned("ctl.pass")
+def _render_vol_shard(mesh, scene, media, width, height, spp, seed, config):
+    dp, _, n_dp, n_sp = _mesh_layout(mesh)
+    pixel_id, sample_idx = _shard_lanes(mesh, width, height, spp, scene.light_cdf.device)
+    count("shard.lanes", pixel_id.numel())
+    L = volpath.lane_radiance(scene, media, pixel_id, sample_idx, width, height, seed, config)
+    m = width * height // n_dp
+    part = volpath.sample_sum(L, spp // n_sp, m).reshape(-1).double()
+    film = torch.nn.functional.pad(part, (3 * m * dp, 3 * m * (n_dp - 1 - dp)))
+    return (_AllReduceSum.apply(film).float() / spp).reshape(height, width, 3)
+
+
+def all_reduce_grads(params) -> None:
+    """Sum the leaves' gradients over the process group, in place, with one
+    all-reduce of one flat buffer (a leaf without a gradient adds zeros and
+    receives the sum). Called after the backward of a loss of a sharded
+    render, it leaves on every rank the gradient of the whole image's loss,
+    so an optimizer then moves the same parameters on every rank."""
+    params = list(params)
+    flat = torch.cat([(p.grad if p.grad is not None else torch.zeros_like(p)).reshape(-1)
+                      for p in params])
+    _all_reduce(flat)
+    for p, g in zip(params, flat.split([p.numel() for p in params])):
+        p.grad = g.view_as(p)
 
 
 def _gather_photons(pm: ppm_mod.PhotonMap, n_ranks: int) -> ppm_mod.PhotonMap:

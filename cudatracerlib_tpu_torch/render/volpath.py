@@ -14,10 +14,12 @@ is checkpointed, as in `render`. The JAX package keeps `render_vol_stepwise`
 (one dispatch per bounce) as a workaround of a TPU compiler fault; here
 every entry point runs the same loop, so `render_vol_stepwise` equals
 `render_vol_progressive` and stays only as an API name. The camera batch is
-in row order (`_camera_batch`, not the path tracer's block order), and each
+in row order (`_camera_lanes`, not the path tracer's block order), and each
 pass's film is the reshape-sum over spp of `tile(arange(n_px), spp)`, which
 equals the JAX package's `film.add_samples` and needs no atomics on the
-card.
+card. `lane_radiance` traces any lanes given as (pixel_id, sample_idx) as
+one batch: parallel/shard.make_sharded_render_vol runs a rank's block of
+lanes through it.
 
 `render_vol` is the differentiable entry point, like `render`: in every
 float tensor of the scene and of the media (`grid_data`, `sigma_a`,
@@ -204,13 +206,17 @@ def trace_radiance_vol(scene: Scene, media: media_mod.Media, o, d, sampler: Samp
     return final.L, final.sampler
 
 
-def _camera_batch(scene: Scene, width: int, height: int, spp: int, seed):
-    """One pass's camera rays in row order: (pixel_id, o, d, w_cam, sampler)
-    for pixel ids tile(arange(W H), spp)."""
-    dev = scene.light_cdf.device
+def _camera_lanes(width: int, height: int, spp: int, device):
+    """One pass's lanes in row order: (pixel_id, sample_idx), pixel ids
+    tile(arange(W H), spp) and sample indices repeat(arange(spp), W H)."""
     n_px = width * height
-    pixel_id = torch.arange(n_px, device=dev).repeat(spp)
-    sample_idx = torch.arange(spp, device=dev).repeat_interleave(n_px)
+    pixel_id = torch.arange(n_px, device=device).repeat(spp)
+    sample_idx = torch.arange(spp, device=device).repeat_interleave(n_px)
+    return pixel_id, sample_idx
+
+
+def _camera_rays(scene: Scene, pixel_id, sample_idx, width: int, height: int, seed):
+    """The lanes' camera rays: (o, d, w_cam, sampler)."""
     sampler = Sampler.create(int(seed) & MASK, pixel_id, sample_idx)
     px = (pixel_id % width).to(torch.float32)
     py = (pixel_id // width).to(torch.float32)
@@ -218,24 +224,48 @@ def _camera_batch(scene: Scene, width: int, height: int, spp: int, seed):
     film_uv = torch.stack([(px + jitter[:, 0]) / width, (py + jitter[:, 1]) / height], -1)
     sampler, u_ap = sampler.next_2d()
     o, d, w_cam = sensors.sample_ray(scene.camera, film_uv, u_ap)
-    return pixel_id, o, d, w_cam, sampler
+    return o, d, w_cam, sampler
+
+
+def _camera_batch(scene: Scene, width: int, height: int, spp: int, seed):
+    """One pass's camera rays in row order: (pixel_id, o, d, w_cam, sampler)
+    for pixel ids tile(arange(W H), spp)."""
+    pixel_id, sample_idx = _camera_lanes(width, height, spp, scene.light_cdf.device)
+    return (pixel_id, *_camera_rays(scene, pixel_id, sample_idx, width, height, seed))
+
+
+def lane_radiance(scene: Scene, media: media_mod.Media, pixel_id, sample_idx, width: int,
+                  height: int, seed, config: PTConfig, with_stats: bool = False):
+    """The lanes' radiance weighted by the camera, (B, 3), traced as one
+    batch (so delta tracking's trip count T is this batch's); plus the rays
+    traced with `with_stats`. `config` specialized."""
+    o, d, w_cam, sampler = _camera_rays(scene, pixel_id, sample_idx, width, height, seed)
+    out = trace_radiance_vol(scene, media, o, d, sampler, config, with_stats=with_stats)
+    return (out[0] * w_cam, out[2]) if with_stats else out[0] * w_cam
+
+
+def sample_sum(L, n_samples: int, n_px: int):
+    """(n_px, 3): each pixel's samples summed in sample order, lanes laid
+    out sample-major (n_samples, n_px); non-finite samples count as 0
+    (film.add_samples)."""
+    L = torch.nan_to_num(L, nan=0.0, posinf=0.0, neginf=0.0)
+    return L.reshape(n_samples, n_px, 3).sum(0)
 
 
 def _film(L, width: int, height: int, spp: int):
     """The pass's image: each pixel's spp samples summed in sample order and
-    divided by spp; non-finite samples count as 0 (film.add_samples)."""
-    L = torch.nan_to_num(L, nan=0.0, posinf=0.0, neginf=0.0)
-    return (L.reshape(spp, width * height, 3).sum(0) / spp).reshape(height, width, 3)
+    divided by spp (`sample_sum`)."""
+    return (sample_sum(L, spp, width * height) / spp).reshape(height, width, 3)
 
 
 @spanned("ctl.pass")
 def _render_vol_body(scene, media, width, height, spp, seed, config, with_stats):
-    _, o, d, w_cam, sampler = _camera_batch(scene, width, height, spp, seed)
-    out = trace_radiance_vol(scene, media, o, d, sampler, config, with_stats=with_stats)
-    img = _film(out[0] * w_cam, width, height, spp)
+    pixel_id, sample_idx = _camera_lanes(width, height, spp, scene.light_cdf.device)
+    out = lane_radiance(scene, media, pixel_id, sample_idx, width, height, seed, config,
+                        with_stats=with_stats)
     if with_stats:
-        return img, out[2]
-    return img
+        return _film(out[0], width, height, spp), out[1]
+    return _film(out, width, height, spp)
 
 
 def specialize_media_config(media: media_mod.Media, config: PTConfig) -> PTConfig:

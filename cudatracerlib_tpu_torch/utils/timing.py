@@ -18,7 +18,9 @@ Spans and counters mark the program's layers for a torch profiler:
   count and their busy time are those of the same run without spans. Names
   start with `ctl.`: `ctl.pass` (one render pass), `ctl.bounce` (one depth),
   `ctl.intersect`, `ctl.media.track`, `ctl.media.transmittance`,
-  `ctl.gather_bwd`.
+  `ctl.gather_bwd`, `ctl.shard.allreduce` (one collective of
+  parallel/shard.py: the film's inside a sharded pass, the gradients' after
+  the backward; the collective's kernels are launched under it).
 - `count(name, n)` adds to a counter, always; `counters()` reads them and
   `counters(profiled=True)` only what was counted while a profiler recorded.
   `CounterGroup` gives a module a view of some counters as a dict (the

@@ -31,6 +31,10 @@ generate_fits' quadrature against the CPU port's as each test states.
 A 'scalar' volume's transmittance kernel is bit-equal to its plain version
 on the plume's 2^20 segment and shadow rays, its backward within 1e-5 of
 the largest entry and bit-equal to itself, one launch a call.
+The sharded volume step on four NCCL ranks (skips with fewer than four
+cards): the summed gradient bit-equal on every rank, and within 1e-5 of
+each leaf's largest entry of one card's step over the same four blocks of
+lanes, each traced as its own batch (the sums run in another order).
 """
 import _torch_threads  # noqa: F401  (caps torch's CPU threads under xdist)
 import numpy as np
@@ -1412,3 +1416,66 @@ def test_transmittance_kernel_grid_sizes(dev, res):
     ref, ref_acc = tr_op.transmittance_plain(vol, m.grid_data, st, o, d, 1e-3, t_max)
     assert torch.equal(out, ref) and torch.equal(acc, ref_acc)
     assert bool((out < 1).any())
+
+
+VOL4_W, VOL4_SPP, VOL4_SEED, VOL4_LEAVES = 64, 4, 5, ("grid_data", "sigma_a", "sigma_s")
+
+
+def _plume_parts(device):
+    """The plume of perfbench/configs/plume.json as the program's scene,
+    media and config, and an L2 target."""
+    import json
+    import os
+
+    from perfbench.core import port
+    from perfbench.scenes import plume
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with open(os.path.join(root, "perfbench", "configs", "plume.json")) as f:
+        data = plume.build(json.load(f))
+    target = torch.full((VOL4_W, VOL4_W, 3), 0.1, device=device)
+    return port.scene(data, device), port.media(data, device), port.config(data), target
+
+
+def _sharded_vol_step_rank(rank, device):
+    """One rank of a four-rank job: the sharded volume step's summed
+    gradient and the group's backend."""
+    import torch.distributed as dist
+
+    sc, med, cfg, target = _plume_parts(device)
+    mesh = shard.make_mesh(4, 1, device=device)
+    leaves = {k: getattr(med, k).detach().clone().requires_grad_() for k in VOL4_LEAVES}
+    img = shard.make_sharded_render_vol(mesh, VOL4_W, VOL4_W, VOL4_SPP, cfg)(
+        sc, med._replace(**leaves), VOL4_SEED)
+    ((img - target) ** 2).mean().backward()
+    shard.all_reduce_grads(leaves.values())
+    return {k: v.grad.cpu().numpy() for k, v in leaves.items()}, dist.get_backend()
+
+
+def test_sharded_volume_step_on_four_nccl_ranks(dev):
+    from cudatracerlib_tpu_torch.render import volpath
+
+    if torch.cuda.device_count() < 4:
+        pytest.skip(f"needs four cards ({torch.cuda.device_count()} present)")
+    runs = run_ranks(_sharded_vol_step_rank, 4, device="cuda")
+    assert all(backend == "nccl" for _, backend in runs)
+    for grads, _ in runs[1:]:
+        for k in VOL4_LEAVES:
+            np.testing.assert_array_equal(grads[k], runs[0][0][k])
+    sc, med, cfg, target = _plume_parts(dev)
+    cfg = volpath._specialize(sc, med, cfg)
+    leaves = {k: getattr(med, k).detach().clone().requires_grad_() for k in VOL4_LEAVES}
+    m = VOL4_W * VOL4_W // 4
+    parts = []
+    for r in range(4):   # rank r's block, traced as its own batch
+        pix = torch.arange(r * m, (r + 1) * m, device=dev).repeat(VOL4_SPP)
+        smp = torch.arange(VOL4_SPP, device=dev).repeat_interleave(m)
+        L = volpath.lane_radiance(sc, med._replace(**leaves), pix, smp, VOL4_W, VOL4_W, VOL4_SEED,
+                                  cfg)
+        parts.append(volpath.sample_sum(L, VOL4_SPP, m))
+    img = (torch.cat(parts) / VOL4_SPP).reshape(VOL4_W, VOL4_W, 3)
+    ((img - target) ** 2).mean().backward()
+    for k in VOL4_LEAVES:
+        want = leaves[k].grad.cpu().numpy()
+        assert np.abs(want).max() > 0, k
+        np.testing.assert_allclose(runs[0][0][k], want, rtol=0, atol=1e-5 * np.abs(want).max())

@@ -24,10 +24,21 @@ Tolerances, stated once:
   * sharded PPM on 2 ranks against JAX's `make_sharded_ppm` on a 2-device
     mesh, 4,096 photons: every pixel within 1e-3 relative + 1e-6, the image
     sums within 1e-5 relative (as tests/test_torch_ppm.py's query-major
-    render).
+    render);
+  * the sharded volume render (`make_sharded_render_vol`, the plume of
+    perfbench/configs/plume.json at depth 3, 4 spp, which the JAX package
+    does not shard): on 1 x 1 equal to `render_vol` bit for bit, image and
+    gradient; on 4 x 1, each rank's lanes those of
+    perfbench/reference/volume_sharded.py, every lane once over the ranks,
+    each rank's pixels within 1e-4 relative + 1e-6 of the reference's on the
+    same lanes (the perfbench cells' CPU agreement is 3.4e-5) and the summed
+    gradients within 1e-4 relative of the largest entry of each leaf, equal
+    bit for bit on every rank.
 """
 import _torch_threads  # noqa: F401  (caps torch's CPU threads under xdist)
 import inspect
+import json
+import os
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -41,6 +52,7 @@ from cudatracerlib_tpu_torch.parallel import distributed as tdist
 from cudatracerlib_tpu_torch.parallel import shard as tshard
 from cudatracerlib_tpu_torch.render import path_tracer as tpt
 from cudatracerlib_tpu_torch.render import ppm as tppm
+from cudatracerlib_tpu_torch.render import volpath as tvol
 from cudatracerlib_tpu_torch.scene import shapes as tshapes
 
 W = H = 16
@@ -48,11 +60,12 @@ DEPTH = 3
 RENDER_SPP, RENDER_SEED = 4, 3
 TRAIN_SPP, TRAIN_SEEDS, LR, ALBEDO_SCALE = 4, (100, 101), 0.05, 0.5
 PPM_SPP, PPM_SEED, PPM_PASS, PPM_PHOTONS = 2, 3, 1, 4096
+VOL_SPP, VOL_SEED, VOL_DEPTH, VOL_LEAVES = 4, 5, 3, ("grid_data", "sigma_a", "sigma_s")
 RANK_TIMEOUT_S = 240.0
 
 # local jobs of the port: world size -> (job, n_dp, n_sp) in order
-JOBS = {4: (("render", 2, 2), ("train", 4, 1)),
-        1: (("render", 1, 1), ("train", 1, 1)),
+JOBS = {4: (("render", 2, 2), ("train", 4, 1), ("vol", 4, 1)),
+        1: (("render", 1, 1), ("train", 1, 1), ("vol", 1, 1)),
         2: (("ppm", 2, 1),)}
 
 
@@ -60,11 +73,67 @@ def _target():
     return np.random.default_rng(0).uniform(0.0, 0.3, (H, W, 3)).astype(np.float32)
 
 
+def _plume_data():
+    """The plume's scene arrays (perfbench's generator and configuration) at
+    depth VOL_DEPTH."""
+    from perfbench.scenes import plume
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with open(os.path.join(root, "perfbench", "configs", "plume.json")) as f:
+        cfg = json.load(f)
+    return plume.build(dict(cfg, max_depth=VOL_DEPTH))
+
+
+def _vol_job(rank, device, mesh, n_dp, n_sp):
+    """The sharded volume render and its summed gradient on this rank, and
+    the plain reference's on the lanes its own rule gives the rank."""
+    from perfbench.core import port
+    from perfbench.reference import volume_sharded as vs
+    from perfbench.reference.common import RefScene
+
+    data = _plume_data()
+    sc, med, cfg = port.scene(data, device), port.media(data, device), port.config(data)
+    target = torch.from_numpy(_target())
+    leaves = {k: getattr(med, k).detach().clone().requires_grad_() for k in VOL_LEAVES}
+    img = tshard.make_sharded_render_vol(mesh, W, H, VOL_SPP, cfg)(sc, med._replace(**leaves),
+                                                                    VOL_SEED)
+    ((img - target) ** 2).mean().backward()
+    tshard.all_reduce_grads(leaves.values())
+    pix, smp = tshard._shard_lanes(mesh, W, H, VOL_SPP, device)
+    out = {"img": img.detach().numpy(), "grads": {k: v.grad.numpy() for k, v in leaves.items()},
+           "lanes": (pix.numpy(), smp.numpy())}
+    if n_dp * n_sp == 1:
+        plain = {k: getattr(med, k).detach().clone().requires_grad_() for k in VOL_LEAVES}
+        pimg = tvol.render_vol(sc, med._replace(**plain), W, H, VOL_SPP, VOL_SEED, cfg)
+        ((pimg - target) ** 2).mean().backward()
+        out["plain"] = (pimg.detach().numpy(), {k: v.grad.numpy() for k, v in plain.items()})
+
+    rpix, rsmp = vs.rank_lanes(n_dp, n_sp, rank, W, H, VOL_SPP, device)
+    rs = RefScene(data, device)
+    p = {k: getattr(med, k).detach().clone().requires_grad_() for k in VOL_LEAVES}
+    rmed = vs.medium(data["media"][0], device, params=p)
+    L, skips = vs.radiance_whole(rs, rmed, rpix, rsmp, W, H, VOL_SEED, 4096)
+    part = torch.zeros(W * H, 3, dtype=torch.float64).index_add_(0, rpix, L.double()) / VOL_SPP
+    whole = part.clone()
+    dist.all_reduce(whole)
+    cot = (2.0 / whole.numel() * (whole - target.reshape(-1, 3).double()))[rpix].float() / VOL_SPP
+    g = vs.lane_gradient(rs, rmed, p, rpix, rsmp, W, H, VOL_SEED, 4096, skips, cot, 100)
+    flat = torch.cat([g[k].reshape(-1) for k in VOL_LEAVES])
+    dist.all_reduce(flat)
+    out["ref"] = {"lanes": (rpix.numpy(), rsmp.numpy()), "part": part.reshape(H, W, 3).numpy(),
+                  "grads": {k: x.view_as(p[k]).numpy() for k, x in
+                            zip(VOL_LEAVES, flat.split([p[k].numel() for k in VOL_LEAVES]))}}
+    return out
+
+
 def _rank_program(rank, device, jobs):
     """One port rank: the results of `jobs` as numpy, from this rank."""
     out = {}
     for job, n_dp, n_sp in jobs:
         mesh = tshard.make_mesh(n_dp, n_sp, device=device)
+        if job == "vol":
+            out[job] = _vol_job(rank, device, mesh, n_dp, n_sp)
+            continue
         if job == "ppm":
             scene = tshard.replicate_scene(tshapes.caustic_scene(device=device), mesh)
             fn = tshard.make_sharded_ppm(mesh, W, H, PPM_SPP,
@@ -237,3 +306,50 @@ def test_failed_rank_fails_with_its_traceback(port):
     msg = str(err)
     assert msg.startswith("rank 1:") and "_failing_rank" in msg, msg
     assert "rank 1 fails on purpose" in msg.split("rank 0:")[0], msg
+
+
+def test_sharded_vol_one_rank_equals_render_vol(port):
+    vol = port[1].result()[0]["vol"]
+    pimg, pgrads = vol["plain"]
+    assert vol["img"].mean() > 0.05 and np.isfinite(vol["img"]).all()
+    np.testing.assert_array_equal(vol["img"], pimg)
+    for k in VOL_LEAVES:
+        assert np.abs(pgrads[k]).max() > 0, k
+        np.testing.assert_array_equal(vol["grads"][k], pgrads[k])
+
+
+def test_sharded_vol_blocks_cover_every_lane_once(port):
+    """The four ranks' lanes are the reference's rule's, and together hold
+    every (pixel, sample) of the pass exactly once."""
+    runs = [r["vol"] for r in port[4].result()]
+    keys = []
+    for vol in runs:
+        (pix, smp), (rpix, rsmp) = vol["lanes"], vol["ref"]["lanes"]
+        np.testing.assert_array_equal(pix, rpix)
+        np.testing.assert_array_equal(smp, rsmp)
+        keys.append(smp * (W * H) + pix)
+    np.testing.assert_array_equal(np.sort(np.concatenate(keys)), np.arange(W * H * VOL_SPP))
+
+
+def test_sharded_vol_matches_reference(port):
+    """Each rank's pixels of the summed image against the reference's on the
+    rank's own lanes, and the summed gradients against the reference's."""
+    runs = [r["vol"] for r in port[4].result()]
+    for rank, vol in enumerate(runs):
+        rows = slice(rank * H // 4, (rank + 1) * H // 4)
+        ref = vol["ref"]["part"]
+        assert not ref[:rows.start].any() and not ref[rows.stop:].any()
+        np.testing.assert_allclose(vol["img"][rows], ref[rows], rtol=1e-4, atol=1e-6)
+        for k in VOL_LEAVES:
+            want = vol["ref"]["grads"][k]
+            assert np.abs(want).max() > 0, k
+            np.testing.assert_allclose(vol["grads"][k], want, rtol=0,
+                                       atol=1e-4 * np.abs(want).max())
+
+
+def test_sharded_vol_gradient_same_on_every_rank(port):
+    runs = [r["vol"] for r in port[4].result()]
+    for vol in runs[1:]:
+        np.testing.assert_array_equal(vol["img"], runs[0]["img"])
+        for k in VOL_LEAVES:
+            np.testing.assert_array_equal(vol["grads"][k], runs[0]["grads"][k])
