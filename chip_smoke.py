@@ -173,6 +173,13 @@ It imports nothing of JAX. Phases, each of which raises on failure:
      its plain version (the eager path's arithmetic); the first bounce's
      sampled segment and shadow rays timed, kernel and plain version, against
      the bound (TR_FLOPS, TR_BYTES a lane), and the kernel's sum over the pass;
+     then the tracking kernel (ops/delta_track) on the inputs of that pass's
+     6 tracking calls (2,097,152 lanes) and of a 256x256, 8-spp pass's
+     (524,288, the grad cell's): 6 launches a pass and no eager loop, t
+     bit-equal, real and T equal to the eager loop's on every call, the first
+     bounce's call timed, kernel and eager loop, against the bound
+     (TRACK_TRIP_OPS a lane-trip, TRACK_LANE_OPS and TRACK_BYTES a lane), and
+     the kernel's sum over the pass;
   19. bench config 4's transmittance gradients: (a) the card's gradients of
      three pinned cases against the JAX package's CPU values in
      tools/volume_grad_reference.npz (TestVolumetric's sigma_a slab and 6^3
@@ -513,6 +520,15 @@ TR_RENDER = (1024, 1024, 2)  # the plume render cell's pass (2,097,152 lanes a c
 # cotangent, the factor and acc in (56 bytes), st's share and 32 x 8 cotangents and rows out.
 TR_FLOPS, TR_BYTES = 24 + 32 * 58 + 7, 28 + 12
 TR_BWD_FLOPS, TR_BWD_BYTES = 24 + 8 + 32 * 56, 56 + 12 + 32 * 8 * 8
+# The tracking kernel's work (csrc/delta_track.cu), one 'scalar' volume. A trip: two draws of 14
+# (the Weyl step, the hash's 11 integer operations, the conversion and scale), 7 for dt, t_new and
+# the escape test, the point 6, the box test 7, the cell's coordinates 39 (13 an axis) and corner
+# rows 40 (5 a corner), 7 lerps 28, sigma_t 6, the mean, ratio and test 7, the count 2: 170. A
+# lane: 10 to start and end its trips; o, d, u_near, u_far, maj, in_vol and state in (45 bytes),
+# t and real out (5). The operations are counted over the lane-trips the inputs need (the sum of
+# each lane's trips), not T x lanes.
+TRACK_TRIP_OPS, TRACK_LANE_OPS, TRACK_BYTES = 2 * 14 + 7 + 6 + 7 + 39 + 40 + 28 + 6 + 7 + 2, 10, 50
+TRACK_GRAD = (256, 256, 8)  # the grad cell's pass (524,288 lanes a call)
 # Bench config 4's transmittance gradients, the JAX package on the CPU: `JAX_PLATFORMS=cpu python
 # tools/volume_grad_reference.py` writes them to VGRAD_REF, which phase 19 reads: d mean(render_vol)
 # of TestVolumetric's sigma_a slab and 6^3 voxel grid (furnace, 16x16, 4 spp, seed 0, depth 3, no
@@ -1755,6 +1771,117 @@ def _check_transmittance(label, calls, backward=False):
     return out_r
 
 
+def _capture_track(fn):
+    """scene/media.delta_track's arguments (clones), one entry a call, over
+    one call of `fn`."""
+    import torch
+    from cudatracerlib_tpu_torch.scene import media
+
+    calls, real = [], media.delta_track
+    keep = lambda x: x.detach().clone() if isinstance(x, torch.Tensor) else x  # noqa: E731
+
+    def record(*args):
+        calls.append(tuple(keep(x) for x in args))
+        return real(*args)
+
+    media.delta_track = record
+    try:
+        fn()
+        torch.cuda.synchronize()
+    finally:
+        media.delta_track = real
+    return calls
+
+
+def _lane_trips(args, T):
+    """The trips the lanes of one tracking call began while tracking, summed
+    over the lanes: the eager loop's T trips, counting the tracking lanes
+    before each."""
+    import torch
+    from cudatracerlib_tpu_torch.scene import media
+
+    media_, modes, o, d, u_near, u_far, maj, in_vol, state = args
+    c = media._Track(t=u_near, tracking=in_vol, real=torch.zeros_like(in_vol), state=state)
+    total = torch.zeros((), dtype=torch.int64, device=o.device)
+    with torch.no_grad():
+        for _ in range(T):
+            total = total + c.tracking.sum()
+            c = media._track(media_, modes, o, d, maj, u_far, c)
+    return int(total)
+
+
+def _check_track(label, calls):
+    """The tracking kernel against the eager loop on every captured call: t
+    bit-equal, real and T equal. The first call (bounce 0) timed with CUDA
+    events, `delta_track` (the kernel on these inputs) and the eager loop,
+    against the bound over the lane-trips it needs; the kernel's sum over
+    the calls."""
+    import torch
+    from cudatracerlib_tpu_torch.scene import media
+
+    total, r, trips = 0.0, {}, []
+    for k, args in enumerate(calls):
+        t, real, T = media.delta_track(*args)
+        c, T_eager = media._track_eager(*args)
+        torch.cuda.synchronize()
+        _require(torch.equal(t, c.t) and torch.equal(real, c.real) and int(T) == int(T_eager),
+                 f"tracking {label} call {k}: the kernel differs from the eager loop (T "
+                 f"{int(T)} / {int(T_eager)}, t {int((t != c.t).sum())} lanes, real "
+                 f"{int((real != c.real).sum())} lanes)")
+        trips.append(int(T))
+        del c
+        ms = _time_ms(lambda: media.delta_track(*args), 10)
+        total += ms
+        if k:
+            continue
+        n = args[2].shape[0]
+        eager_ms = _time_ms(lambda: media._track_eager(*args), 3)
+        lane_trips = _lane_trips(args, int(T))
+        bound = _bound(lane_trips * TRACK_TRIP_OPS + n * TRACK_LANE_OPS, n * TRACK_BYTES)
+        r = dict(lanes=n, T=int(T), lane_trips=lane_trips, in_volume=int(args[7].sum()),
+                 ms=ms, eager_ms=eager_ms, bound=bound)
+        print(f"[kernel vs eager] tracking {label} bounce 0: {n} lanes ({r['in_volume']} in the "
+              f"volume), T {int(T)}, {lane_trips} lane-trips ({lane_trips / max(n, 1):.3f} a "
+              f"lane); t bit-equal, real and T equal; kernel {ms:.4f} ms, eager loop "
+              f"{eager_ms:.3f} ms, bound {bound[0]:.5f} ms ({bound[1]}; "
+              f"{100 * bound[0] / ms:.1f}% of it)")
+        torch.cuda.empty_cache()
+    r.update(calls=len(calls), kernel_ms_sum=total, trips=trips)
+    print(f"[kernel vs eager] tracking {label}: {len(calls)} calls equal to the eager loop, T by "
+          f"bounce {trips}; the kernel {total:.4f} ms over them")
+    return r
+
+
+def _track_phase(scene, plume, cfg):
+    """The tracking kernel at the plume render cell's pass (TR_RENDER) and the
+    grad cell's (TRACK_GRAD), seed 7: its launches and eager calls over the
+    first pass, then `_check_track` on each pass's calls."""
+    import torch
+    from cudatracerlib_tpu_torch.ops import delta_track as dt_op
+    from cudatracerlib_tpu_torch.render import volpath
+    from cudatracerlib_tpu_torch.utils.timing import counters
+
+    out = {}
+    for name, (w, h, spp) in (("render", TR_RENDER), ("grad", TRACK_GRAD)):
+        before = (dt_op.launches["fwd"], counters().get("media.track.eager", 0))
+
+        def one_pass():
+            with torch.no_grad():
+                volpath.render_vol(scene, plume, w, h, spp, 7, cfg)
+
+        calls = _capture_track(one_pass)
+        launched = dict(fwd=dt_op.launches["fwd"] - before[0],
+                        eager=counters().get("media.track.eager", 0) - before[1])
+        print(f"[main path] tracking over one {w}x{h}, {spp}-spp, depth {cfg.max_depth} plume "
+              f"pass: {json.dumps(launched)}")
+        _require(launched == dict(fwd=cfg.max_depth, eager=0) and len(calls) == cfg.max_depth,
+                 f"the plume pass did not run its tracking through the kernel: {launched}")
+        out[name] = dict(_check_track(f"{w}x{h}x{spp}", calls), launches=launched)
+        del calls
+        torch.cuda.empty_cache()
+    return out
+
+
 def _vol_trips(scene, media, cfg, width, height, spp, seed):
     """The delta-tracking trip counts, bounce by bounce, of one volume pass
     (the same draws as the render's), read from lane 0's sampler state."""
@@ -1854,8 +1981,9 @@ def _volume_phase(scene, smi, reset_counts):
     tr = _check_transmittance(f"{w}x{h}x{spp}", tr_calls)
     del tr_calls
     torch.cuda.empty_cache()
+    track = _track_phase(scene, plume, vcfg)
     return dict(compare=vol_r, launches=launch_v, profile=prof_v, tr=tr, tr_launches=launch_tr,
-                tr_pass=tr_pass)
+                tr_pass=tr_pass, track=track)
 
 
 def _vgrad_cases():
@@ -4766,6 +4894,7 @@ def main():
     from cudatracerlib_tpu_torch.accel import bvh as bvh_mod
     from cudatracerlib_tpu_torch.accel.bvh import build_bvh, tree_depth, vertex_rows, woop_transform
     from cudatracerlib_tpu_torch.accel.traversal import STACK_DEPTH
+    from cudatracerlib_tpu_torch.ops import delta_track as dt_op
     from cudatracerlib_tpu_torch.ops import intersect_bvh as bvh_ops
     from cudatracerlib_tpu_torch.ops import intersect_dense as ops
     from cudatracerlib_tpu_torch.ops import photon_gather as pg_ops
@@ -4787,7 +4916,8 @@ def main():
         marks.append(time.perf_counter())
         print(f"[wall] phase {phase}: {marks[-1] - marks[-2]:.1f} s")
 
-    counters = (ops.launches, bvh_ops.launches, sg_ops.launches, pg_ops.launches, tr_op.launches)
+    counters = (ops.launches, bvh_ops.launches, sg_ops.launches, pg_ops.launches, tr_op.launches,
+                dt_op.launches)
 
     def reset_counts():
         for c in counters:
@@ -4812,7 +4942,7 @@ def main():
     builds = {"intersect_dense.cu": ops.get_lib, "intersect_bvh.cu": bvh_ops.get_lib,
               "shade_gather.cu": sg_ops.get_lib, "shade_gather_bwd.cu": sg_ops.get_bwd_lib,
               "photon_gather.cu": pg_ops.get_lib, "transmittance.cu": tr_op.get_lib,
-              "bvh_builder.cpp (g++)": native.get_lib}
+              "delta_track.cu": dt_op.get_lib, "bvh_builder.cpp (g++)": native.get_lib}
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(builds)) as pool:
         secs = dict(zip(builds, pool.map(timed, builds.values())))
@@ -5662,6 +5792,25 @@ def main():
                for f, v in (("ms", "ms"), ("plain_ms", "plain_ms"), ("bound_ms", "bound"),
                             ("bwd_ms", "bwd_ms"), ("bwd_whole_ms", "bwd_whole_ms"),
                             ("bwd_bound_ms", "bwd_bound"), ("bwd_max_rel_err", "bwd_rel"))},
+        },
+        {
+            "name": "delta_track",
+            "route": "cuda",
+            "source": "cudatracerlib_tpu_torch/csrc/delta_track.cu",
+            "replaces": None,
+            "launches": vol["track"]["render"]["launches"]["fwd"],
+            "max_abs_err": 0.0,
+            "ms": vol["track"]["render"]["ms"],
+            "plain_ms": vol["track"]["render"]["eager_ms"],
+            "bound_ms": vol["track"]["render"]["bound"][0],
+            "bound_by": vol["track"]["render"]["bound"][1],
+            "library_ms": None,
+            "pass_kernel_ms": vol["track"]["render"]["kernel_ms_sum"],
+            "lane_trips": vol["track"]["render"]["lane_trips"],
+            "grad_ms": vol["track"]["grad"]["ms"],
+            "grad_eager_ms": vol["track"]["grad"]["eager_ms"],
+            "grad_bound_ms": vol["track"]["grad"]["bound"][0],
+            "grad_pass_kernel_ms": vol["track"]["grad"]["kernel_ms_sum"],
         },
     ]}))
     print(smi)

@@ -13,7 +13,8 @@
 // Forward, per lane, in the eager path's order: the ray-box clip of
 // `_ray_box` (near, far, hit), seg and dt = seg / 32, the 32 midpoints of
 // `_steps`, each step's trilinear lookup of `_grid_lookup1` (clamp, floor,
-// corner rows, 8 loads, lerps in x, then y, then z), the left-to-right sum
+// corner rows, 8 loads, lerps in x, then y, then z: csrc/trilinear.cuh,
+// shared with csrc/delta_track.cu), the left-to-right sum
 // of `_scan_sum`, tau = st * (acc * dt) and where(act, exp(-tau), 1). Every
 // operation is written with __fmul_rn / __fadd_rn / __fsub_rn / __fdiv_rn in
 // the eager path's order, so no FMA contraction moves a result, and expf is
@@ -50,6 +51,8 @@
 #include <cuda_runtime.h>
 
 #include <cmath>
+
+#include "trilinear.cuh"
 
 namespace {
 
@@ -97,40 +100,15 @@ __device__ __forceinline__ Lane clip(const Volume& v, const float* o, const floa
   return l;
 }
 
-struct Cell {
-  int row[8];   // corners x, y, z
-  float f[3];   // the lerp weights' fractions
-};
+using trilinear::Cell;
 
-// step s's midpoint and its trilinear cell (`_steps`, `_grid_lookup1`, `_trilinear`)
+// step s's midpoint and its trilinear cell (`_steps`, then csrc/trilinear.cuh)
 __device__ __forceinline__ Cell cell(const Volume& v, const Lane& l, int s) {
   const float t = __fadd_rn(l.near, __fmul_rn(static_cast<float>(s) + 0.5f, l.dt));
-  int i0[3], i1[3];
-  Cell out;
+  float p[3];
 #pragma unroll
-  for (int c = 0; c < 3; ++c) {
-    const float p = __fadd_rn(l.o[c], __fmul_rn(l.d[c], t));
-    const float ext = fmaxf(__fsub_rn(v.box_max[c], v.box_min[c]), 1e-9f);
-    float q = __fmul_rn(__fdiv_rn(__fsub_rn(p, v.box_min[c]), ext),
-                        __fsub_rn(static_cast<float>(v.r[c]), 1.0f));
-    q = fminf(fmaxf(q, 0.0f), v.qmax[c]);
-    const float fl = floorf(q);
-    i0[c] = static_cast<int>(fl);
-    i1[c] = min(i0[c] + 1, v.r[c] - 1);
-    out.f[c] = __fsub_rn(q, fl);
-  }
-#pragma unroll
-  for (int k = 0; k < 8; ++k) {
-    const int ix = (k & 4) ? i1[0] : i0[0];
-    const int iy = (k & 2) ? i1[1] : i0[1];
-    const int iz = (k & 1) ? i1[2] : i0[2];
-    out.row[k] = v.off + (ix * v.r[1] + iy) * v.r[2] + iz;
-  }
-  return out;
-}
-
-__device__ __forceinline__ float lerp(float a, float b, float t) {
-  return __fadd_rn(__fmul_rn(a, __fsub_rn(1.0f, t)), __fmul_rn(b, t));
+  for (int c = 0; c < 3; ++c) p[c] = __fadd_rn(l.o[c], __fmul_rn(l.d[c], t));
+  return trilinear::cell_at(v.box_min, v.box_max, v.off, v.r, v.qmax, p);
 }
 
 // STAGED: the block first copies the volume's grid into shared memory and
@@ -159,13 +137,7 @@ transmittance_kernel(Volume v, const float* __restrict__ o, const float* __restr
 #pragma unroll
       for (int k = 0; k < 8; ++k)
         corner[k] = STAGED ? cells[c.row[k] - v.off] : __ldg(v.grid + c.row[k]);
-      float x[4];
-#pragma unroll
-      for (int k = 0; k < 4; ++k)  // x lerps: (y, z) = k
-        x[k] = lerp(corner[k], corner[4 + k], c.f[0]);
-      const float y0 = lerp(x[0], x[2], c.f[1]);
-      const float y1 = lerp(x[1], x[3], c.f[1]);
-      acc = __fadd_rn(acc, lerp(y0, y1, c.f[2]));
+      acc = __fadd_rn(acc, trilinear::interpolate(corner, c.f));
     }
     if (acc_out) acc_out[i] = acc;
     const float ad = __fmul_rn(acc, l.dt);

@@ -24,11 +24,17 @@ scan's order, so the sum has the same bits. `sample_distance` is delta (Woodcock
 tracking under a per-ray union majorant. JAX runs it as a while loop until
 no lane tracks (at most HARD_TRACK_CAP trips), and each trip draws two
 numbers for every lane, so after it every lane's sampler has moved by
-2 * T draws, T the trip count of the slowest lane. Here the trips run in
-blocks of TRACK_BLOCK with one host read a block, the trips that began with
-a lane still tracking are counted on the device, and the sampler is set to
-its start plus 2 * T draws. A trip leaves stopped lanes as they are, so the
-trips past T change nothing else.
+2 * T draws, T the trip count of the slowest lane; the sampler is set to its
+start plus 2 * T draws. `delta_track` runs the trips one of two ways, by
+what its input is: on CUDA tensors whose volumes are all 'scalar' or
+'const', the kernel of ops/delta_track (a thread a lane runs the lane's
+trips, drawing at its own start state + (2k + 1) and (2k + 2) Weyl steps as
+the batch's trip k does; T reduced on the device; no host read); otherwise
+(CPU tensors, no modes, a 'gen' volume) the eager loop, trips in blocks of
+TRACK_BLOCK with one host read a block, the trips that began with a lane
+still tracking counted on the device. A trip leaves stopped lanes as they
+are, so the loop's trips past T change nothing else. Both give the same
+bits.
 
 Gradients: every differentiable table lookup (the grid's 8 corners, a
 volume's sigma_a / sigma_s / Le by a lane's volume id) goes through
@@ -50,6 +56,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..ops import delta_track as dt_op
 from ..ops import transmittance as tr_op
 from ..ops.shade_gather import gather_rows
 from ..sampling.rng import Sampler
@@ -512,28 +519,52 @@ def _track(media, modes, o, d, maj, u_far, c: _Track) -> _Track:
                   real=c.real | real_now, state=s.state)
 
 
-@spanned("ctl.media.track")
-@torch.no_grad()
-def delta_track(media: Media, modes, o, d, u_near, u_far, maj, in_vol, state):
-    """The tracking loop of `sample_distance`: blocks of TRACK_BLOCK trips,
-    T counted on the device. Returns (the final _Track, T). It records no
-    graph: JAX's while loop carries no tangent (its inputs are stop-gradient
-    values, media.py:625-651), and a graph here would save every trip's
-    lookups for a backward that never reads them. Runs inside the span
-    `ctl.media.track`; counts `media.track_calls`, the loop's host reads
-    (`host_reads.media.delta_track`, ceil(T / TRACK_BLOCK) + 1 a call) and,
-    while a profiler records, T (`media.trips`, read after the trace)."""
+def _track_eager(media, modes, o, d, u_near, u_far, maj, in_vol, state):
+    """The batch loop: blocks of TRACK_BLOCK trips, T counted on the device,
+    one host read a block (`host_reads.media.delta_track`, ceil(T /
+    TRACK_BLOCK) + 1 a call). Returns (the final _Track, T)."""
     c = _Track(t=u_near, tracking=in_vol, real=torch.zeros_like(in_vol), state=state)
     trips = torch.zeros((), dtype=torch.int64, device=o.device)
     done = 0
-    count("media.track_calls")
     while done < HARD_TRACK_CAP and read_bool("media.delta_track", c.tracking.any()):
         for _ in range(min(TRACK_BLOCK, HARD_TRACK_CAP - done)):
             trips = trips + c.tracking.any()
             c = _track(media, modes, o, d, maj, u_far, c)
         done += TRACK_BLOCK
-    count_device("media.trips", trips)
     return c, trips
+
+
+def _kernel_tracks(o, modes) -> bool:
+    """The tracking kernel takes CUDA tensors whose volumes are all of the
+    modes it computes ('scalar', 'const')."""
+    return (o.device.type == "cuda" and modes is not None
+            and all(m[0] in dt_op.KINDS for m in modes))
+
+
+@spanned("ctl.media.track")
+@torch.no_grad()
+def delta_track(media: Media, modes, o, d, u_near, u_far, maj, in_vol, state):
+    """The tracking loop of `sample_distance`: returns (t, real, T), T an
+    int64 0-dim device tensor. On CUDA tensors whose volumes are all 'scalar'
+    or 'const' the kernel of ops/delta_track runs the trips (no host read);
+    on CPU tensors, with no modes or with a 'gen' volume, the eager loop
+    (`_track_eager`, counted in `media.track.eager`). It records no graph:
+    JAX's while loop carries no tangent (its inputs are stop-gradient values,
+    media.py:625-651), and a graph here would save every trip's lookups for
+    a backward that never reads them. Runs inside the span
+    `ctl.media.track`; counts `media.track_calls` and, while a profiler
+    records, T (`media.trips`, read after the trace)."""
+    count("media.track_calls")
+    if _kernel_tracks(o, modes):
+        vols = dt_op.Volumes(media.box_min, media.box_max, media.active, media.sigma_a,
+                             media.sigma_s, media.grid_data, modes)
+        t, real, trips = dt_op.delta_track(vols, o, d, u_near, u_far, maj, in_vol, state)
+    else:
+        count("media.track.eager")
+        c, trips = _track_eager(media, modes, o, d, u_near, u_far, maj, in_vol, state)
+        t, real = c.t, c.real
+    count_device("media.trips", trips)
+    return t, real, trips
 
 
 def sample_distance(media: Media, o, d, t_min, t_max, sampler: Sampler, modes=None):
@@ -570,12 +601,13 @@ def sample_distance(media: Media, o, d, t_min, t_max, sampler: Sampler, modes=No
     u_far = torch.where(in_vol, u_far, 0.0)
     maj = torch.clamp(maj, min=1e-6).detach()
 
-    c, trips = delta_track(media, modes, o, d, u_near, u_far, maj, in_vol, sampler.state)
+    t_trk, real, trips = delta_track(media, modes, o, d, u_near, u_far, maj, in_vol,
+                                     sampler.state)
     sampler = sampler.skip(2 * trips)
 
-    scatter = in_vol & c.real
+    scatter = in_vol & real
     t_far = torch.clamp(t_max, max=1e7)
-    t_s = torch.where(scatter, c.t.detach(), t_far.detach())
+    t_s = torch.where(scatter, t_trk.detach(), t_far.detach())
     p_s = o.detach() + d.detach() * t_s[..., None]
 
     # Delta tracking draws the collision from the exact marginal of the

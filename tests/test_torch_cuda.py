@@ -31,6 +31,10 @@ generate_fits' quadrature against the CPU port's as each test states.
 A 'scalar' volume's transmittance kernel is bit-equal to its plain version
 on the plume's 2^20 segment and shadow rays, its backward within 1e-5 of
 the largest entry and bit-equal to itself, one launch a call.
+The tracking kernel's t, real and T equal the eager loop's on each of a
+1024^2 plume pass's six calls (2^20 lanes), a 256^2 plume image is
+bit-equal on the two paths, and on the kernel's path a bounce launches it
+once, reads nothing back and counts the T its sampler states imply.
 The sharded volume step on four NCCL ranks (skips with fewer than four
 cards): the summed gradient bit-equal on every rank, and within 1e-5 of
 each leaf's largest entry of one card's step over the same four blocks of
@@ -1416,6 +1420,111 @@ def test_transmittance_kernel_grid_sizes(dev, res):
     ref, ref_acc = tr_op.transmittance_plain(vol, m.grid_data, st, o, d, 1e-3, t_max)
     assert torch.equal(out, ref) and torch.equal(acc, ref_acc)
     assert bool((out < 1).any())
+
+
+def _plume_on(dev):
+    from cudatracerlib_tpu_torch.scene import media
+
+    scene = cornell_box(device=dev)
+    return scene, media.Media.build(media.plume_records(scene.bvh.world_min,
+                                                        scene.bvh.world_max), device=dev)
+
+
+@pytest.fixture(scope="module")
+def plume_track_calls(dev):
+    """The tracking calls of a plume pass on the card at 1024x1024, 1 spp,
+    depth 6 (2^20 lanes each): `delta_track`'s arguments, cloned."""
+    from cudatracerlib_tpu_torch.render import volpath
+    from cudatracerlib_tpu_torch.scene import media
+
+    scene, plume = _plume_on(dev)
+    calls, real = [], media.delta_track
+    keep = lambda x: x.clone() if isinstance(x, torch.Tensor) else x  # noqa: E731
+
+    def record(*args):
+        calls.append(tuple(keep(a) for a in args))
+        return real(*args)
+
+    media.delta_track = record
+    try:
+        with torch.no_grad():
+            volpath.render_vol(scene, plume, 1024, 1024, 1, 3, pt.PTConfig(max_depth=6))
+        torch.cuda.synchronize()
+    finally:
+        media.delta_track = real
+    assert len(calls) == 6 and all(c[2].shape == (1 << 20, 3) for c in calls)
+    return calls
+
+
+def test_tracking_kernel_equals_the_eager_loop(dev, plume_track_calls):
+    """On each tracking call of the plume pass the kernel's t is bit-equal to
+    the eager loop's (called directly), real and T equal; one launch a call."""
+    from cudatracerlib_tpu_torch.ops import delta_track as dt_op
+    from cudatracerlib_tpu_torch.scene import media
+
+    for k, args in enumerate(plume_track_calls):
+        before = dt_op.launches["fwd"]
+        t, real, T = media.delta_track(*args)
+        c, T_eager = media._track_eager(*args)
+        torch.cuda.synchronize()
+        assert dt_op.launches["fwd"] == before + 1, k
+        assert T.dtype == torch.int64 and T.dim() == 0 and int(T) == int(T_eager) > 0, k
+        assert torch.equal(t, c.t) and torch.equal(real, c.real), k
+        assert bool(real.any()) and bool((args[7] & ~real).any()), k
+
+
+def test_volume_render_bit_equal_on_both_tracking_paths(dev, monkeypatch):
+    """A 256^2, 2-spp plume image with tracking in the kernel (six launches)
+    and in the eager loop (none) is bit-equal."""
+    from cudatracerlib_tpu_torch.ops import delta_track as dt_op
+    from cudatracerlib_tpu_torch.render import volpath
+    from cudatracerlib_tpu_torch.scene import media
+
+    scene, plume = _plume_on(dev)
+    cfg = pt.PTConfig(max_depth=6)
+    imgs = []
+    for kernel in (True, False):
+        if not kernel:
+            monkeypatch.setattr(media, "_kernel_tracks", lambda o, modes: False)
+        before = dt_op.launches["fwd"]
+        with torch.no_grad():
+            imgs.append(volpath.render_vol(scene, plume, 256, 256, 2, 5, cfg))
+        torch.cuda.synchronize()
+        assert dt_op.launches["fwd"] == before + (6 if kernel else 0)
+    assert bool(torch.isfinite(imgs[0]).all()) and float(imgs[0].mean()) > 0
+    assert torch.equal(imgs[0], imgs[1])
+
+
+def test_tracking_kernel_counters(dev, monkeypatch):
+    """Under a profiler, each bounce of a plume pass on the card launches the
+    tracking kernel once, reads nothing back for it, runs no eager loop and
+    counts as `media.trips` the T its lanes' sampler states imply."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from cudatracerlib_tpu_torch.render import volpath
+    from cudatracerlib_tpu_torch.utils import timing
+
+    scene, plume = _plume_on(dev)
+    seen, inner = [], volpath.vol_bounce
+
+    def bounce(scene, media, config, carry, depth):
+        before = int(carry.sampler.state[0])
+        timing.reset_counters()
+        out = inner(scene, media, config, carry, depth)
+        seen.append((before, int(out.sampler.state[0]), timing.counters(profiled=True)))
+        return out
+
+    monkeypatch.setattr(volpath, "vol_bounce", bounce)
+    with profile(activities=[ProfilerActivity.CPU]), torch.no_grad():
+        volpath.render_vol(scene, plume, 256, 256, 2, 7, pt.PTConfig(max_depth=6))
+    assert len(seen) == 6
+    for before, after, c in seen:
+        T = volpath.tracking_trips(before, after)
+        assert c["launches.delta_track.fwd"] == 1 and c["media.track_calls"] == 1
+        assert c.get("host_reads.media.delta_track", 0) == 0
+        assert c.get("media.track.eager", 0) == 0
+        assert c["media.trips"] == T
+    assert max(volpath.tracking_trips(b, a) for b, a, _ in seen) > 0
 
 
 VOL4_W, VOL4_SPP, VOL4_SEED, VOL4_LEAVES = 64, 4, 5, ("grid_data", "sigma_a", "sigma_s")

@@ -52,6 +52,7 @@ MODULES = [
     "cudatracerlib_tpu_torch.models.gmm",
     "cudatracerlib_tpu_torch.models.grid",
     "cudatracerlib_tpu_torch.native",
+    "cudatracerlib_tpu_torch.ops.delta_track",
     "cudatracerlib_tpu_torch.ops.intersect_bvh",
     "cudatracerlib_tpu_torch.ops.intersect_dense",
     "cudatracerlib_tpu_torch.ops.photon_gather",
